@@ -1,0 +1,102 @@
+"""The port stands alone: no JAX, no module of the JAX package.
+
+Every module of ``filodb_tpu_torch`` is imported in a fresh interpreter,
+which must then hold neither ``jax`` nor ``filodb_tpu`` / ``filodb_tpu.*``
+(note the prefix: ``filodb_tpu_torch`` itself starts with ``filodb_tpu``).
+And the device policy: without a card, building a store or an engine
+without ``device=`` raises instead of falling back to the CPU.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import filodb_tpu_torch
+from filodb_tpu_torch.core.chunkstore import SeriesStore
+from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
+from filodb_tpu_torch.core.schemas import GAUGE
+from filodb_tpu_torch.device import DeviceUnavailable
+from filodb_tpu_torch.query.engine import QueryEngine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_modules():
+    """Every Python module of the package (built shared libraries such as
+    the native part-set table are not modules)."""
+    return sorted(m.name for m in pkgutil.walk_packages(
+        filodb_tpu_torch.__path__, "filodb_tpu_torch.")
+        if m.module_finder.find_spec(m.name).origin.endswith(".py"))
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = port_modules()
+    assert "filodb_tpu_torch.ops.fusedgrid" in mods
+    assert "filodb_tpu_torch.query.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in set(sys.modules) - before"
+        " if m == 'jax' or m.startswith('jax.')"
+        " or m == 'filodb_tpu' or m.startswith('filodb_tpu.'))\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_no_source_file_names_jax_or_the_jax_package():
+    """Static twin of the subprocess check (it also holds on an interpreter
+    that imported JAX before the port did)."""
+    pkg = os.path.dirname(filodb_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, f)) as fh:
+                tree = ast.parse(fh.read())
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module]
+                else:
+                    continue
+                for name in names:
+                    top = name.split(".")[0]
+                    assert top not in ("jax", "jaxlib", "filodb_tpu"), (f, name)
+
+
+def test_no_card_and_no_cpu_request_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to it")
+    with pytest.raises(DeviceUnavailable):
+        SeriesStore(8, 16)
+    with pytest.raises(DeviceUnavailable):
+        TimeSeriesMemStore()
+    ms = TimeSeriesMemStore(device="cpu")
+    with pytest.raises(DeviceUnavailable):
+        ms.setup("p", GAUGE, 0, StoreConfig(max_series_per_shard=8,
+                                            samples_per_series=16,
+                                            device="cuda"))
+    with pytest.raises(DeviceUnavailable):
+        QueryEngine(ms, "p")
+    # asking for the CPU works
+    ms.setup("p", GAUGE, 0, StoreConfig(max_series_per_shard=8,
+                                        samples_per_series=16))
+    assert QueryEngine(ms, "p", device="cpu").device.type == "cpu"
+
+
+def test_full_f32_matmuls_are_set():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
