@@ -25,13 +25,41 @@ Phases, in order; every check asserts and any failure exits non-zero:
                against the plain twin on the same tensors. Prints the
                engine's single-query p50, K1's time (CUDA events), the plain
                time, K1's bound and launches per query.
+  5. hist kernels — K2 (the fused histogram-quantile kernel) against its
+               plain twin on the card: fn in {rate, increase, delta} x i8/i16
+               dd x S in {512, 4096, 65536} x B in {8, 11, 32} x G in
+               {8, 64}, full and sub-range steps, excluded pool rows with
+               garbage dd and non-finite first_d (counts bit for bit, sums
+               within rtol 1e-5); then one row per group, where every output
+               must match bit for bit; then a shape outside the gate must be
+               refused.
+  6. hist small — 1024 histograms (B = 16) x 100 samples through real
+               ingest and flush into CUDA and CPU stores, residency "off"
+               and "all" (an eighth of the series non-integer or reset: the
+               cohort pool); five histogram_quantile queries on the card
+               against the CPU engine (quantiles within 1e-3), with the same
+               route, and K2 launched once per K2-route query.
+  7. hist scale — the repo's histogram workload: 2^17 series registered
+               through the real ingest path, 300 samples x 32 buckets each
+               installed on the card from a seeded torch.Generator (one row
+               in 16 non-integer), compressed by the shard's flush to i8 dd
+               + cohort pool; histogram_quantile(0.9, sum(rate(h[5m]))) over
+               39 steps through the engine. Prints the engine p50, K2's time
+               (CUDA events) and its fold's, the plain time, K2's bound,
+               launches per query, max |K2 - plain| and resident bytes.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, it exits 2 and
 prints no result.
+
+    python3 chip_smoke.py --profile-hist
+
+instead builds phase 7's store and profiles its query (torch.profiler and
+cProfile, tables also written to chiprun_out/); it prints no result line.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -50,6 +78,19 @@ STEP_MS = 150_000
 BASE_TS = 1_700_000_000_000
 REG_BATCH = 1 << 19
 DATA_BATCH = 1 << 17
+
+# the histogram workload: scripts/bench_suite.py hist_retention/hist_query
+# (after the reference's HistogramQueryBenchmark) at B = 32 — at Tp = 128,
+# B = 64 exceeds K2's Tp * B <= 4096 gate — and 2^17 series in one shard
+HIST_SERIES = 1 << 17
+HIST_SAMPLES = 300
+HIST_CAPACITY = 320
+HIST_BUCKETS = 32
+HIST_STEP_MS = 60_000
+HIST_QUERY = "histogram_quantile(0.9, sum(rate(req_latency[5m])))"
+HIST_BATCH = 1 << 13
+EXCLUDED_GID = 1 << 30
+HIST_FNS = ("rate", "increase", "delta")
 
 SLICE_QUERIES = ("sum(rate(m[5m]))", "avg by (host) (rate(m[5m]))",
                  "stddev(rate(m[5m]))", "sum(increase(m[5m]))",
@@ -411,6 +452,454 @@ def phase_scale(torch, np, fg, pkg, card, dev="cuda"):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def hist_block_dev(torch, S, C, B, wide, seed, dev):
+    """Integer cumulative bucket counts [S, C, B] f32 made on the card, with
+    short rows and two rows of fewer than two samples: quiet (dd fits i8)
+    or, with ``wide``, alternating bursts (dd needs i16)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    inc = torch.poisson(torch.full((S, C, B), 3.0 if wide else 0.3,
+                                   device=dev), generator=g)
+    if wide:
+        inc[:, ::2, :] += 150.0
+    val = torch.cumsum(torch.cumsum(inc, 1), 2)
+    n = torch.full((S,), C, dtype=torch.int32, device=dev)
+    short = torch.randint(0, 4, (S,), generator=g, device=dev) == 0
+    n = torch.where(short, torch.randint(2, C, (S,), generator=g, device=dev,
+                                         dtype=torch.int32), n)
+    n[3], n[4] = 0, 1
+    return val, n
+
+
+def hist_operands_dev(torch, narrow, S, C, B, dtype, gids, seed, dev):
+    """(dd, first_d, n) through the port's encoder on the card; every 16th
+    row from row 8 is an excluded cohort-pool row (gid 1 << 30, written
+    into ``gids``) holding garbage dd and non-finite first_d."""
+    val, n = hist_block_dev(torch, S, C, B, dtype == "i16", seed, dev)
+    dd16, first_d, ok16, ok8, _mono, _exact = narrow.build_narrow_hist(val, n)
+    ok = ok8 if dtype == "i8" else ok16
+    assert bool(ok[n > 0].all()), "encoder refused integer rows"
+    dd = dd16.to(torch.int8) if dtype == "i8" else dd16
+    pool = torch.arange(8, S, 16, device=dev)
+    gids[pool] = EXCLUDED_GID
+    lim = 127 if dtype == "i8" else 32767
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dd[pool] = torch.randint(-lim, lim, (len(pool), C, B), generator=g,
+                             device=dev).to(dd.dtype)
+    first_d[pool[0]] = float("nan")
+    if len(pool) > 1:
+        first_d[pool[1]] = float("inf")
+    return dd.contiguous(), first_d.contiguous(), n
+
+
+def k2_vs_plain(fr, fn, dd, first_d, n, gids, ops, G, exact: bool, what):
+    """K2 against its plain twin on the same card tensors: counts bit for
+    bit; sums bit for bit when ``exact`` (one row per group: no fold
+    rounds), else within rtol 1e-5 of the largest magnitude. Returns the
+    max |diff|."""
+    import numpy as np
+    got = [t.cpu().numpy() for t in fr.fused_hist_kernel(
+        fn, WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids, ops, G)]
+    ref = [t.cpu().numpy() for t in fr.fused_hist_map_plain(
+        fn, WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids, ops.band, ops.plo,
+        ops.lo, ops.hi, ops.rel, G)]
+    assert np.isfinite(got[0]).all() and np.isfinite(ref[0]).all(), what
+    assert np.array_equal(got[1], ref[1]), (what, "counts differ")
+    if exact:
+        bad = got[0] != ref[0]
+        assert not bad.any(), (what, "not bit-exact", int(bad.sum()),
+                               float(np.abs(got[0] - ref[0]).max()))
+    else:
+        scale = float(np.abs(ref[0]).max(initial=0.0))
+        np.testing.assert_allclose(got[0], ref[0], rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=what)
+    return float(np.abs(got[0] - ref[0]).max(initial=0.0))
+
+
+def phase_hist_kernels(torch, np, fr, narrow, dev):
+    """K2 against its plain twin over fn x i8/i16 x S x B x G, sub-range
+    and before-the-data steps, excluded rows; then bit-exact with one row
+    per group; then the gate refusal."""
+    C = 128
+    worst, checks = 0.0, 0
+    steps = {"full": np.arange(-50_000, (C - 1) * INTERVAL_MS + 1, 30_000,
+                               dtype=np.int64),
+             "sub": np.arange(60 * INTERVAL_MS, 100 * INTERVAL_MS + 1, 20_000,
+                              dtype=np.int64)}
+    i = 0
+    for S in (512, 4096, 65536):
+        for B in (8, 11, 32):
+            for G in (8, 64):
+                dtype = ("i8", "i16")[i % 2]
+                kind = ("full", "sub")[(i // 2) % 2]
+                gids = torch.randint(0, G, (S,), device=dev, dtype=torch.int32,
+                                     generator=torch.Generator(device=dev)
+                                     .manual_seed(i))
+                dd, first_d, n = hist_operands_dev(torch, narrow, S, C, B,
+                                                   dtype, gids, 200 + i, dev)
+                out_ts = steps[kind]
+                Tp = -(-len(out_ts) // 128) * 128
+                ops = fr.hist_device_operands(C, Tp, out_ts.tobytes(),
+                                              WINDOW_MS, 0, INTERVAL_MS, dev)
+                for fn in HIST_FNS:
+                    worst = max(worst, k2_vs_plain(
+                        fr, fn, dd, first_d, n, gids, ops, G, False,
+                        f"S={S} B={B} G={G} {dtype} {kind} {fn}"))
+                    checks += 1
+                i += 1
+    # one row per group: every sum is a single contribution, so the window
+    # deltas, first samples and extrapolation must agree bit for bit
+    exact = 0
+    for dtype in ("i8", "i16"):
+        for B in (8, 32):
+            gids = torch.arange(64, device=dev, dtype=torch.int32)
+            dd, first_d, n = hist_operands_dev(torch, narrow, 64, C, B, dtype,
+                                               gids, 300 + B, dev)
+            for kind, out_ts in steps.items():
+                Tp = -(-len(out_ts) // 128) * 128
+                ops = fr.hist_device_operands(C, Tp, out_ts.tobytes(),
+                                              WINDOW_MS, 0, INTERVAL_MS, dev)
+                for fn in HIST_FNS:
+                    k2_vs_plain(fr, fn, dd, first_d, n, gids, ops, 64, True,
+                                f"exact {dtype} B={B} {kind} {fn}")
+                    exact += 1
+    # a shape outside the gate never runs anything
+    ops = fr.hist_device_operands(C, 128, steps["full"].tobytes(), WINDOW_MS,
+                                  0, INTERVAL_MS, dev)
+    wide = torch.zeros((512, C, 64), dtype=torch.int8, device=dev)
+    zeros = torch.zeros(512, dtype=torch.int32, device=dev)
+    before = fr.fused_hist_kernel.launches
+    try:
+        fr.fused_hist_kernel("rate", WINDOW_MS, INTERVAL_MS, wide,
+                             torch.zeros((512, 64), device=dev), zeros, zeros,
+                             ops, 8)
+        raise AssertionError("K2 accepted Tp * B = 8192")
+    except ValueError:
+        pass
+    assert fr.fused_hist_kernel.launches == before
+    torch.cuda.synchronize()
+    return checks, exact, worst
+
+
+def ingest_hist_small(RecordBuilder, PROM_HISTOGRAM, shards, np, n_series,
+                      B):
+    """``n_series`` histograms x 100 samples through the real ingest path:
+    integer cumulative counts, one series in 16 scaled by 0.3 (non-integer:
+    the cohort pool), one in 16 with a counter reset (the pool too)."""
+    rng = np.random.default_rng(5)
+    les = np.concatenate([2.0 ** np.arange(B - 1), [np.inf]])
+    n_samples, per = 100, 256
+    ts = BASE_TS + np.arange(n_samples, dtype=np.int64) * INTERVAL_MS
+    for c0 in range(0, n_series, per):
+        b = RecordBuilder(PROM_HISTOGRAM, bucket_les=les)
+        for s in range(c0, c0 + per):
+            c = np.cumsum(np.cumsum(rng.poisson(0.3, (n_samples, B)), axis=0),
+                          axis=1).astype(np.float64)
+            if s % 16 == 7:
+                c = c * 0.3
+            elif s % 16 == 11:
+                c[60:] -= c[60]
+            b.add_batch({"_metric_": "h", "host": f"h{s % 8}",
+                         "inst": f"i{s}"}, ts, c)
+        cont = b.build()
+        for sh in shards:
+            sh.ingest(cont)
+    for sh in shards:
+        sh.flush()
+
+
+HIST_SMALL_QUERIES = (
+    "histogram_quantile(0.9, sum(rate(h[5m])))",
+    "histogram_quantile(0.5, sum by (host) (increase(h[5m])))",
+    "histogram_quantile(0.99, sum(delta(h[5m])))",
+    "histogram_quantile(0.9, sum(sum_over_time(h[5m])))",
+    'histogram_quantile(0.9, sum(rate(h{host="h3"}[5m])))')
+
+
+def phase_hist_small(torch, np, fr, pkg, devs=("cuda", "cpu")):
+    """Histogram engine, card against CPU, through real ingest and flush in
+    both residencies; K2 must launch once per K2-route query."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, PROM_HISTOGRAM, \
+        QueryEngine = pkg
+    launched = {}
+    for mode in ("off", "all"):
+        engines, shards = {}, []
+        for dev in devs:
+            ms = TimeSeriesMemStore(device=dev)
+            shards.append(ms.setup("p", PROM_HISTOGRAM, 0, StoreConfig(
+                max_series_per_shard=1024, samples_per_series=128,
+                flush_batch_size=10**9, compressed_residency=mode,
+                device=dev)))
+            engines[dev] = QueryEngine(ms, "p", device=dev)
+        ingest_hist_small(RecordBuilder, PROM_HISTOGRAM, shards, np, 1024, 16)
+        for sh in shards:
+            assert sh.store.is_narrow_resident == (mode == "all"), mode
+        if mode == "all":
+            _dd, _fd, ok = shards[0].store.hist_operands()
+            assert int((~ok[:1024]).sum()) == 128, int((~ok[:1024]).sum())
+        start, end, step = BASE_TS + 300_000, BASE_TS + 990_000, 30_000
+        fr.fused_hist_kernel.launches = 0
+        got = {q: engines[devs[0]].query_range(q, start, end, step)
+               for q in HIST_SMALL_QUERIES}
+        launched[mode] = fr.fused_hist_kernel.launches
+        for q in HIST_SMALL_QUERIES:
+            g, r = got[q], engines[devs[1]].query_range(q, start, end, step)
+            assert [k.labels for k in g.matrix.keys] == \
+                [k.labels for k in r.matrix.keys], q
+            gv = np.asarray(g.matrix.values, np.float64)
+            rv = np.asarray(r.matrix.values, np.float64)
+            assert gv.shape == rv.shape and gv.shape[1] == len(r.matrix.out_ts)
+            assert np.isfinite(rv).any(), q
+            # quantiles within 1e-3: the partials agree to 1e-5 and the
+            # interpolation divides by one bucket's count difference
+            np.testing.assert_allclose(gv, rv, rtol=1e-3, atol=1e-6,
+                                       equal_nan=True, err_msg=f"{mode} {q}")
+            assert g.stats.fused_kernels == r.stats.fused_kernels, q
+            assert g.exec_path.split("[")[0] == r.exec_path.split("[")[0], \
+                (q, g.exec_path, r.exec_path)
+        fused = sum(got[q].stats.fused_kernels for q in HIST_SMALL_QUERIES)
+        assert launched[mode] == fused == (3 if mode == "all" else 0), \
+            (mode, launched[mode], fused)
+    return launched["all"]
+
+
+def build_hist_scale(torch, np, pkg, dev):
+    """2^17 histogram series registered through the real ingest path, then
+    their 300 samples x 32 buckets installed on the card from a seeded
+    torch.Generator (integer counts; one row in 16 scaled by 0.3), then the
+    shard's flush compresses the block through compress_prepare /
+    compress_commit, as after any ingest."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, PROM_HISTOGRAM, \
+        QueryEngine = pkg
+    S, B = HIST_SERIES, HIST_BUCKETS
+    les = np.concatenate([2.0 ** np.arange(B - 1), [np.inf]])
+    ms = TimeSeriesMemStore(device=dev)
+    shard = ms.setup("bench", PROM_HISTOGRAM, 0, StoreConfig(
+        max_series_per_shard=S, samples_per_series=HIST_CAPACITY,
+        flush_batch_size=10**9, compressed_residency="all", device=dev))
+    t0 = time.perf_counter()
+    b = RecordBuilder(PROM_HISTOGRAM, bucket_les=les)
+    b.add_series_batch({"_metric_": "req_latency",
+                        "host": [f"h{i}" for i in range(S)]},
+                       BASE_TS, np.zeros(B))
+    shard.ingest(b.build())
+    shard.discard_staged()      # registration only: data installed below
+    reg_s = time.perf_counter() - t0
+    assert shard.num_series == S
+    st = shard.store
+    g = torch.Generator(device=dev).manual_seed(17)
+    rate = torch.full((HIST_BATCH, HIST_SAMPLES, B), 0.3, device=dev)
+    with shard.lock:
+        for r0 in range(0, S, HIST_BATCH):
+            c = torch.cumsum(torch.cumsum(torch.poisson(rate, generator=g), 1),
+                             2)
+            rows = torch.arange(r0, r0 + HIST_BATCH, device=dev)
+            c = torch.where((rows % 16 == 15)[:, None, None], c * 0.3, c)
+            st.val[r0:r0 + HIST_BATCH, :HIST_SAMPLES] = c
+        row = BASE_TS + torch.arange(HIST_SAMPLES, device=dev) * INTERVAL_MS
+        st.ts[:, :HIST_SAMPLES] = row
+        st.n.fill_(HIST_SAMPLES)
+        st.n_host[:] = HIST_SAMPLES
+        st.first_ts[:] = BASE_TS
+        st.last_ts[:] = BASE_TS + (HIST_SAMPLES - 1) * INTERVAL_MS
+        st.grid_base, st.grid_interval, st.grid_ok = BASE_TS, INTERVAL_MS, True
+        st.stats.samples_appended += S * HIST_SAMPLES
+    raw_bytes = st.resident_sample_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shard.flush()
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    assert st.is_narrow_resident and st.val is None and st.ts is None
+    dd, _first_d, ok = st.hist_operands()
+    assert dd.dtype == torch.int8, dd.dtype
+    assert int((~ok).sum()) == S // 16, int((~ok).sum())
+    return (QueryEngine(ms, "bench", device=dev), shard, reg_s, comp_s,
+            raw_bytes)
+
+
+def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
+    from filodb_tpu_torch.query import engine as qe
+    from filodb_tpu_torch.query.exec import SelectRawPartitionsExec, _pad_steps
+    from filodb_tpu_torch.core.filters import Equals
+    engine, shard, reg_s, comp_s, raw_bytes = build_hist_scale(
+        torch, np, pkg, dev)
+    st = shard.store
+    res_bytes = st.resident_sample_bytes()
+    log(f"hist scale: registered {HIST_SERIES} series in {reg_s:.1f} s; "
+        f"compressed at flush in {comp_s:.2f} s; resident sample bytes "
+        f"{raw_bytes / 1e9:.3f} GB raw -> {res_bytes / 1e9:.3f} GB "
+        f"({raw_bytes / res_bytes:.2f}x), dd int8 + {HIST_SERIES // 16} "
+        "pool rows")
+    start = BASE_TS + 600_000
+    end = BASE_TS + (HIST_SAMPLES - 10) * INTERVAL_MS
+    for _ in range(2):                                 # load + warm
+        engine.query_range(HIST_QUERY, start, end, HIST_STEP_MS)
+    torch.cuda.synchronize()
+    # the main path: counts from 0, read right after
+    fr.fused_hist_kernel.launches = 0
+    lat, r = [], None
+    for _ in range(11):
+        t0 = time.perf_counter()
+        r = engine.query_range(HIST_QUERY, start, end, HIST_STEP_MS)
+        lat.append((time.perf_counter() - t0) * 1000)
+    launches = fr.fused_hist_kernel.launches
+    assert launches == 11, launches
+    assert r.exec_path == ("fused-hist-narrow[cuda]" if dev == "cuda"
+                           else "fused-hist-narrow[plain]"), r.exec_path
+    p50 = float(np.percentile(lat, 50))
+    vals = np.asarray(r.matrix.values)
+    out_ts = np.arange(start, end + 1, HIST_STEP_MS, dtype=np.int64)
+    assert vals.shape == (1, len(out_ts)) and np.isfinite(vals).all(), \
+        vals.shape
+
+    # the same selection as the engine's, then K2 against its plain twin
+    # and the engine's quantiles against the twin's
+    leaf = SelectRawPartitionsExec(
+        shard=0, filters=(Equals("_metric_", "req_latency"),),
+        start_ms=start - WINDOW_MS, end_ms=end)
+    ctx = engine._ctx()
+    with shard.lock:
+        data = leaf.do_execute(ctx)
+    dd, first_d, bad = data.hist_narrow
+    S, C, B = dd.shape
+    out_eval, T = _pad_steps(out_ts)
+    gids, corr = qe.pool_correction(data, np.zeros(S, np.int32), bad, 8,
+                                    "rate", out_eval, WINDOW_MS)
+    gids_t = torch.from_numpy(gids).to(dd.device)
+    Tp = -(-len(out_eval) // 128) * 128
+    ops = fr.hist_device_operands(C, Tp, out_eval.tobytes(), WINDOW_MS,
+                                  BASE_TS, INTERVAL_MS, dd.device)
+    n = data.n.contiguous()
+    worst = k2_vs_plain(fr, "rate", dd, first_d, n, gids_t, ops, 8, False,
+                        "hist scale")
+    ps, pc = fr.fused_hist_map_plain("rate", WINDOW_MS, INTERVAL_MS, dd,
+                                     first_d, n, gids_t, ops.band, ops.plo,
+                                     ops.lo, ops.hi, ops.rel, 8)
+    want = fr.hist_finish(0.9, data.bucket_les, ps, pc, len(out_eval), B,
+                          corr)[:1, :T].cpu().numpy()
+    # quantiles within 1e-3: the partials agree to 1e-5 (K2 vs twin above)
+    # and the interpolation divides by one bucket's count difference
+    np.testing.assert_allclose(vals, want, rtol=1e-3, err_msg="hist quantile")
+
+    k_ms = cuda_ms(lambda: fr.fused_hist_kernel(
+        "rate", WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids_t, ops, 8),
+        reps=20)
+    fold_ms = k2_fold_ms(torch, fr, S, B, Tp, 8, ops, dd.device)
+    p_ms = cuda_ms(lambda: fr.fused_hist_map_plain(
+        "rate", WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids_t, ops.band,
+        ops.plo, ops.lo, ops.hi, ops.rel, 8), reps=3, warm=1)
+    # what this run's data needs: the rows K2 reads (in a group, >= 2
+    # samples) up to the last cell any step needs, their first_d, every
+    # row's n and gid, the [2, G, Tp*B] output; ~40 f32 operations per
+    # (row, step, bucket) of a window with >= 2 samples, B adds per cell
+    key, bw, f32 = peaks_for(card)
+    live = int(((gids < 8) & (data.n.cpu().numpy() >= 2)).sum())
+    cmax = int(ops.cells.max())
+    lo_h, hi_h = ops.lo.cpu().numpy()[0], ops.hi.cpu().numpy()[0]
+    steps2 = int(((np.minimum(hi_h, HIST_SAMPLES - 1)
+                   - np.maximum(lo_h, 0) + 1) >= 2).sum())
+    nbytes = (live * ((cmax + 1) * B * dd.element_size() + B * 4)
+              + S * 8 + 2 * 8 * Tp * B * 4)
+    flops = live * float(steps2 * B * 40 + (cmax + 1) * B)
+    bound_ms = max(nbytes / bw, flops / f32) * 1e3
+    bound_by = "bytes" if nbytes / bw >= flops / f32 else "operations"
+    log(f"hist scale [{card}]: engine single-query p50 {p50:.3f} ms "
+        f"({HIST_QUERY}, {T} steps, 11 queries, {launches} K2 launches); "
+        f"last query's stages (host clock, ms) "
+        f"{ {k: round(v, 3) for k, v in r.stats.stage_ms.items()} }")
+    log(f"hist scale [{card}]: K2 {k_ms:.4f} ms by CUDA events (fold "
+        f"{fold_ms:.4f} ms of it); plain twin {p_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at {key}'s "
+        f"{bw / 1e12:.2f} TB/s, {flops / 1e9:.2f} GFLOP at "
+        f"{f32 / 1e12:.0f} TFLOP/s f32)")
+    log(f"hist scale [{card}]: library call: none (no single PyTorch call "
+        f"computes this function); launches per query {launches / 11:.2f}; "
+        f"K2 vs plain max |diff| {worst:.3g}")
+    return dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k2_fold_ms(torch, fr, S, B, Tp, G, ops, dev):
+    """Device ms of K2's second pass alone, on a scratch of the shape K2's
+    launch at these operands uses."""
+    _rp, _rpb, nchunks, _ts, _nt = fr.k2_launch_shape(
+        S, B, Tp, G, ops.cells.numel(), ops.t0, ops.t1)
+    scratch = torch.zeros((nchunks, 2, G, Tp * B), device=dev)
+    out = torch.empty((2, G, Tp * B), device=dev)
+    lib = fr._k2_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def fold():
+        assert lib.fusedhist_fold(scratch.data_ptr(), out.data_ptr(),
+                                  nchunks, 2 * G * Tp * B, stream) == 0
+    return cuda_ms(fold, reps=50)
+
+
+def profile_hist(torch, np, fr, card, pkg, queries: int = 5) -> None:
+    """Where one scale-phase histogram query spends its time: host clock
+    and CUDA events per query, torch.profiler's device kernels by total
+    time (and the device's busy share of the host p50), cProfile's host
+    functions by cumulative time. Writes the two tables to chiprun_out/."""
+    import cProfile
+    import io
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+    engine, _shard, _reg, _comp, _raw = build_hist_scale(torch, np, pkg,
+                                                          "cuda")
+    start = BASE_TS + 600_000
+    end = BASE_TS + (HIST_SAMPLES - 10) * INTERVAL_MS
+
+    def run():
+        engine.query_range(HIST_QUERY, start, end, HIST_STEP_MS)
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    host, dev = [], []
+    for _ in range(queries):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    p50 = float(np.percentile(host, 50))
+    log(f"[{card}] hist query host ms p50 {p50:.3f}; events around the "
+        f"query p50 {np.percentile(dev, 50):.3f} ms")
+    fr.fused_hist_kernel.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(queries):
+            run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # device rows only: an aten op's row repeats its kernels' time
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation) / 1e3 / queries
+    table = events.table(sort_by="self_device_time_total", row_limit=20)
+    log(table)
+    log(f"[{card}] device time per query {dev_ms:.3f} ms over {queries} "
+        f"profiled queries, busy share of the host p50 {dev_ms / p50:.3f}; "
+        f"K2 launches {fr.fused_hist_kernel.launches}")
+    pr = cProfile.Profile()
+    pr.enable()
+    for _ in range(queries):
+        run()
+    pr.disable()
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(30)
+    log(buf.getvalue())
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile_hist_query.txt"), "w") as f:
+        f.write(f"card: {card}\n{table}\n{buf.getvalue()}")
+
+
 def main() -> int:
     try:
         import torch
@@ -430,14 +919,22 @@ def main() -> int:
 
     from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
     from filodb_tpu_torch.core.record import RecordBuilder
-    from filodb_tpu_torch.core.schemas import GAUGE
+    from filodb_tpu_torch.core.schemas import GAUGE, PROM_HISTOGRAM
     from filodb_tpu_torch.ops import fusedgrid as fg
-    from filodb_tpu_torch.ops import kernels
+    from filodb_tpu_torch.ops import fusedresident as fr
+    from filodb_tpu_torch.ops import kernels, narrow
     from filodb_tpu_torch.query.engine import QueryEngine
     pkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine)
+    hpkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, PROM_HISTOGRAM,
+            QueryEngine)
 
     t_all = time.perf_counter()
     card = card_line()
+    if sys.argv[1:2] == ["--profile-hist"]:
+        # not part of the smoke run: the profile behind PERF.md section 5
+        kernels.build()
+        profile_hist(torch, np, fr, card, hpkg)
+        return 0
     log(f"build: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
@@ -461,7 +958,27 @@ def main() -> int:
 
     t0 = time.perf_counter()
     k1 = phase_scale(torch, np, fg, pkg, card)
-    log(f"scale: done in {time.perf_counter() - t0:.1f} s; total "
+    log(f"scale: done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    checks, exact, worst5 = phase_hist_kernels(torch, np, fr, narrow, "cuda")
+    log(f"hist kernels: fusedhist_k2 ({checks} checks against the plain "
+        f"twin, max |diff| {worst5:.3g}; {exact} bit-exact checks with one "
+        f"row per group; {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    small = phase_hist_small(torch, np, fr, hpkg)
+    log(f"hist small: {len(HIST_SMALL_QUERIES)} queries x 2 residencies on "
+        f"1024 histograms match the CPU engine; K2 launches {small} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    k2 = phase_hist_scale(torch, np, fr, card, hpkg)
+    log(f"hist scale: done in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     table = {"kernels": [{
@@ -471,6 +988,13 @@ def main() -> int:
         "launches": k1["launches"], "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None}, {
+        "name": "fusedhist_k2", "route": "cuda",
+        "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",
+        "replaces": "filodb_tpu/ops/fusedresident.py:282",
+        "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None}]}
     print(card, flush=True)
     print(json.dumps(table), flush=True)

@@ -1,10 +1,12 @@
 """Device-resident columnar series store: preallocated tensors per shard.
 
-Port of the raw path of ``filodb_tpu/core/chunkstore.py`` (ref:
-memory/.../BlockManager.scala, TimeSeriesPartition.scala write buffers ->
-frozen chunks). Layout per (shard, schema): ``ts[S, C] int64`` (pad =
-+sentinel), ``val[S, C]`` (f32 by default; f64 for parity stores),
-``n[S] int32`` valid counts. Query kernels read these tensors directly.
+Port of ``filodb_tpu/core/chunkstore.py`` (ref: memory/.../BlockManager.scala,
+TimeSeriesPartition.scala write buffers -> frozen chunks). Layout per
+(shard, schema): ``ts[S, C] int64`` (pad = +sentinel), ``val[S, C]`` (f32
+by default; f64 for parity stores) or ``val[S, C, B]`` cumulative bucket
+counts for a histogram column, ``n[S] int32`` valid counts, and for
+multi-column schemas one named [S, C] tensor per extra scalar column
+(``extra``). Query kernels read these tensors directly.
 
 Where the reference appends through a jitted scatter that DONATES its input
 buffers (XLA's in-place update of an immutable array), the port writes into
@@ -14,8 +16,13 @@ lock therefore guards the same thing it guards in the reference — a query
 captures the tensors and launches its kernels under it, a flush mutates
 them under it.
 
-Compressed residency (narrow values, elided timestamps) arrives with a later
-slice of the port.
+Compressed residency, histogram stores: after a flush the [S, C, B] bucket
+block compresses to an i8/i16 2D-delta block (ops/narrow.py) plus a raw-f32
+cohort pool for the rows that do not round-trip, and the f32 block is
+released; on a grid-contiguous store the i64 timestamp block is released
+too (derived from first_ts, n and the interval). Appends rehydrate; the
+next flush re-compresses. The scalar narrow forms (quant16, delta16, delta8)
+come with the scalar residency slice.
 """
 
 from __future__ import annotations
@@ -30,9 +37,17 @@ from ..utils import diagnostics
 
 TS_PAD = np.int64(1) << np.int64(62)   # sentinel > any real timestamp
 
+# the fraction of live rows allowed to fail the bit-exactness contract (kept
+# raw in the cohort pool) before a store declines compression
+COHORT_GATE = 0.25
+
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            torch.float32: torch.float32, torch.float64: torch.float64,
            np.float32: torch.float32, np.float64: torch.float64}
+
+# rows per block of whole-store passes (decode, ts verification): bounded
+# temporaries whatever the store's size
+_BLOCK_ROWS = 1 << 14
 
 
 def _pad_size(m: int) -> int:
@@ -42,6 +57,135 @@ def _pad_size(m: int) -> int:
     while size < m:
         size *= 2
     return size
+
+
+def _decode_hist(dd, first_d, pool, pool_rows, S: int):
+    """The f32 [S, C, B] bucket block from the hist-resident state, v =
+    cumsum_b(first_d + cumsum_c dd) decoded in row blocks (bit-exact for
+    rows the encoder marked ok); pool rows overlay their exact f32 blocks
+    (pad entries carry row S and are dropped, as the reference's scatter
+    does). Cells beyond a row's valid count extend the last frame
+    constantly (the raw store holds zeros there) — every consumer masks by
+    ``n``."""
+    v = torch.empty(dd.shape, dtype=torch.float32, device=dd.device)
+    for i in range(0, dd.shape[0], _BLOCK_ROWS):
+        j = min(i + _BLOCK_ROWS, dd.shape[0])
+        d = first_d[i:j, None, :] + torch.cumsum(dd[i:j].float(), dim=1)
+        v[i:j] = torch.cumsum(d, dim=2)
+    keep = pool_rows < S
+    v[pool_rows[keep].long()] = pool[keep]
+    return v
+
+
+def _decode_hist_rows(dd, first_d, pool, pool_slot, rid):
+    """Decode ONLY the given store rows ([P] ids) of a hist-resident block —
+    minority/pool fixes must not materialize the full [S, C, B] block.
+    Pooled rows copy their raw f32 pool block and are not decoded."""
+    rid = rid.long()
+    slot = pool_slot[rid].long()
+    pooled = slot >= 0
+    out = torch.empty((rid.shape[0],) + tuple(dd.shape[1:]),
+                      dtype=torch.float32, device=dd.device)
+    out[pooled] = pool[slot[pooled]]
+    r = rid[~pooled]
+    d = first_d[r][:, None, :] + torch.cumsum(dd[r].float(), dim=1)
+    out[~pooled] = torch.cumsum(d, dim=2)
+    return out
+
+
+def _derive_ts(first, n, interval: int, C: int):
+    """The i64 timestamp block of a grid-contiguous store from per-row first
+    timestamps: ts[r, k] = first[r] + k * interval for k < n[r] (TS_PAD
+    beyond, and everywhere for empty rows)."""
+    col = torch.arange(C, dtype=torch.int64, device=first.device)[None, :]
+    live = (col < n[:, None]) & (first[:, None] >= 0)
+    return torch.where(live, first[:, None] + col * interval, int(TS_PAD))
+
+
+def _verify_ts(ts, first, n, interval: int, C: int) -> bool:
+    """ts == the derived block, compared in row blocks: a whole-store
+    comparison would hold multi-GB i64 temporaries exactly when device
+    memory is tight."""
+    for i in range(0, ts.shape[0], _BLOCK_ROWS):
+        j = min(i + _BLOCK_ROWS, ts.shape[0])
+        if not bool(torch.equal(ts[i:j], _derive_ts(first[i:j], n[i:j],
+                                                    interval, C))):
+            return False
+    return True
+
+
+class _Deferred:
+    """Base for lazy views of elided store blocks: shape metadata for
+    planning; ``materialize()`` reconstructs. The fused/grid paths plan
+    from the metadata and never materialize."""
+
+    __slots__ = ("_store", "_arr")
+    ndim = 2
+
+    def __init__(self, store: "SeriesStore"):
+        self._store = store
+        self._arr = None
+
+    @property
+    def shape(self):
+        return (self._store.S, self._store.C)
+
+    @property
+    def device(self):
+        return self._store.device
+
+    def dim(self) -> int:
+        return self.ndim
+
+    def materialize(self):
+        if self._arr is None:
+            self._arr = self._build()
+        return self._arr
+
+    def __getitem__(self, idx):
+        return self.materialize()[idx]
+
+
+class DeferredDecodeHist(_Deferred):
+    """Lazy f32 view of a hist-resident store's [S, C, B] bucket block."""
+
+    dtype = torch.float32
+    ndim = 3
+
+    @property
+    def shape(self):
+        return (self._store.S, self._store.C, self._store.nbuckets)
+
+    def _build(self):
+        return self._store.value_block()
+
+    def gather_rows(self, rid):
+        """[P, C, B] f32 of the given rows only (row-wise decode + pool
+        overlay; falls back to a materialized block if one exists or the
+        store changed residency since this view was handed out)."""
+        st = self._store
+        if self._arr is None and st._nhist is not None:
+            dd, first_d, pool, _pp, slot, _ok = st._nhist
+            return _decode_hist_rows(dd, first_d, pool, slot, rid)
+        return self.materialize()[rid.long()]
+
+
+class DeferredTs(_Deferred):
+    """Lazy i64 view of an elided (grid-derived) timestamp block."""
+
+    dtype = torch.int64
+
+    def _build(self):
+        return self._store.ts_block()
+
+    def gather_rows(self, rid):
+        """[P, C] i64 of the given rows only (row-wise derivation)."""
+        st = self._store
+        rid = rid.long()
+        if self._arr is None and st._ts_elided:
+            return _derive_ts(st._first_ts_dev()[rid], st.n[rid],
+                              st.grid_interval, st.C)
+        return self.materialize()[rid]
 
 
 @dataclass
@@ -54,10 +198,16 @@ class SeriesStoreStats:
 
 
 class SeriesStore:
-    """One shard's device store for a non-histogram schema value column."""
+    """One shard's device store for one schema's value columns."""
 
     def __init__(self, max_series: int, capacity: int, dtype="float32",
-                 device=None):
+                 device=None, nbuckets: int = 0, layout=None,
+                 default_col: str | None = None):
+        """``nbuckets`` > 0 makes the default column a [S, C, B] histogram
+        block. ``layout`` (Schema.col_layout) declares multi-column storage:
+        the schema's default column lives in ``val`` and every other data
+        column gets its own named [S, C] tensor in ``extra``, all sharing
+        one ts/n pair."""
         # round the row dimension up to a fused-kernel-friendly shape
         # (multiple of 8 up to 512, of 512 beyond), as the reference does
         m = 8 if max_series <= 512 else 512
@@ -65,11 +215,26 @@ class SeriesStore:
         self.C = capacity
         self.dtype = _DTYPES[dtype]
         self.device = resolve_device(device)
+        self.nbuckets = nbuckets
+        self.layout = layout
+        self.default_col = None
         S = self.S
+        vshape = (S, capacity) if not nbuckets else (S, capacity, nbuckets)
         self.ts = torch.full((S, capacity), int(TS_PAD), dtype=torch.int64,
                              device=self.device)
-        self.val = torch.zeros((S, capacity), dtype=self.dtype,
-                               device=self.device)
+        self.val = torch.zeros(vshape, dtype=self.dtype, device=self.device)
+        self.extra: dict[str, torch.Tensor] = {}
+        if layout is not None:
+            hist = [nm for nm, _o, _w, ih in layout if ih]
+            names = [nm for nm, _o, _w, _ih in layout]
+            self.default_col = (default_col if default_col in names
+                                else hist[0] if hist else layout[-1][0])
+            for nm, _off, _w, is_h in layout:
+                if nm != self.default_col:
+                    assert not is_h, "only one histogram column per schema"
+                    self.extra[nm] = torch.zeros((S, capacity),
+                                                 dtype=self.dtype,
+                                                 device=self.device)
         self.n = torch.zeros(S, dtype=torch.int32, device=self.device)
         # host mirrors: ingest bookkeeping without device->host syncs
         self.n_host = np.zeros(S, np.int32)
@@ -85,6 +250,16 @@ class SeriesStore:
         # the shard attaches its lock so mutations can assert the discipline
         self.owner_lock = None
         self.stats = SeriesStoreStats()
+        # hist-resident state (compressed_residency="all"): (dd i8/i16
+        # [S,C,B], first_d f32 [S,B], pool f32 [Rp,C,B], pp i32 [Rp] (pads
+        # = S), slot i32 [S] (-1 = not pooled), ok_host bool [S]). When set
+        # it IS the only resident value copy and ``val`` is None
+        self._nhist = None
+        # timestamps elided: ``ts`` is None and derived on demand
+        self._ts_elided = False
+        # why the last compression attempt declined ("resets" |
+        # "non-integer" | "range"), for the fallback counter
+        self.residency_decline: str | None = None
 
     @classmethod
     def from_reference_arrays(cls, ts, val, n, grid_base, grid_interval,
@@ -123,6 +298,206 @@ class SeriesStore:
     def _pre_mutate(self, what: str) -> None:
         if self.owner_lock is not None:
             diagnostics.assert_owned(self.owner_lock, what)
+
+    def _first_ts_dev(self):
+        return torch.from_numpy(self.first_ts).to(self.device)
+
+    # -- compressed-resident lifecycle ----------------------------------------
+    #
+    # Reference role: the reference keeps in-memory values ONLY in
+    # compressed form and decompresses on access (doc/compression.md) —
+    # bytes per sample is the capacity lever. After a flush the histogram
+    # block compresses to the narrowest 2D-delta dtype that carries it
+    # bit-exactly and the f32 block is released; rows that do not round-trip
+    # keep their raw f32 in a small cohort pool. Appends rehydrate (write
+    # buffers stay raw in the reference too); the next flush re-compresses.
+    # Queries stream the narrow state (K2), or decode a transient f32 for
+    # general paths.
+
+    def mutation_epoch(self) -> tuple:
+        """Changes whenever a mutation ran (append/compact/free) — the
+        two-phase compression's staleness check."""
+        s = self.stats
+        return (s.samples_appended, s.compactions, s.frees)
+
+    def _cohort_pool(self, bad: np.ndarray):
+        """(pool, pp, slot) for the rows that don't round-trip bit-exactly:
+        their raw f32 rows, the padded row-id vector (pads carry row S and
+        drop on decode), and the per-row pool slot (-1 = not pooled) so
+        row-wise decodes overlay pool values without the full block."""
+        Rp = 1
+        while Rp < len(bad):
+            Rp *= 2
+        pp = np.full(Rp, self.S, np.int32)
+        pp[:len(bad)] = bad
+        idx = torch.from_numpy(np.minimum(pp, self.S - 1).astype(np.int64))
+        pool = self.val[idx.to(self.device)]
+        slot = np.full(self.S, -1, np.int32)
+        slot[bad] = np.arange(len(bad), dtype=np.int32)
+        return (pool, torch.from_numpy(pp).to(self.device),
+                torch.from_numpy(slot).to(self.device))
+
+    def _bad_rows(self, ok_host: np.ndarray):
+        """Live rows failing the bit-exactness contract, or None when they
+        exceed the cohort gate (COHORT_GATE of live rows — raw f32 is then
+        the cheaper residency)."""
+        live = self.n_host > 0
+        bad = np.nonzero(live & ~ok_host)[0].astype(np.int32)
+        if len(bad) > COHORT_GATE * max(int(live.sum()), 1):
+            return None
+        return bad
+
+    @staticmethod
+    def _majority_reason(live_bad: np.ndarray,
+                         reasons: list[tuple[str, np.ndarray]]) -> str:
+        """Classify a residency decline: the first reason (in precedence
+        order) that explains at least as many failing rows as any later
+        one. ``reasons`` maps tag -> per-row failure mask."""
+        counts = [(tag, int((live_bad & mask).sum())) for tag, mask in reasons]
+        best = max(counts, key=lambda kv: kv[1])
+        return best[0] if best[1] else counts[-1][0]
+
+    def _prepare_hist(self):
+        """2D-delta residency for the [S, C, B] bucket block: the narrowest
+        signed dtype (i8, then i16) whose bit-exact rows keep the cohort
+        pool under the gate wins — quiet histograms' delta-of-deltas are
+        near zero, so i8 usually carries them at a quarter of the raw f32
+        bytes."""
+        from ..ops.narrow import build_narrow_hist, cast_narrow_hist_i8
+        dd16, first_d, ok16, ok8, mono, exact = build_narrow_hist(
+            self.val, self.n)
+        ok8_host, ok16_host = ok8.cpu().numpy(), ok16.cpu().numpy()
+        bad8 = self._bad_rows(ok8_host)
+        if bad8 is not None:
+            dd, bad, ok_host = cast_narrow_hist_i8(dd16), bad8, ok8_host
+            del dd16
+        else:
+            bad16 = self._bad_rows(ok16_host)
+            if bad16 is None:
+                # mostly inexact/bursty rows: keep raw f32, but say why —
+                # counter resets (mono fail) vs non-integer round trips vs
+                # integral-but-out-of-range deltas
+                mono_host, exact_host = mono.cpu().numpy(), exact.cpu().numpy()
+                live_bad = (self.n_host > 0) & ~ok16_host
+                self.residency_decline = self._majority_reason(
+                    live_bad, [("resets", ~mono_host),
+                               ("non-integer", mono_host & ~exact_host),
+                               ("range", mono_host & exact_host)])
+                return None
+            dd, bad, ok_host = dd16, bad16, ok16_host
+        pool, pp, slot = self._cohort_pool(bad)
+        return (dd, first_d, pool, pp, slot, ok_host)
+
+    def compress_prepare(self):
+        """Phase 1 (no lock needed): stream the store into the compressed
+        form — 2D-delta bucket block + cohort pool, and the ts-derivability
+        verdict. Pure reads + host fetches; a concurrent mutation is caught
+        by the caller's mutation_epoch() check before the commit. Returns
+        None when the store or its data doesn't qualify (f64, multi-column
+        scalar, mostly non-exact rows); ``residency_decline`` then carries
+        the reason when the data itself refused."""
+        prep_val = None
+        self.residency_decline = None
+        if self._nhist is None:
+            if self.dtype != torch.float32 or self.val is None:
+                return None
+            if self.nbuckets:
+                # histogram stores compress their DEFAULT [S, C, B] bucket
+                # block — the dominant bytes; a multi-column store's named
+                # scalar columns (prom-histogram's sum/count) stay raw
+                prep_val = self._prepare_hist()
+            elif self.layout is None:
+                raise NotImplementedError(
+                    "scalar narrow residency (quant16/delta16/delta8) is not "
+                    "yet ported: ROADMAP queue 1 item 8")
+            else:
+                return None   # multi-column scalar stores stay raw
+            if prep_val is None:
+                return None
+        ts_ok = False
+        if not self._ts_elided and self.ts is not None \
+                and self.grid_info() is not None:
+            # the grid invariant guarantees derivability; verify anyway — a
+            # silently wrong timestamp block must be impossible
+            ts_ok = _verify_ts(self.ts, self._first_ts_dev(), self.n,
+                               self.grid_interval, self.C)
+        return (prep_val, ts_ok)
+
+    def compress_commit(self, prep) -> None:
+        """Phase 2 (under the shard lock): swap the compressed state in and
+        release the raw blocks. The caller verified mutation_epoch() is
+        unchanged since the prepare."""
+        prep_val, ts_ok = prep
+        self._pre_mutate("SeriesStore.compress_commit")
+        if prep_val is not None:
+            self._nhist = prep_val
+            self.val = None    # the f32 block's device memory is released
+        if ts_ok and not self._ts_elided:
+            self.ts = None     # the 8 B/sample block's memory is released
+            self._ts_elided = True
+
+    @property
+    def _val_compressed(self) -> bool:
+        return self._nhist is not None
+
+    def _rehydrate(self) -> None:
+        """Restore the resident f32/i64 blocks (mutations write raw); the
+        next flush re-adopts the compressed state."""
+        if not self._val_compressed and not self._ts_elided:
+            return
+        self._pre_mutate("SeriesStore.rehydrate")
+        if self._nhist is not None:
+            dd, first_d, pool, pp, _slot, _ok = self._nhist
+            self._nhist = None
+            self.val = _decode_hist(dd, first_d, pool, pp, self.S)
+        if self._ts_elided:
+            self.ts = _derive_ts(self._first_ts_dev(), self.n,
+                                 self.grid_interval, self.C)
+            self._ts_elided = False
+
+    def value_block(self):
+        """f32 value block: the resident tensor, or a TRANSIENT decode of
+        the narrow state (not retained — capacity stays at the compressed
+        form + pool)."""
+        if self._nhist is not None:
+            dd, first_d, pool, pp, _slot, _ok = self._nhist
+            return _decode_hist(dd, first_d, pool, pp, self.S)
+        return self.val
+
+    def ts_block(self):
+        """i64 timestamp block: resident, or a TRANSIENT grid derivation."""
+        if not self._ts_elided:
+            return self.ts
+        return _derive_ts(self._first_ts_dev(), self.n, self.grid_interval,
+                          self.C)
+
+    def hist_operands(self):
+        """(dd, first_d, ok_host) when hist-resident, else None — the narrow
+        hist kernels' direct-stream operands."""
+        if self._nhist is None:
+            return None
+        dd, first_d, _pool, _pp, _slot, ok = self._nhist
+        return dd, first_d, ok
+
+    @property
+    def is_narrow_resident(self) -> bool:
+        return self._val_compressed or self._ts_elided
+
+    def resident_value_bytes(self) -> int:
+        """Resident device bytes of the default value column's state."""
+        if self._nhist is not None:
+            dd, first_d, pool, _pp, _slot, _ok = self._nhist
+            return (dd.numel() * dd.element_size() + first_d.numel() * 4
+                    + pool.numel() * 4)
+        v = self.val
+        return 0 if v is None else v.numel() * v.element_size()
+
+    def resident_sample_bytes(self) -> int:
+        """Resident device bytes of the (ts + value) sample state — the
+        retention-per-byte accounting."""
+        t = 0 if self._ts_elided or self.ts is None \
+            else self.ts.numel() * self.ts.element_size()
+        return t + self.resident_value_bytes()
 
     # -- ingest -------------------------------------------------------------
 
@@ -172,6 +547,7 @@ class SeriesStore:
         m = len(r)
         if m == 0:
             return 0
+        self._rehydrate()      # mutations write the raw blocks
         self._pre_mutate("SeriesStore.append")
         uniq, first_pos = np.unique(r, return_index=True)
         newly = uniq[self.n_host[uniq] == 0]
@@ -182,6 +558,17 @@ class SeriesStore:
         np.maximum.at(self.last_ts, r, t)
         counts = np.bincount(r, minlength=self.S).astype(np.int32)
         self.n_host += counts
+        # the flat [m, W] rows of a multi-column schema split by its layout:
+        # the default column (scalar or histogram span) + named scalars
+        extra_vals = {}
+        if self.layout is not None:
+            for nm, off, w, _is_h in self.layout:
+                colv = v[:, off] if w == 1 else v[:, off:off + w]
+                if nm == self.default_col:
+                    dv = colv
+                else:
+                    extra_vals[nm] = colv
+            v = dv
         # padded to the bucketed size like the reference; pad entries carry
         # row index S, which the reference's scatter drops (mode="drop") —
         # index_put_ would not, so they are masked out before the write
@@ -189,14 +576,20 @@ class SeriesStore:
         rp = np.full(P, self.S, np.int32); rp[:m] = r
         cp = np.zeros(P, np.int32); cp[:m] = cols
         tp = np.zeros(P, np.int64); tp[:m] = t
-        vp = np.zeros(P, np.asarray(v).dtype); vp[:m] = v
         keep_d = (rp >= 0) & (rp < self.S) & (cp >= 0) & (cp < self.C)
         dev = self.device
         rows = torch.from_numpy(rp[keep_d].astype(np.int64)).to(dev)
         colt = torch.from_numpy(cp[keep_d].astype(np.int64)).to(dev)
+
+        def padded(a):
+            ap = np.zeros((P,) + a.shape[1:], a.dtype)
+            ap[:m] = a
+            return torch.from_numpy(ap[keep_d]).to(dev, self.dtype)
+
         self.ts.index_put_((rows, colt), torch.from_numpy(tp[keep_d]).to(dev))
-        self.val.index_put_((rows, colt),
-                            torch.from_numpy(vp[keep_d]).to(dev, self.dtype))
+        self.val.index_put_((rows, colt), padded(np.asarray(v)))
+        for nm, a in extra_vals.items():
+            self.extra[nm].index_put_((rows, colt), padded(np.asarray(a)))
         self.n.add_(torch.from_numpy(counts).to(dev))
         self.stats.samples_appended += m
         return m
@@ -279,8 +672,9 @@ class SeriesStore:
 
     def compact(self, cutoff_ts: int) -> None:
         """Evict samples older than ``cutoff_ts`` by shifting each row left
-        (ref: block reclaim by time bucket); one gather, written back in
-        place."""
+        (ref: block reclaim by time bucket); one gather per column, shared
+        shift indices, written back in place."""
+        self._rehydrate()      # the shift gathers the raw blocks
         self._pre_mutate("SeriesStore.compact")
         S, C = self.ts.shape
         cutoff = torch.full((S, 1), int(cutoff_ts), dtype=torch.int64,
@@ -290,14 +684,22 @@ class SeriesStore:
         valid = idx < C
         idx = torch.where(valid, idx, C - 1)
         new_ts = torch.where(valid, torch.gather(self.ts, 1, idx), int(TS_PAD))
-        new_val = torch.where(valid, torch.gather(self.val, 1, idx),
-                              torch.zeros((), dtype=self.dtype,
-                                          device=self.device))
+
+        def shift(a):
+            if a.dim() == 3:
+                g = torch.gather(a, 1, idx[:, :, None].expand(-1, -1, a.shape[2]))
+                return torch.where(valid[:, :, None], g, 0.0)
+            return torch.where(valid, torch.gather(a, 1, idx), 0.0)
+
+        new_val = shift(self.val)
+        new_extra = {nm: shift(a) for nm, a in self.extra.items()}
         new_n = torch.clamp(self.n - k[:, 0].to(torch.int32), min=0)
         pos = torch.arange(C, device=self.device)[None, :]
         new_ts = torch.where(pos < new_n[:, None], new_ts, int(TS_PAD))
         self.ts.copy_(new_ts)
         self.val.copy_(new_val)
+        for nm, a in new_extra.items():
+            self.extra[nm].copy_(a)
         self.n.copy_(new_n)
         self.n_host = self.n.cpu().numpy().copy()
         new_first = self.ts[:, 0].cpu().numpy()
@@ -311,6 +713,7 @@ class SeriesStore:
         to padding so grid and first-ts scans never see them."""
         if len(part_ids) == 0:
             return
+        self._rehydrate()      # the reset writes the raw ts block
         self.stats.frees += 1
         self._pre_mutate("SeriesStore.free_rows")
         pids = np.asarray(part_ids, np.int64)
@@ -325,10 +728,26 @@ class SeriesStore:
 
     # -- query access -------------------------------------------------------
 
-    def arrays(self):
-        """(ts[S,C], val, n[S]) device tensors for query kernels."""
-        return self.ts, self.val, self.n
+    def arrays(self, column: str | None = None):
+        """(ts[S,C], val, n[S]) for query kernels; ``column`` selects a named
+        value column of a multi-column store (None = the default column).
+        Compressed-resident stores return deferred views: the fused paths
+        plan from shape metadata and never materialize."""
+        ts = DeferredTs(self) if self._ts_elided else self.ts
+        return ts, self.column_array(column), self.n
 
-    def snapshot_arrays(self):
-        """(ts, val) blocks for per-series slicing loops."""
-        return self.ts, self.val
+    def column_array(self, column: str | None = None):
+        if column is None or column == self.default_col:
+            if self._nhist is not None:
+                return DeferredDecodeHist(self)
+            return self.val
+        if column in self.extra:
+            return self.extra[column]
+        raise KeyError(f"unknown value column {column!r}")
+
+    def snapshot_arrays(self, column: str | None = None):
+        """(ts, val) blocks materialized once, for per-series loops."""
+        v = self.column_array(column)
+        if isinstance(v, _Deferred):
+            v = v.materialize()
+        return self.ts_block(), v

@@ -8,9 +8,17 @@ stages host buffers and lands them on the device store in one batched
 in-place scatter per flush; eviction frees rows for reuse under slot
 pressure.
 
+Histogram schemas (prom-histogram: sum, count and the ``h`` bucket column)
+create their store lazily — the bucket scheme arrives with the first
+container. Under ``compressed_residency="all"`` a flush compresses the
+[S, C, B] bucket block to i8/i16 2D-delta form in two phases: the build
+runs outside the shard lock, the swap under it only if the store did not
+mutate meanwhile.
+
 The port's shards carry no durable sink yet, and no ingest offsets or group
 watermarks with it. Recovery, purge, on-demand paging, inline downsampling,
-the cardinality governor and compressed residency arrive with later slices.
+the cardinality governor and scalar narrow residency arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..utils.diagnostics import TimedRLock, assert_owned
+from ..utils.metrics import FILODB_STORE_RESIDENCY_FALLBACK, registry
 from .chunkstore import SeriesStore
 from .eviction import BloomFilter, CapacityEvictionPolicy, EvictionPolicy
 from .filters import Filter
@@ -41,10 +50,20 @@ class StoreConfig:
     retention_ms: int = 3 * 3600 * 1000
     dtype: str = "float32"
     device: str | None = None
+    # which store shapes adopt the compressed-resident form after flush:
+    #   "off" — raw f32/i64 blocks stay resident
+    #   "all" — [S, C, B] histogram stores (i8/i16 2D-delta bucket blocks
+    #           + timestamp elision); scalar stores are not yet ported
+    #           (ROADMAP queue 1 item 8) and such a shard refuses to be built
+    compressed_residency: str = "off"
 
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32|float64, got {self.dtype!r}")
+        if self.compressed_residency not in ("off", "all"):
+            raise ValueError(
+                f"compressed_residency must be off|all, "
+                f"got {self.compressed_residency!r}")
 
 
 @dataclass
@@ -64,10 +83,14 @@ class TimeSeriesShard:
     def __init__(self, dataset: str, schema: Schema, shard_num: int,
                  config: StoreConfig, device=None,
                  eviction_policy: EvictionPolicy | None = None):
-        if schema.is_histogram or schema.is_multi_column:
+        if (not schema.is_histogram and not schema.is_multi_column
+                and config.compressed_residency != "off"):
+            # the reference would compress this store to quant16/delta
+            # form at flush; refuse up front rather than mid-flush
             raise NotImplementedError(
-                f"schema {schema.name!r}: histogram and multi-column stores "
-                "are not yet ported")
+                f"schema {schema.name!r} with compressed_residency="
+                f"{config.compressed_residency!r}: scalar narrow residency is "
+                "not yet ported (ROADMAP queue 1 item 8)")
         self.dataset = dataset
         self.schema = schema
         self.shard_num = shard_num
@@ -100,10 +123,15 @@ class TimeSeriesShard:
         # per-slot release counters: lazily materialized query artifacts
         # (LazyKeys) detect slot reuse for exactly their pids
         self.slot_epoch = np.zeros(config.max_series_per_shard, np.uint32)
-        self.store = SeriesStore(config.max_series_per_shard,
-                                 config.samples_per_series,
-                                 dtype=config.dtype, device=self.device)
-        self.store.owner_lock = self.lock
+        self.bucket_les: np.ndarray | None = None
+        if schema.is_histogram:
+            # histogram stores are created lazily: the bucket scheme arrives
+            # with the first container
+            self.store = None
+        else:
+            self.store = self._make_store()
+            self.store.owner_lock = self.lock
+        self._last_compress_epoch = None
         self._stage_pid: list[np.ndarray] = []
         self._stage_ts: list[np.ndarray] = []
         self._stage_val: list[np.ndarray] = []
@@ -273,6 +301,22 @@ class TimeSeriesShard:
 
     # -- ingest -------------------------------------------------------------
 
+    def _make_store(self, width_hint: int = 0) -> SeriesStore:
+        """Device store shaped by the schema: multi-column schemas get one
+        tensor per data column sharing ts/n (Schema.col_layout); single
+        column schemas keep the flat scalar/histogram layout
+        (``width_hint``: bucket count of a les-less 2-D container)."""
+        nb = len(self.bucket_les) if self.bucket_les is not None else 0
+        if not nb and not self.schema.is_multi_column:
+            nb = width_hint
+        layout = (self.schema.col_layout(nb)
+                  if self.schema.is_multi_column else None)
+        return SeriesStore(self.config.max_series_per_shard,
+                           self.config.samples_per_series,
+                           dtype=self.config.dtype, device=self.device,
+                           nbuckets=nb, layout=layout,
+                           default_col=self.schema.value_column)
+
     def ingest(self, container: RecordContainer) -> None:
         """Ingest one container: resolve its label sets to part ids and
         stage its samples; a full staging buffer flushes to the device."""
@@ -280,6 +324,18 @@ class TimeSeriesShard:
             with self.lock:
                 self.stats.unknown_schema_dropped += len(container)
             return
+        if self.store is None:
+            # double-checked under the shard lock: two writers racing the
+            # first container would each build a store
+            with self.lock:
+                if self.store is None:
+                    self.bucket_les = (np.asarray(container.bucket_les)
+                                       if container.bucket_les is not None
+                                       else None)
+                    width = (container.values.shape[1]
+                             if container.values.ndim == 2 else 0)
+                    self.store = self._make_store(width_hint=width)
+                    self.store.owner_lock = self.lock
         n_sets = len(container.label_sets)
         if n_sets == 0 or len(container) == 0:
             return
@@ -337,16 +393,57 @@ class TimeSeriesShard:
     def flush(self) -> int:
         """Push staged samples to the device store; under capacity pressure
         compact out data older than retention (ref:
-        PartitionEvictionPolicy.scala)."""
+        PartitionEvictionPolicy.scala); then adopt the compressed-resident
+        form when the residency mode asks for it."""
         with self.lock:
-            if not self._staged:
-                return 0
-            written = self._flush_staged_locked()
+            staged = bool(self._staged)
+            written = self._flush_staged_locked() if staged else 0
+        resident = self.config.compressed_residency == "all"
+        if not staged:
+            # nothing new — but a compaction since the last flush may have
+            # rehydrated a compressed-resident store: re-adopt
+            if resident:
+                self._compress_resident_two_phase()
+            return 0
         if self.eviction_policy.should_evict(self.store, self.config):
             cutoff = int(self.store.last_ts.max(initial=0)) - self.config.retention_ms
             with self.lock:
                 self.store.compact(cutoff)
+        if resident:
+            # after any compaction (which rehydrates): the streaming build
+            # and host fetches run OUTSIDE the shard lock, only the swap
+            # takes it
+            self._compress_resident_two_phase()
         return written
+
+    def _compress_resident_two_phase(self) -> None:
+        """Build the compressed-resident state without the shard lock, then
+        swap under it iff nothing mutated meanwhile (a racing append writes
+        into the very tensors the build streams — its result is stale and
+        dropped; the next flush retries). Only histogram stores compress."""
+        st = self.store
+        if st is None or not st.nbuckets:
+            return
+        epoch0 = st.mutation_epoch()
+        # idempotence: fully compressed already, or nothing mutated since
+        # the last (possibly declined) attempt — a declined store must not
+        # re-run the whole-store build on every empty flush
+        if st._val_compressed and (st._ts_elided or st.grid_info() is None):
+            return
+        if self._last_compress_epoch == epoch0:
+            return
+        self._last_compress_epoch = epoch0
+        prep = st.compress_prepare()
+        if prep is None:
+            if st.residency_decline is not None:
+                # "tried and fell back" must be a visible signal, not a
+                # silent raw-residency downgrade
+                registry.counter(FILODB_STORE_RESIDENCY_FALLBACK,
+                                 {"reason": st.residency_decline}).increment()
+            return
+        with self.lock:
+            if st.mutation_epoch() == epoch0:
+                st.compress_commit(prep)
 
     # -- queries ------------------------------------------------------------
 

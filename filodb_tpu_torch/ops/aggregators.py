@@ -34,6 +34,11 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
     acc = (values.dtype if values.dtype in (torch.float32, torch.float64)
            else torch.float64)
     gids = group_ids.to(device=values.device, dtype=torch.int64)
+    # rows whose group id lies outside [0, G) contribute nothing (the
+    # reference's segment ops drop them; a one-hot column of zeros does the
+    # same): the scatters send them to a spare group G that is cut off
+    gids_in = torch.where((gids >= 0) & (gids < num_groups), gids,
+                          num_groups)
 
     if not stable and num_groups <= MATMUL_GROUP_LIMIT:
         onehot = (gids[None, :] == torch.arange(
@@ -43,16 +48,16 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
             return onehot @ x.to(acc)
     else:
         def gsum(x):
-            out = torch.zeros((num_groups,) + tuple(x.shape[1:]), dtype=acc,
-                              device=x.device)
-            return out.index_add_(0, gids, x.to(acc))
+            out = torch.zeros((num_groups + 1,) + tuple(x.shape[1:]),
+                              dtype=acc, device=x.device)
+            return out.index_add_(0, gids_in, x.to(acc))[:num_groups]
 
     def gext(x, fill, reduce):
-        idx = gids[:, None].expand_as(x)
-        out = torch.full((num_groups,) + tuple(x.shape[1:]), fill, dtype=acc,
-                         device=x.device)
+        idx = gids_in[:, None].expand_as(x)
+        out = torch.full((num_groups + 1,) + tuple(x.shape[1:]), fill,
+                         dtype=acc, device=x.device)
         return out.scatter_reduce_(0, idx, x.to(acc), reduce=reduce,
-                                   include_self=True)
+                                   include_self=True)[:num_groups]
 
     cnt = gsum(present.to(acc))
     if op in ("count", "group"):

@@ -35,15 +35,18 @@
 // shared [nout, G, 128] accumulator that only it touches, so the per-block
 // fold has a fixed order and no atomics. Steps with hi < 0 (the padding up
 // to Tp) contribute nothing and skip the row walk. A block writes its
-// chunk's partials to scratch; fused_grid_fold then sums the chunks in
+// chunk's partials to scratch; fold_chunks then sums the chunks in
 // index order (the TPU grid accumulated tiles in order; blocks here run in
-// parallel, so the cross-block sum is a second pass, never float atomics).
+// parallel, so the cross-block sum is a second pass, never float atomics;
+// fold.cuh, shared with K2).
 // Keeping several loads in flight per SM while other blocks compute is left
 // to occupancy; a TMA ring of tiles is later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fold.cuh"
 
 namespace {
 
@@ -273,16 +276,6 @@ __global__ void fused_grid_map(Params p) {
       out[(size_t)(o * G + g) * p.tp + t] = acc[(o * G + g) * kSteps + tid];
 }
 
-// out[i] = sum over chunks k, in index order, of scratch[k, i]
-__global__ void fused_grid_fold(const float* scratch, float* out, int nchunks,
-                                int per_chunk) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= per_chunk) return;
-  float s = 0.f;
-  for (int k = 0; k < nchunks; ++k) s = s + scratch[(size_t)k * per_chunk + i];
-  out[i] = s;
-}
-
 }  // namespace
 
 extern "C" int fusedgrid_launch(
@@ -325,10 +318,7 @@ extern "C" int fusedgrid_launch(
   fused_grid_map<<<grid, kSteps, smem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int per_chunk = nout * groups * tp;
-  fused_grid_fold<<<(per_chunk + 255) / 256, 256, 0, s>>>(scratch, out,
-                                                          nchunks, per_chunk);
-  return (int)cudaGetLastError();
+  return (int)launch_fold(scratch, out, nchunks, nout * groups * tp, s);
 }
 
 extern "C" const char* fusedgrid_error_string(int err) {

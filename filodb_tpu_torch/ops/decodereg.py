@@ -1,10 +1,13 @@
 """Decode-variant registry of the fused tier.
 
 Port of ``filodb_tpu/ops/decodereg.py``. The reference registers every
-narrow-resident block format the fused kernels can stream; this slice of the
-port streams the raw f32 store only, so ``raw`` is the one registered
-variant. The narrow decodes (quant16, delta16, delta8) and the histogram
-ones arrive with the residency slice; asking for them raises ``KeyError``.
+narrow-resident block format the fused kernels can stream; the port
+registers the raw f32 store only. The scalar narrow decodes (quant16,
+delta16, delta8) arrive with the scalar residency slice; asking for them
+raises ``KeyError``. The histogram 2D-delta blocks are not registered: the
+hist tier's one consumer (fusedresident.fused_hist_map_plain) widens the
+i8/i16 tile itself, since its band products and bucket cumsums are the
+decode.
 """
 
 from __future__ import annotations

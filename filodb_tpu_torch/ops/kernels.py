@@ -3,8 +3,9 @@
 Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``. The
 library is built at first use into ``filodb_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name keyed on the source's content and the flags, so
-an edited source rebuilds and an unchanged one loads. ``build()`` starts one
+``.gitignore``) under a name keyed on the content of the source, of the
+shared headers (``csrc/*.cuh``) and of the flags, so an edited source
+rebuilds and an unchanged one loads. ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs when a module is imported: the CPU tests import every
@@ -30,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-KERNELS = ("fusedgrid",)
+KERNELS = ("fusedgrid", "fusedhist")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -52,9 +53,12 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    """The built library of ``csrc/<name>.cu`` for the current source."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    """The built library of ``csrc/<name>.cu`` for the current sources."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

@@ -3,27 +3,65 @@
 Port of the local path of ``filodb_tpu/query/engine.py`` (ref:
 coordinator/.../QueryActor.scala + queryengine2/QueryEngine.materialize):
 parse, plan, execute on this node's shards, present. One root span per
-query and the end-to-end latency histogram, as in the reference. The
-result, fragment and negative caches, retention routing, admission, the
-device mesh and remote legs come with later slices.
+query and the end-to-end latency histogram, as in the reference. Before the
+planner, ``histogram_quantile(q, sum by (...) (rate|increase|delta|...(h[w])))``
+on a single grid-aligned histogram shard takes the fused-hist route, as in
+the reference. The result, fragment and negative caches, retention
+routing, admission, the device mesh and remote legs come with later slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
+import numpy as np
+import torch
+
 from ..core.memstore import TimeSeriesMemStore
 from ..device import resolve_device
+from ..ops import fusedresident, gridfns, rangefns
 from ..parallel.shardmapper import ShardMapper
 from ..promql import parser as promql
 from ..utils.metrics import FILODB_QUERY_LATENCY_MS, registry
 from ..utils.tracing import (SPAN_QUERY, SPAN_QUERY_EXECUTE, SPAN_QUERY_PARSE,
                              SPAN_QUERY_PLAN, span, tracer)
 from . import logical as L
-from .exec import QueryContext
+from .exec import (HIST_GENERAL_PATH, QueryContext, SelectRawPartitionsExec,
+                   _gather_rows_padded, _group_ids_for, _pad_steps, _pow2,
+                   _segment_partial, check_sample_limit)
 from .planner import QueryPlanner
-from .rangevector import QueryResult
+from .rangevector import (NotYetPorted, QueryResult, QueryStats,
+                          ResultMatrix)
+
+# rows outside the selection: a group id no kernel's one-hot or scatter
+# ever matches (scatters drop it; one-hot comparisons never equal it)
+_EXCLUDED_GID = 1 << 30
+
+
+def pool_correction(data, gids: np.ndarray, bad: np.ndarray, Gp: int,
+                    fn: str, out_eval: np.ndarray, window: int):
+    """Cohort-pool rows of a hist-resident selection: (gids with those rows
+    excluded, their [Gp, T*B] f32 group partials (sum, count) or None). The
+    rows decode row-wise from their raw f32 pool blocks and go through the
+    general histogram range function."""
+    if not len(bad):
+        return gids, None
+    dev = data.n.device
+    bad_gids = gids[bad].copy()
+    gids = gids.copy()
+    gids[bad] = _EXCLUDED_GID
+    sub_ts, sub_val, sub_n, P = _gather_rows_padded(data.ts, data.val,
+                                                    data.n, bad)
+    hc = rangefns.periodic_samples_hist(sub_ts, sub_val, sub_n, out_eval,
+                                        window, fn, 0.0)
+    Tq, B = hc.shape[1], hc.shape[2]
+    cg = np.full(P, _EXCLUDED_GID, np.int32)
+    cg[:len(bad)] = bad_gids
+    parts = _segment_partial("sum", hc.reshape(P, Tq * B),
+                             torch.from_numpy(cg).to(dev), Gp)
+    return gids, (parts["sum"].float(), parts["count"].float())
 
 
 @dataclass
@@ -95,12 +133,135 @@ class QueryEngine:
         ctx = ctx if ctx is not None else self._ctx()
         with span(SPAN_QUERY_EXECUTE, dataset=self.dataset), \
                 ctx.stats.stage("execute"):
-            ctx.exec_path = "local"
-            with span(SPAN_QUERY_PLAN), ctx.stats.stage("plan"):
-                exec_plan = self.planner.materialize(plan)
-            res = exec_plan.run(ctx)
+            res = self._try_fused_hist(plan, ctx)
+            if res is None:
+                ctx.exec_path = "local"
+                with span(SPAN_QUERY_PLAN), ctx.stats.stage("plan"):
+                    exec_plan = self.planner.materialize(plan)
+                res = exec_plan.run(ctx)
         m = res.matrix
         ctx.stats.add("result_cells", m.num_series * len(m.out_ts))
         res.stats = ctx.stats
         res.exec_path = ctx.exec_path
         return res
+
+    def _try_fused_hist(self, plan: L.LogicalPlan,
+                        ctx: QueryContext) -> QueryResult | None:
+        """histogram_quantile(q, sum by(...) (fn(h[w]))) on a single
+        grid-aligned histogram shard, as one call (ref:
+        HistogramQueryBenchmark.scala is the latency bar): per-bucket range
+        function, bucket-wise group sums and the f64 quantile. A raw-f32
+        store takes ``gridfns.fused_hist_quantile_grid`` ("fused-hist"); a
+        hist-resident one streams its 2D-delta block — through K2 for the
+        rate family inside the shape gate ("fused-hist-narrow[cuda]" on the
+        card, "[plain]" through the twin on the CPU), else through
+        ``gridfns.fused_hist_quantile_grid_narrow``. Plans that are not
+        histogram quantiles over a histogram dataset return None; the
+        off-pattern ones the reference sends down its general hist ExecPlan
+        path raise NotYetPorted."""
+        if not (isinstance(plan, L.ApplyInstantFunction)
+                and plan.function == "histogram_quantile"):
+            return None
+        schema = self.memstore._dataset_schema.get(self.dataset)
+        if schema is None or not schema.is_histogram:
+            return None
+        agg = plan.vectors
+        inner = getattr(agg, "vectors", None)
+        if not (isinstance(agg, L.Aggregate) and agg.operator == "sum"
+                and not agg.params
+                and isinstance(inner, L.PeriodicSeriesWithWindowing)
+                and inner.function in gridfns.HIST_GRID_FNS
+                and not inner.series.columns):
+            raise NotYetPorted(HIST_GENERAL_PATH)
+        shards = self.memstore.shards_of(self.dataset)
+        if len(shards) != 1:
+            raise NotYetPorted(
+                "histogram quantiles over several shards take the general "
+                "hist ExecPlan path or the mesh route, not yet ported: "
+                "ROADMAP queue 1 item 9 (what it left) and item 12")
+        sh = shards[0]
+        fn, raw = inner.function, inner.series
+        out_ts = np.arange(inner.start_ms, inner.end_ms + 1,
+                           max(inner.step_ms, 1), dtype=np.int64)
+        if sh.store is None or len(out_ts) == 0:
+            ctx.exec_path = "local"        # nothing stored, or no step
+            return QueryResult(ResultMatrix(
+                out_ts, np.zeros((0, len(out_ts))), []))
+        if sh.store.grid_info() is None:
+            raise NotYetPorted(HIST_GENERAL_PATH)      # off-grid store
+        q = float(plan.function_args[0])
+        leaf = SelectRawPartitionsExec(
+            shard=sh.shard_num, filters=tuple(raw.filters),
+            start_ms=raw.range_selector.from_ms,
+            end_ms=raw.range_selector.to_ms)
+        # the leaf's stats commit only when this route answers (the
+        # reference's probe rule: an off-pattern outcome re-runs the leaf)
+        pctx = dataclasses.replace(ctx, stats=QueryStats())
+        with sh.lock:
+            data = leaf.do_execute(pctx)
+            if not len(data.keys):
+                ctx.exec_path = "local"
+                ctx.stats.merge(pctx.stats)
+                return QueryResult(ResultMatrix(
+                    out_ts, np.zeros((0, len(out_ts))), []))
+            window = inner.window_ms
+            if (data.grid is None or data.bucket_les is None
+                    or (data.grid_minority is not None
+                        and len(data.grid_minority))
+                    or max(abs(int(out_ts[0]) - data.grid[0]),
+                           abs(int(out_ts[-1]) - data.grid[0]))
+                    + window >= 2**31):
+                raise NotYetPorted(HIST_GENERAL_PATH)  # churned or cold
+            out_eval, T = _pad_steps(out_ts)
+            R = data.n.shape[0]
+            gids, uniq, G = _group_ids_for(data.keys, data.rows, R,
+                                           agg.by, agg.without)
+            base_ts, interval_ms = data.grid
+            les = np.asarray(data.bucket_les, np.float64)
+            dev = data.n.device
+            path = "fused-hist"
+            if data.hist_narrow is not None:
+                out, path = self._hist_narrow(q, les, data, gids, G, fn,
+                                              out_eval, window, base_ts,
+                                              interval_ms, ctx)
+            else:
+                out = gridfns.fused_hist_quantile_grid(
+                    q, les, data.val, data.n, torch.from_numpy(gids).to(dev),
+                    _pow2(G), out_eval, window, fn, base_ts, interval_ms,
+                    stale_ms=ctx.stale_ms)
+        ctx.exec_path = path
+        ctx.stats.merge(pctx.stats)
+        # the blocking host copy runs outside the shard lock
+        m = ResultMatrix(out_ts, out[:G, :T].cpu().numpy(), list(uniq))
+        check_sample_limit(m.num_series, T, ctx.sample_limit)
+        return QueryResult(m)
+
+    @staticmethod
+    def _hist_narrow(q, les, data, gids, G, fn, out_eval, window, base_ts,
+                     interval_ms, ctx):
+        """The hist-resident leg of the fused-hist route: the 2D-delta
+        block streams through K2 (or the narrow grid kernel outside K2's
+        gate); cohort-pool rows are excluded there and folded back in as
+        group partials from a row-wise decode. Returns ([G', T'] f64, the
+        exec path)."""
+        dd, first_d, bad = data.hist_narrow
+        Gp = _pow2(G)
+        gids, corr = pool_correction(data, gids, bad, Gp, fn, out_eval,
+                                     window)
+        gids_t = torch.from_numpy(gids).to(data.n.device)
+        S, C, B = dd.shape
+        if (fn in fusedresident.HIST_FUSED_FNS
+                and fusedresident.hist_fusable(S, C, len(out_eval), B,
+                                               max(Gp, 8))):
+            backend = fusedresident.backend_of(dd)
+            out = fusedresident.fused_hist_quantile_resident(
+                q, les, dd, first_d, data.n, gids_t, Gp, out_eval, window,
+                fn, base_ts, interval_ms, corr=corr)
+            ctx.stats.add("fused_kernels")
+            fusedresident.count_served("hist_quantile", backend)
+            return out, f"fused-hist-narrow[{backend}]"
+        fusedresident.count_fallback("hist_quantile")
+        out = gridfns.fused_hist_quantile_grid_narrow(
+            q, les, dd, first_d, data.n, gids_t, Gp, out_eval, window, fn,
+            base_ts, interval_ms, stale_ms=ctx.stale_ms, corr=corr)
+        return out, "fused-hist"

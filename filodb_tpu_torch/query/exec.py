@@ -12,10 +12,15 @@ the gather — rows outside the selection are disabled through a zeroed
 sample count. On a grid-aligned f32 store, a window function followed by a
 basic aggregation runs as ONE fused pass (ops/fusedgrid.py: K1 on the card).
 Aggregation is host-computed dense group ids + one group reduce on device.
+Histogram shards answer ``histogram_quantile(q, sum(fn(h[w])))`` through
+the engine's fused-hist route (query/engine.py), which reads the leaf's
+histogram fields (``bucket_les``, ``hist_narrow``) directly.
 
-Routes this slice does not port (instant functions, binary operators, order
-statistics, subqueries, histograms, __col__ selectors, on-demand paging,
-remote legs) raise ``QueryError(... not yet ported)`` — never another path.
+Routes the port does not have yet (instant functions, binary operators,
+order statistics, subqueries, __col__ selectors, on-demand paging, remote
+legs) raise ``QueryError(... not yet ported)``; range functions over
+histogram blocks (the general hist ExecPlan path) raise ``NotYetPorted`` —
+never another path.
 """
 
 from __future__ import annotations
@@ -25,11 +30,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core.chunkstore import TS_PAD
+from ..core.chunkstore import TS_PAD, _Deferred
 from ..ops import aggregators, fusedgrid, fusedresident, gridfns, rangefns
 from ..utils.tracing import SPAN_QUERY_LEAF, SPAN_QUERY_REDUCE, span
-from .rangevector import (QueryError, QueryResult, QueryStats,
+from .rangevector import (NotYetPorted, QueryError, QueryResult, QueryStats,
                           RangeVectorKey, ResultMatrix)
+
+# what a histogram query off the fused-hist pattern needs, and where the
+# ROADMAP lists it
+HIST_GENERAL_PATH = ("the general histogram ExecPlan path (range functions "
+                     "over [S, T, B], histogram_bucket, churned or off-grid "
+                     "histogram shards) is not yet ported: ROADMAP queue 1 "
+                     "item 9, what it left")
 
 DEFAULT_SAMPLE_LIMIT = 1_000_000
 GATHER_THRESHOLD = 8192      # selections narrower than this gather rows up front
@@ -43,6 +55,7 @@ class QueryContext:
     sample_limit: int = DEFAULT_SAMPLE_LIMIT
     stats: QueryStats = field(default_factory=QueryStats)
     exec_path: str | None = None
+    stale_ms: int = 300_000        # instant-selector staleness lookback
 
 
 @dataclass
@@ -56,8 +69,8 @@ class SeriesSelection:
       ``rows[i]`` is the row of key i and ``n`` is zeroed outside the
       selection.
     """
-    ts: torch.Tensor          # [R, C] int64
-    val: torch.Tensor         # [R, C] float
+    ts: object                # [R, C] int64 (or a deferred view)
+    val: object               # [R, C] float, [R, C, B] buckets, or a view
     n: torch.Tensor           # [R] int32 (0 => row disabled)
     keys: list
     rows: np.ndarray | None
@@ -66,6 +79,12 @@ class SeriesSelection:
     # majority cohort the grid base was shifted to (churn): recomputed
     # through the general kernels
     grid_minority: np.ndarray | None = None
+    bucket_les: np.ndarray | None = None   # histogram bucket tops [B]
+    # hist-resident store: (dd, first_d, bad_rows) of the FULL [S, C, B]
+    # bucket block (ops/narrow.py) — the fused-hist route streams it, so the
+    # whole-store f32 block never materializes; ``bad_rows`` (cohort-pool
+    # store rows) recompute via row-wise decode. Wide selections only.
+    hist_narrow: tuple | None = None
 
 
 @dataclass
@@ -94,7 +113,9 @@ def _pow2(n: int, floor: int = 8) -> int:
 def _gather_rows_padded(ts, val, n, rows: np.ndarray):
     """Gather the given rows padded to a pow2 row count. Pad rows are fully
     disabled: n = 0 AND timestamps forced to the pad sentinel (the general
-    kernels derive windows from timestamps)."""
+    kernels derive windows from timestamps). Deferred (compressed-resident)
+    blocks gather row-wise: a fix over a few rows must not materialize the
+    full block."""
     M = len(rows)
     P = _pow2(M)
     pad = np.zeros(P, np.int64)
@@ -103,8 +124,10 @@ def _gather_rows_padded(ts, val, n, rows: np.ndarray):
     rid = torch.from_numpy(pad).to(dev)
     real = torch.arange(P, device=dev) < M
     n_g = torch.where(real, n[rid], 0).to(torch.int32)
-    ts_g = torch.where(real[:, None], ts[rid], int(TS_PAD))
-    return ts_g, val[rid], n_g, P
+    ts_rows = ts.gather_rows(rid) if isinstance(ts, _Deferred) else ts[rid]
+    val_rows = val.gather_rows(rid) if isinstance(val, _Deferred) else val[rid]
+    ts_g = torch.where(real[:, None], ts_rows, int(TS_PAD))
+    return ts_g, val_rows, n_g, P
 
 
 def check_sample_limit(num_series: int, steps: int, limit: int) -> None:
@@ -191,6 +214,14 @@ class PeriodicSamplesMapper(Transformer):
 
     def apply(self, data, ctx: QueryContext):
         assert isinstance(data, SeriesSelection), "PSM must sit directly on a leaf"
+        if data.bucket_les is not None or data.val.dim() == 3:
+            if len(data.keys):
+                raise NotYetPorted(HIST_GENERAL_PATH)
+            # nothing selected: the answer is empty whatever the function
+            out_ts = self.out_ts()
+            return MatrixView(out_ts, torch.full(
+                (0, len(out_ts)), float("nan"), dtype=torch.float64,
+                device=data.n.device), [], None)
         fn = self.function or "last_sample"
         if fn not in rangefns.PORTED_FNS:
             raise QueryError(f"range function {fn} not yet ported")
@@ -475,11 +506,14 @@ class SelectRawPartitionsExec(ExecPlan):
 
     def do_execute(self, ctx) -> SeriesSelection:
         shard = _shard_of_ctx(ctx, self.shard, self.column)
+        if shard.store is None:     # histogram shard with no data yet
+            return _pad_selection(shard.device, torch.float32, None)
         pids = shard.part_ids_from_filters(list(self.filters), self.start_ms,
                                            self.end_ms)
         ctx.stats.add("series_matched", len(pids))
         store = shard.store
-        dev = store.device
+        # bucket boundaries ride along for the histogram column
+        les = shard.bucket_les
         if len(pids) > GATHER_THRESHOLD:
             # wide selection: defer key materialization (global aggregates
             # never read them)
@@ -491,11 +525,12 @@ class SelectRawPartitionsExec(ExecPlan):
         grid = store.grid_info()
         if len(pids) == 0:
             # synthetic pad selection: pad rows have n = 0, so every kernel
-            # yields the empty result the real slice would
-            return SeriesSelection(
-                torch.full((8, 8), 1 << 62, dtype=torch.int64, device=dev),
-                torch.zeros((8, 8), dtype=store.dtype, device=dev),
-                torch.zeros(8, dtype=torch.int32, device=dev), [], None, None)
+            # yields the empty result the real slice would. Slicing a
+            # compressed-resident store's deferred view here would decode
+            # the FULL block for an empty answer
+            return _pad_selection(store.device, store.dtype,
+                                  store.nbuckets if val.dim() == 3 else None,
+                                  les)
         # mixed start cohorts (churn): shift the grid base to the majority
         # cohort's start cell; the few minority rows are recorded so the
         # window step recomputes them generally. Too much churn => general
@@ -521,27 +556,50 @@ class SelectRawPartitionsExec(ExecPlan):
                         grid = (base + o_maj * iv, iv)
                         if m:
                             minority_sel = mins
-        ctx.stats.add("blocks_raw")
         if len(pids) <= GATHER_THRESHOLD and len(pids) < 0.5 * max(total, 1):
             # narrow selection: gather rows once, padded to a power of two
+            ctx.stats.add("blocks_raw")
             sel_ts, sel_val, sel_n, P = _gather_rows_padded(ts, val, n, pids)
             sel_rows = (None if P == len(pids)
                         else np.arange(len(pids), dtype=np.int32))
             g_min = (np.nonzero(minority_sel)[0].astype(np.int32)
                      if minority_sel is not None else None)
             return SeriesSelection(sel_ts, sel_val, sel_n, keys, sel_rows,
-                                   grid, g_min)
+                                   grid, g_min, bucket_les=les)
         # wide selection: no gather — disable non-selected rows via n = 0
         if len(pids) == total:
             n_eff = n
         else:
             mask = np.zeros(store.S, bool)
             mask[pids] = True
-            n_eff = torch.where(torch.from_numpy(mask).to(dev), n, 0)
+            n_eff = torch.where(torch.from_numpy(mask).to(store.device), n, 0)
         g_min = (pids[minority_sel].astype(np.int32)
                  if minority_sel is not None else None)
+        hist_narrow = None
+        if grid is not None and les is not None and val.dim() == 3:
+            # hist-resident store: ship the 2D-delta operands so the fused
+            # route streams them; cohort-pool rows recompute row-wise
+            hd = store.hist_operands()
+            if hd is not None:
+                dd, first_d, ok_host = hd
+                hist_narrow = (dd, first_d,
+                               pids[~ok_host[pids]].astype(np.int32))
+        ctx.stats.add("blocks_narrow" if hist_narrow is not None
+                      else "blocks_raw")
         return SeriesSelection(ts, val, n_eff, keys, pids.astype(np.int32),
-                               grid, g_min)
+                               grid, g_min, bucket_les=les,
+                               hist_narrow=hist_narrow)
+
+
+def _pad_selection(dev, dtype, nbuckets, les=None) -> SeriesSelection:
+    """An empty selection of 8 pad rows (n = 0): every kernel yields the
+    empty result a real slice would."""
+    vshape = (8, 8) if nbuckets is None else (8, 8, nbuckets)
+    return SeriesSelection(
+        torch.full((8, 8), 1 << 62, dtype=torch.int64, device=dev),
+        torch.zeros(vshape, dtype=dtype, device=dev),
+        torch.zeros(8, dtype=torch.int32, device=dev), [], None, None,
+        bucket_les=les)
 
 
 @dataclass

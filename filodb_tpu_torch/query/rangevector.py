@@ -76,11 +76,13 @@ class QueryStats:
     returned in query responses); the counters the port's local path
     keeps. Thread-safe. ``stage_ms`` sums wall time per stage."""
 
-    FIELDS = ("series_matched", "blocks_raw", "result_cells", "fused_kernels")
+    FIELDS = ("series_matched", "blocks_raw", "blocks_narrow",
+              "result_cells", "fused_kernels")
 
     def __init__(self):
         self.series_matched = 0        # series selected by leaf filters
         self.blocks_raw = 0            # raw f32/f64 store blocks read
+        self.blocks_narrow = 0         # compressed-resident blocks streamed
         self.result_cells = 0          # final matrix series x steps
         self.fused_kernels = 0         # fused-tier executions in this query
         self.stage_ms: dict[str, float] = {}
@@ -100,6 +102,17 @@ class QueryStats:
             ms = (time.perf_counter_ns() - t0) / 1e6
             with self._lock:
                 self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
+
+    def merge(self, other: "QueryStats") -> None:
+        """Fold another QueryStats' counters and stage times into this one."""
+        with other._lock:
+            counts = {f: getattr(other, f) for f in self.FIELDS}
+            stages = dict(other.stage_ms)
+        with self._lock:
+            for f, v in counts.items():
+                setattr(self, f, getattr(self, f) + v)
+            for k, v in stages.items():
+                self.stage_ms[k] = self.stage_ms.get(k, 0.0) + v
 
     def to_dict(self) -> dict:
         with self._lock:
@@ -123,3 +136,10 @@ class QueryResult:
 
 class QueryError(Exception):
     pass
+
+
+class NotYetPorted(NotImplementedError):
+    """A query the JAX package answers through a route the port does not
+    have yet; the message names the ROADMAP item that brings it. Raised
+    instead of answering from another route — never a wrong or empty
+    answer."""

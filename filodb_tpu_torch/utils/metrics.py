@@ -1,8 +1,8 @@
 """Metrics registry: counters and histograms, one process-global registry.
 
 Host copy of the parts of ``filodb_tpu/utils/metrics.py`` the port's main
-path records: the query latency histogram and the fused-tier served/fallback
-counters. Metric names are the reference's, so dashboards read both.
+path records: the query latency histogram, the fused-tier served/fallback
+counters and the residency-fallback counter. Metric names are the reference's, so dashboards read both.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ FILODB_QUERY_LATENCY_MS = "filodb_query_latency_ms"
 FILODB_QUERY_FUSED_SERVED = "filodb_query_fused_served"
 FILODB_QUERY_FUSED_FALLBACK = "filodb_query_fused_fallback"
 FILODB_TRACE_SPANS = "filodb_trace_spans"
+FILODB_STORE_RESIDENCY_FALLBACK = "filodb_store_residency_fallback"
 
 
 class Counter:

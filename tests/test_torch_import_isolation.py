@@ -36,8 +36,11 @@ def port_modules():
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = port_modules()
-    assert "filodb_tpu_torch.ops.fusedgrid" in mods
-    assert "filodb_tpu_torch.query.engine" in mods
+    for m in ("ops.fusedgrid", "ops.fusedresident", "ops.narrow",
+              "ops.decodereg", "ops.gridfns", "ops.rangefns", "ops.kernels",
+              "core.chunkstore", "core.memstore", "query.exec",
+              "query.engine"):
+        assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
