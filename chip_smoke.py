@@ -13,11 +13,22 @@ Phases, in order; every check asserts and any failure exits non-zero:
                C in {128, 768}, G in {8, 64}, a sub-range query (c0 > 0) and
                non-finite cells: integer-valued partials bit for bit,
                the rest within rtol 1e-5 of the array's largest magnitude.
+               Then K1's decode variants (quant16, delta16, delta8) on blocks
+               the port's encoder made on the card, the same grid plus a
+               quant16 sub-range query and excluded cohort-pool rows (n = 0,
+               garbage blocks, NaN/Inf row operands); K1 on each narrow block
+               bit for bit against K1 raw on the decoded block; delta8 with
+               c0 > 0 refused before any launch.
   3. small   — about 4096 series x 100 samples through RecordBuilder ->
                shard.ingest -> flush into a CUDA store; the slice's queries
                through QueryEngine.query_range on the card, compared with the
                same engine on the CPU (the plain twins) at rtol 1e-5; K1's
-               launch count must advance.
+               launch count must advance. Then the same through
+               compressed_residency="gauge" stores of each kind's data (one
+               series in 8 continuous: the cohort pool): the flush lands on
+               the kind, the card matches the CPU, K1 of that kind launches
+               once per fused query, and K1 on the store's narrow block
+               equals K1 raw on its value_block() bit for bit.
   4. scale   — bench.py's shape: 2^20 series registered through the real
                ingest path, 720 samples each (C = 768, 10 s grid) synthesized
                on the card from a seeded torch.Generator; sum(rate(m[5m]))
@@ -25,6 +36,19 @@ Phases, in order; every check asserts and any failure exits non-zero:
                against the plain twin on the same tensors. Prints the
                engine's single-query p50, K1's time (CUDA events), the plain
                time, K1's bound and launches per query.
+  4b. narrow scale — the same shape through a "gauge" store, once per
+               kind: delta8 counters (integer anchors below 2^20, increments
+               in [0, 8]), quant16 gauges (half-integer steps), delta16
+               (increments in [0, 2000)); one row in 16 with non-integer
+               increments (the cohort pool). The queries first run on the
+               raw store (residency off), then shard.flush() compresses it
+               and they run again: each launches K1 of the kind once, agrees
+               with the raw answer (rtol 1e-5) and K1 with its plain twin;
+               K1 on the narrow block equals K1 raw on value_block() bit for
+               bit. Prints the engine p50, K1's time beside K1 raw's on the
+               decoded block, the plain time, the bound, launches per query,
+               resident sample bytes raw -> narrow and the compression
+               seconds.
   5. hist kernels — K2 (the fused histogram-quantile kernel) against its
                plain twin on the card: fn in {rate, increase, delta} x i8/i16
                dd x S in {512, 4096, 65536} x B in {8, 11, 32} x G in
@@ -91,6 +115,9 @@ HIST_QUERY = "histogram_quantile(0.9, sum(rate(req_latency[5m])))"
 HIST_BATCH = 1 << 13
 EXCLUDED_GID = 1 << 30
 HIST_FNS = ("rate", "increase", "delta")
+
+# the flush's ladder, in order (core/chunkstore.py::_prepare_scalar)
+NARROW_KINDS = ("delta8", "quant16", "delta16")
 
 SLICE_QUERIES = ("sum(rate(m[5m]))", "avg by (host) (rate(m[5m]))",
                  "stddev(rate(m[5m]))", "sum(increase(m[5m]))",
@@ -159,6 +186,19 @@ def compare_parts(got: dict, ref: dict, exact_keys, what: str) -> float:
         if fin.any():
             worst = max(worst, float(np.abs(g[fin] - r[fin]).max()))
     return worst
+
+
+def reset_k1(fg):
+    """K1's launch counts to 0, in all and by decode variant."""
+    fg.fused_grid_kernel.launches = 0
+    for k in fg.fused_grid_kernel.launches_by_kind:
+        fg.fused_grid_kernel.launches_by_kind[k] = 0
+
+
+def same_outputs(a, b) -> bool:
+    """Bit-equal tensors (NaN where the other has NaN)."""
+    return all(bool(((x == y) | (x.isnan() & y.isnan())).all())
+               for x, y in zip(a, b))
 
 
 def make_block(torch, S, C, integer, seed, dev):
@@ -251,6 +291,145 @@ def phase_kernels(torch, np, fg, dev):
     return checks, worst
 
 
+def narrow_block_dev(torch, narrow, kind, S, C, seed, dev):
+    """(ops, n, dec): an [S, C] block of ``kind`` made on the card and
+    encoded there by the port's encoder (``ops = (block, *row_operands)``),
+    with short rows, rows of 0 and 1 samples, and one row in 8 excluded as
+    a cohort-pool row is: n = 0, a garbage block, a NaN or Inf row operand.
+    ``dec`` is the decoded f32 block (the variant's registry decode)."""
+    from filodb_tpu_torch.ops import decodereg
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev)
+    if kind == "delta8":                      # counters
+        val = torch.cumsum(ints(0, 30, (S, C)), 1) + ints(0, 1 << 20, (S, 1))
+    elif kind == "delta16":                   # wide integer increments
+        val = torch.cumsum(ints(200, 3000, (S, C)), 1)
+    else:                                     # half-integer gauges
+        val = (1000.0 + 0.5 * torch.cumsum(ints(0, 3, (S, C)), 1)
+               + ints(0, 100, (S, 1)))
+    val = val.float().contiguous()
+    n = torch.full((S,), C, dtype=torch.int32, device=dev)
+    n = torch.where(ints(0, 4, (S,)) == 0, ints(0, C, (S,)).to(torch.int32), n)
+    n[5], n[6] = 0, 1
+    if kind == "quant16":
+        q, vmin, scale, ok = narrow.build_narrow(val, n)
+        ops = [q, vmin, scale]
+    else:
+        dv, anchor, ok16, ok8, _ = narrow.build_narrow_delta(val, n)
+        ok = ok8 if kind == "delta8" else ok16
+        ops = [narrow.cast_narrow_delta_i8(dv) if kind == "delta8" else dv,
+               anchor]
+    assert bool(ok.all()), f"the encoder refused {kind} rows"
+    pool = torch.arange(3, S, 8, device=dev)
+    n[pool] = 0
+    lim = 127 if kind == "delta8" else 32767
+    ops[0][pool] = ints(-lim, lim, (len(pool), C)).to(ops[0].dtype)
+    ops[1][pool] = float("nan")
+    ops[-1][pool[1::2]] = float("inf")
+    dec = decodereg.variant(kind).decode(ops[0], *(o[:, None] for o in ops[1:]))
+    return tuple(t.contiguous() for t in ops), n, dec.contiguous()
+
+
+def phase_narrow_kernels(torch, np, fg, narrow, dev,
+                         sizes=(512, 4096, 65536)):
+    """K1's decode variants against the plain twin over fn x op, S, C, G,
+    a sub-range query (c0 > 0 for quant16; the delta variants read whole
+    rows) and excluded pool rows: counts bit for bit, sums within rtol 1e-5
+    of the largest magnitude; K1 on each narrow block bit for bit against
+    K1 raw on the decoded block at the same columns; delta8 at c0 > 0
+    refused before a launch."""
+    from filodb_tpu_torch.ops import decodereg
+    cases = [(S, C, G, False) for S in sizes for C in (128, 768)
+             for G in (8, 64)]
+    cases.append((4096, 768, 8, True))
+    worst = dict.fromkeys(NARROW_KINDS, 0.0)
+    checks = exact = 0
+    for kind in NARROW_KINDS:
+        full = decodereg.variant(kind).full_columns
+        for i, (S, C, G, sub) in enumerate(cases):
+            ops, n, dec = narrow_block_dev(torch, narrow, kind, S, C, 400 + i,
+                                           dev)
+            gids = torch.randint(0, G, (S,), device=dev, dtype=torch.int32,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(i))
+            if sub:
+                out_ts = np.arange((C - 180) * INTERVAL_MS,
+                                   (C - 1) * INTERVAL_MS + 1, STEP_MS,
+                                   dtype=np.int64)
+            else:
+                out_ts = np.arange(WINDOW_MS, (C - 1) * INTERVAL_MS + 1,
+                                   60_000, dtype=np.int64)
+            T = len(out_ts)
+            Tp = -(-T // 128) * 128
+            for fn in FNS:
+                fk = "window" if fn in fg.FUSED_WINDOW_FNS else "rate"
+                band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
+                    C, Tp, out_ts.tobytes(), WINDOW_MS, 0, INTERVAL_MS, fk,
+                    full, dev)
+                assert (c0 > 0) == (sub and not full), (kind, c0, Ca)
+                plain = {sq: fg.fused_grid_aggregate_plain(
+                    fn, sq, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, band,
+                    ohlo, lo, hi, rel, G, c0, Ca, kind, ops[1:])
+                    for sq in (False, True)}
+                for op in OPS:
+                    got = fg.fused_grid_aggregate(
+                        op, fn, None, n, gids, G, out_ts, WINDOW_MS, 0,
+                        INTERVAL_MS, narrow=(kind, ops))
+                    ref = fg.PaddedPartials(plain[op in ("stddev", "stdvar")],
+                                            op, G, T).resolve()
+                    ex = {"count"} | ({"sum"} if fn == "count_over_time"
+                                      else set())
+                    worst[kind] = max(worst[kind], compare_parts(
+                        got, ref, ex, f"{kind} S={S} C={C} G={G} {fn} {op}"))
+                    checks += 1
+                # the decode is exact: the same launch on the decoded block
+                a = fg.fused_grid_kernel(fn, True, WINDOW_MS, INTERVAL_MS,
+                                         ops[0], n, gids, lo, hi, rel, G, c0,
+                                         Ca, kind, ops[1:])
+                b = fg.fused_grid_kernel(fn, True, WINDOW_MS, INTERVAL_MS,
+                                         dec, n, gids, lo, hi, rel, G, c0, Ca)
+                assert same_outputs(a, b), (kind, S, C, G, sub, fn,
+                                            "narrow != raw on the decode")
+                exact += 1
+    # delta8 decodes whole rows: a column offset is refused before a launch
+    ops, n, _ = narrow_block_dev(torch, narrow, "delta8", 512, 256, 7, dev)
+    zeros = torch.zeros(512, dtype=torch.int32, device=dev)
+    lo = torch.zeros(128, dtype=torch.int32, device=dev)
+    before = fg.fused_grid_kernel.launches
+    try:
+        fg.fused_grid_kernel("rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n,
+                             zeros, lo, lo, lo, 8, 128, 128, "delta8", ops[1:])
+        raise AssertionError("K1 accepted delta8 at c0 = 128")
+    except ValueError:
+        pass
+    assert fg.fused_grid_kernel.launches == before
+    torch.cuda.synchronize()
+    return checks, exact, worst
+
+
+def compare_engines(np, got, ref_engine, queries, start, end, step):
+    """Each query's answer on the card against the CPU engine's: keys,
+    shape, NaN pattern, values at rtol 1e-5 of the largest magnitude, and
+    the same QueryStats counters."""
+    for q in queries:
+        r = ref_engine.query_range(q, start, end, step)
+        g = got[q]
+        assert [k.labels for k in g.matrix.keys] == \
+            [k.labels for k in r.matrix.keys], q
+        gv = np.asarray(g.matrix.values, np.float64)
+        rv = np.asarray(r.matrix.values, np.float64)
+        assert gv.shape == rv.shape and gv.shape[1] == len(r.matrix.out_ts), q
+        assert (np.isnan(gv) == np.isnan(rv)).all(), q
+        assert np.isfinite(gv[~np.isnan(gv)]).all(), q
+        scale = float(np.nanmax(np.abs(rv)))
+        np.testing.assert_allclose(gv, rv, rtol=1e-5, atol=1e-5 * scale,
+                                   equal_nan=True, err_msg=q)
+        for k in ("fused_kernels", "blocks_narrow", "blocks_raw"):
+            assert getattr(g.stats, k) == getattr(r.stats, k), (q, k)
+
+
 def ingest_small(RecordBuilder, GAUGE, shards, np):
     """~4096 series x 100 samples through the real ingest path; a sixteenth
     of the series start 20 cells late (a churned cohort)."""
@@ -287,36 +466,105 @@ def phase_small(torch, np, fg, pkg, devs=("cuda", "cpu")):
     kind, _ = shards[0].store.grid_cohorts()
     assert kind == "mixed", kind
     start, end, step = BASE_TS + 300_000, BASE_TS + 990_000, 30_000
-    fg.fused_grid_kernel.launches = 0
+    reset_k1(fg)
     got = {q: engines[devs[0]].query_range(q, start, end, step)
            for q in SLICE_QUERIES}
     launches = fg.fused_grid_kernel.launches
-    for q in SLICE_QUERIES:
-        ref = engines[devs[1]].query_range(q, start, end, step)
-        g, r = got[q], ref
-        assert [k.labels for k in g.matrix.keys] == \
-            [k.labels for k in r.matrix.keys], q
-        gv = np.asarray(g.matrix.values, np.float64)
-        rv = np.asarray(r.matrix.values, np.float64)
-        assert gv.shape == rv.shape and gv.shape[1] == len(r.matrix.out_ts), q
-        assert (np.isnan(gv) == np.isnan(rv)).all(), q
-        assert np.isfinite(gv[~np.isnan(gv)]).all(), q
-        scale = float(np.nanmax(np.abs(rv)))
-        np.testing.assert_allclose(gv, rv, rtol=1e-5, atol=1e-5 * scale,
-                                   equal_nan=True, err_msg=q)
-        assert g.stats.fused_kernels == r.stats.fused_kernels, q
+    compare_engines(np, got, engines[devs[1]], SLICE_QUERIES, start, end,
+                    step)
     fused = sum(got[q].stats.fused_kernels for q in SLICE_QUERIES)
     assert launches == fused == 5, (launches, fused)
     return launches
 
 
-def build_scale(torch, np, pkg, dev):
+def ingest_small_narrow(RecordBuilder, GAUGE, shards, np, kind):
+    """4096 series x 100 samples of ``kind``'s shape through the real
+    ingest path: a sixteenth start 20 cells late (a churned cohort), one in
+    8 is continuous (no variant carries it: the cohort pool)."""
+    rng = np.random.default_rng(4)
+    n_series, n_samples, per = 4096, 100, 512
+    for c in range(n_series // per):
+        b = RecordBuilder(GAUGE)
+        for s in range(c * per, (c + 1) * per):
+            late = 20 if s % 16 == 5 else 0
+            k = n_samples - late
+            ts = BASE_TS + (late + np.arange(k, dtype=np.int64)) * INTERVAL_MS
+            if s % 8 == 3:
+                vals = np.cumsum(rng.exponential(5.0, k))
+            elif kind == "delta8":
+                vals = (np.cumsum(rng.integers(0, 9, k))
+                        + float(rng.integers(0, 1 << 20)))
+            elif kind == "delta16":
+                vals = np.cumsum(rng.integers(200, 3000, k)).astype(np.float64)
+            else:
+                vals = 1000.0 + 0.5 * np.cumsum(rng.integers(0, 3, k))
+            b.add_batch({"_metric_": "m", "host": f"h{s % 8}", "inst": f"i{s}"},
+                        ts, vals)
+        cont = b.build()
+        for sh in shards:
+            sh.ingest(cont)
+    for sh in shards:
+        sh.flush()
+
+
+def phase_small_narrow(torch, np, fg, pkg, devs=("cuda", "cpu")):
+    """The slice's queries on "gauge" stores of each kind, card against
+    CPU; returns K1's launches by kind over the main-path runs."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+    start, end, step = BASE_TS + 300_000, BASE_TS + 990_000, 30_000
+    launched = {}
+    for kind in NARROW_KINDS:
+        engines, shards = {}, []
+        for dev in devs:
+            ms = TimeSeriesMemStore(device=dev)
+            shards.append(ms.setup("p", GAUGE, 0, StoreConfig(
+                max_series_per_shard=4096, samples_per_series=128,
+                flush_batch_size=10**9, compressed_residency="gauge",
+                device=dev)))
+            engines[dev] = QueryEngine(ms, "p", device=dev)
+        ingest_small_narrow(RecordBuilder, GAUGE, shards, np, kind)
+        for sh in shards:
+            nd = sh.store.narrow_operands()
+            assert nd is not None and nd[0] == kind, (kind, nd and nd[0])
+            assert int((~nd[2][:4096]).sum()) == 512, int((~nd[2]).sum())
+        reset_k1(fg)
+        got = {q: engines[devs[0]].query_range(q, start, end, step)
+               for q in SLICE_QUERIES}
+        launched[kind] = fg.fused_grid_kernel.launches_by_kind[kind]
+        fused = sum(got[q].stats.fused_kernels for q in SLICE_QUERIES)
+        assert launched[kind] == fg.fused_grid_kernel.launches == fused == 5, \
+            (kind, launched[kind], fused)
+        compare_engines(np, got, engines[devs[1]], SLICE_QUERIES, start, end,
+                        step)
+        # K1 on the store's narrow block against K1 raw on its decode
+        st = shards[0].store
+        _kind, ops, ok = st.narrow_operands()
+        dev = st.device
+        n = torch.where(torch.from_numpy(ok).to(dev), st.n, 0).contiguous()
+        gids = fg.zero_gids(st.S, dev)
+        out_ts = np.arange(start, end + 1, step, dtype=np.int64) - BASE_TS
+        Tp = -(-len(out_ts) // 128) * 128
+        from filodb_tpu_torch.ops import decodereg
+        _b, _o, lo, hi, rel, c0, Ca = fg.device_operands(
+            st.C, Tp, out_ts.tobytes(), WINDOW_MS, 0, INTERVAL_MS, "rate",
+            decodereg.variant(kind).full_columns, dev)
+        a = fg.fused_grid_kernel("rate", True, WINDOW_MS, INTERVAL_MS,
+                                 ops[0], n, gids, lo, hi, rel, 8, c0, Ca,
+                                 kind, ops[1:])
+        b = fg.fused_grid_kernel("rate", True, WINDOW_MS, INTERVAL_MS,
+                                 st.value_block(), n, gids, lo, hi, rel, 8,
+                                 c0, Ca)
+        assert same_outputs(a, b), (kind, "store: narrow != raw on the decode")
+    return launched
+
+
+def build_scale(torch, np, pkg, dev, residency="off"):
     """2^20 registered series + a bulk-installed [S, 768] f32 block."""
     StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
     ms = TimeSeriesMemStore(device=dev)
     shard = ms.setup("prometheus", GAUGE, 0, StoreConfig(
         max_series_per_shard=NUM_SERIES, samples_per_series=CAPACITY,
-        flush_batch_size=10**9, device=dev))
+        flush_batch_size=10**9, compressed_residency=residency, device=dev))
     t0 = time.perf_counter()
     for start in range(0, NUM_SERIES, REG_BATCH):
         b = RecordBuilder(GAUGE)
@@ -361,7 +609,7 @@ def phase_scale(torch, np, fg, pkg, card, dev="cuda"):
     for s, e in variants:                      # first calls: load + warm
         engine.query_range(q, s, e, STEP_MS)
     # the main path: counts from 0, read right after
-    fg.fused_grid_kernel.launches = 0
+    reset_k1(fg)
     results, lat = [], []
     for i in range(8 + 11):
         s, e = variants[i % 8]
@@ -372,7 +620,8 @@ def phase_scale(torch, np, fg, pkg, card, dev="cuda"):
             results.append(r)
     n_queries = 8 + 11
     launches = fg.fused_grid_kernel.launches
-    assert launches == n_queries, (launches, n_queries)
+    assert launches == fg.fused_grid_kernel.launches_by_kind["raw"] \
+        == n_queries, (launches, n_queries)
     p50 = float(np.percentile(lat[8:], 50))
     stages = {k: round(v, 3) for k, v in r.stats.stage_ms.items()}
     from filodb_tpu_torch.core.filters import Equals
@@ -450,6 +699,171 @@ def phase_scale(torch, np, fg, pkg, card, dev="cuda"):
         f"K1 vs plain max |diff| {worst:.3g}")
     return dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def install_narrow_scale(torch, shard, kind, dev):
+    """Write ``kind``'s data at bench.py's shape into the store on the card
+    from a seeded torch.Generator: delta8 counters (integer anchors below
+    2^20, integer increments in [0, 8]), quant16 gauges (anchors 1000 +
+    [0, 1000), steps of 0, 0.5 or 1), delta16 (integer increments in
+    [0, 2000)); one row in 16 gets a uniform [0, 1) fraction on every
+    increment (no variant carries it: the cohort pool). A compressed store
+    rehydrates first, as an append would."""
+    st = shard.store
+    g = torch.Generator(device=dev).manual_seed(11 + NARROW_KINDS.index(kind))
+    shape = (DATA_BATCH, NUM_SAMPLES)
+
+    def ints(lo, hi, shp):
+        return torch.randint(lo, hi, shp, generator=g, device=dev).float()
+    with shard.lock:
+        st._rehydrate()
+        for r0 in range(0, NUM_SERIES, DATA_BATCH):
+            if kind == "delta8":
+                inc, base = ints(0, 9, shape), ints(0, 1 << 20, (DATA_BATCH, 1))
+            elif kind == "quant16":
+                inc = 0.5 * ints(0, 3, shape)
+                base = 1000.0 + ints(0, 1000, (DATA_BATCH, 1))
+            else:
+                inc, base = ints(0, 2000, shape), ints(0, 1 << 20, (DATA_BATCH, 1))
+            frac = torch.empty(shape, device=dev).uniform_(generator=g)
+            rows = torch.arange(r0, r0 + DATA_BATCH, device=dev)
+            inc = torch.where((rows % 16 == 15)[:, None], inc + frac, inc)
+            st.val[r0:r0 + DATA_BATCH, :NUM_SAMPLES] = base + torch.cumsum(inc, 1)
+        st.val[:, NUM_SAMPLES:] = 0.0
+        st.stats.samples_appended += NUM_SERIES * NUM_SAMPLES
+    torch.cuda.synchronize()
+
+
+def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
+    """One decode variant at bench.py's shape: raw answers first, then the
+    flush compresses and the main path runs on the narrow store."""
+    from filodb_tpu_torch.ops import decodereg
+    install_narrow_scale(torch, shard, kind, dev)
+    st = shard.store
+    start = BASE_TS + WINDOW_MS
+    end = BASE_TS + NUM_SAMPLES * INTERVAL_MS
+    variants = [(start + k * INTERVAL_MS, end - k * INTERVAL_MS)
+                for k in range(8)]
+    q = "sum(rate(m[5m]))"
+    # the raw-residency answers: the same store before it compresses
+    shard.config.compressed_residency = "off"
+    raw_ans = [np.asarray(engine.query_range(q, s, e, STEP_MS).matrix.values)
+               for s, e in variants]
+    raw_bytes = st.resident_sample_bytes()
+    shard.config.compressed_residency = "gauge"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shard.flush()
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    nd = st.narrow_operands()
+    assert nd is not None and nd[0] == kind, (kind, nd and nd[0])
+    _k, ops, ok = nd
+    assert st.val is None and st.ts is None
+    assert int((~ok).sum()) == NUM_SERIES // 16, int((~ok).sum())
+    res_bytes = st.resident_sample_bytes()
+    for s, e in variants:                      # first calls: warm
+        engine.query_range(q, s, e, STEP_MS)
+    # the main path: counts from 0, read right after
+    reset_k1(fg)
+    results, lat = [], []
+    for i in range(8 + 11):
+        s, e = variants[i % 8]
+        t0 = time.perf_counter()
+        r = engine.query_range(q, s, e, STEP_MS)
+        lat.append((time.perf_counter() - t0) * 1000)
+        if i < 8:
+            results.append(r)
+    n_queries = 8 + 11
+    launches = fg.fused_grid_kernel.launches_by_kind[kind]
+    assert launches == fg.fused_grid_kernel.launches == n_queries, \
+        (kind, launches, fg.fused_grid_kernel.launches)
+    assert all(r.stats.blocks_narrow == 1 for r in results)
+    p50 = float(np.percentile(lat[8:], 50))
+
+    full = decodereg.variant(kind).full_columns
+    n = torch.where(torch.from_numpy(ok).to(st.device), st.n, 0).contiguous()
+    gids = fg.zero_gids(st.S, st.device)
+    worst = 0.0
+    for (s, e), r, want in zip(variants, results, raw_ans):
+        out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
+        vals = np.asarray(r.matrix.values)
+        assert vals.shape == want.shape == (1, len(out_ts)), vals.shape
+        assert np.isfinite(vals).all()
+        np.testing.assert_allclose(vals, want, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(want).max()),
+                                   err_msg=f"{kind} vs raw residency")
+        T = len(out_ts)
+        Tp = -(-T // 128) * 128
+        band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
+            CAPACITY, Tp, out_ts.tobytes(), WINDOW_MS, BASE_TS, INTERVAL_MS,
+            "rate", full, st.device)
+        plain = fg.PaddedPartials(fg.fused_grid_aggregate_plain(
+            "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, band, ohlo,
+            lo, hi, rel, 8, c0, Ca, kind, ops[1:]), "sum", 8, T).resolve()
+        kern = fg.PaddedPartials(fg.fused_grid_kernel(
+            "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, lo, hi,
+            rel, 8, c0, Ca, kind, ops[1:]), "sum", 8, T).resolve()
+        worst = max(worst, compare_parts(kern, plain, {"count"},
+                                         f"{kind} scale {s}-{e}"))
+
+    # timing at variant 0's operands (the full 2 h range: Ca = C = 768),
+    # beside K1 raw on the decoded block, bit for bit the same partials
+    s, e = variants[0]
+    out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
+    T = len(out_ts)
+    Tp = -(-T // 128) * 128
+    band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
+        CAPACITY, Tp, out_ts.tobytes(), WINDOW_MS, BASE_TS, INTERVAL_MS,
+        "rate", full, st.device)
+    dec = st.value_block()
+    a = fg.fused_grid_kernel("rate", True, WINDOW_MS, INTERVAL_MS, ops[0], n,
+                             gids, lo, hi, rel, 8, c0, Ca, kind, ops[1:])
+    b = fg.fused_grid_kernel("rate", True, WINDOW_MS, INTERVAL_MS, dec, n,
+                             gids, lo, hi, rel, 8, c0, Ca)
+    assert same_outputs(a, b), (kind, "scale: narrow != raw on the decode")
+    k_ms = cuda_ms(lambda: fg.fused_grid_kernel(
+        "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, lo, hi, rel,
+        8, c0, Ca, kind, ops[1:]), reps=20)
+    raw_ms = cuda_ms(lambda: fg.fused_grid_kernel(
+        "rate", False, WINDOW_MS, INTERVAL_MS, dec, n, gids, lo, hi, rel, 8,
+        c0, Ca), reps=20)
+    del dec, a, b
+    p_ms = cuda_ms(lambda: fg.fused_grid_aggregate_plain(
+        "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, band, ohlo,
+        lo, hi, rel, 8, c0, Ca, kind, ops[1:]), reps=3, warm=1)
+    key, bw, f32 = peaks_for(card)
+    S = st.S
+    # the block's columns once, n, gid and the row operands, the step
+    # operands, the [2, 8, Tp] output
+    nbytes = (S * Ca * ops[0].element_size() + 2 * S * 4
+              + S * 4 * (len(ops) - 1) + 3 * Tp * 4 + 2 * 8 * Tp * 4)
+    lo_h, hi_h = lo.cpu().numpy()[0, :T], hi.cpu().numpy()[0, :T]
+    cells = np.clip(np.minimum(hi_h, NUM_SAMPLES - 1)
+                    - np.maximum(lo_h + 1, 1) + 1, 0, None)
+    # as the raw bound, plus the decode: 3 operations a cell for quant16,
+    # 2 (a scan add and the anchor add) for the delta variants
+    flops = S * float((3 * cells + 30).sum()) \
+        + S * Ca * (3 if kind == "quant16" else 2)
+    bound_ms = max(nbytes / bw, flops / f32) * 1e3
+    bound_by = "bytes" if nbytes / bw >= flops / f32 else "operations"
+    log(f"narrow scale {kind} [{card}]: engine single-query p50 {p50:.3f} ms "
+        f"(sum(rate(m[5m])), {T} steps, {n_queries} queries, "
+        f"{NUM_SERIES // 16} pool rows); last query's stages (host clock, "
+        f"ms) { {k: round(v, 3) for k, v in r.stats.stage_ms.items()} }")
+    log(f"narrow scale {kind} [{card}]: K1-{kind} {k_ms:.4f} ms by CUDA "
+        f"events, K1-raw on the decoded block {raw_ms:.4f} ms (same "
+        f"partials bit for bit); plain twin {p_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at {key}'s "
+        f"{bw / 1e12:.2f} TB/s, {flops / 1e9:.2f} GFLOP at "
+        f"{f32 / 1e12:.0f} TFLOP/s f32)")
+    log(f"narrow scale {kind} [{card}]: launches per query "
+        f"{launches / n_queries:.2f}; K1 vs plain max |diff| {worst:.3g}; "
+        f"resident sample bytes {raw_bytes / 1e9:.3f} GB raw -> "
+        f"{res_bytes / 1e9:.3f} GB ({raw_bytes / res_bytes:.2f}x); "
+        f"compressed at flush in {comp_s:.2f} s; library call: none")
+    return dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound_ms, bound_by=bound_by, raw_ms=raw_ms)
 
 
 def hist_block_dev(torch, S, C, B, wide, seed, dev):
@@ -950,15 +1364,37 @@ def main() -> int:
     checks, worst2 = phase_kernels(torch, np, fg, "cuda")
     log(f"kernels: fusedgrid_k1 ({checks} checks against the plain twin, "
         f"max |diff| {worst2:.3g}, {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    checks, exact, worst2n = phase_narrow_kernels(torch, np, fg, narrow,
+                                                  "cuda")
+    log(f"kernels: fusedgrid_k1 decode variants ({checks} checks against "
+        f"the plain twin, max |diff| by kind {worst2n}; {exact} bit-exact "
+        f"checks against K1 raw on the decoded block; delta8 at c0 > 0 "
+        f"refused; {time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     small = phase_small(torch, np, fg, pkg)
     log(f"small: {len(SLICE_QUERIES)} queries on 4096 series match the CPU "
         f"engine; K1 launches {small} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    small_n = phase_small_narrow(torch, np, fg, pkg)
+    log(f"small narrow: {len(SLICE_QUERIES)} queries x {len(NARROW_KINDS)} "
+        f"kinds on 4096-series gauge stores match the CPU engine; K1 "
+        f"launches by kind {small_n} ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     k1 = phase_scale(torch, np, fg, pkg, card)
     log(f"scale: done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine, shard, reg_s = build_scale(torch, np, pkg, "cuda", "gauge")
+    log(f"narrow scale: registered {NUM_SERIES} series in {reg_s:.1f} s")
+    k1n = {kind: phase_scale_narrow(torch, np, fg, card, shard, engine, kind)
+           for kind in NARROW_KINDS}
+    del engine, shard
+    log(f"narrow scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -981,14 +1417,16 @@ def main() -> int:
     log(f"hist scale: done in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
-    table = {"kernels": [{
-        "name": "fusedgrid_k1", "route": "cuda",
+    k1_rows = [{
+        "name": "fusedgrid_k1" if kind == "raw" else f"fusedgrid_k1_{kind}",
+        "variant": kind, "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedgrid.cu",
         "replaces": "filodb_tpu/ops/fusedgrid.py:224",
-        "launches": k1["launches"], "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": None}, {
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None} for kind, r in [("raw", k1), *k1n.items()]]
+    table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",
         "replaces": "filodb_tpu/ops/fusedresident.py:282",

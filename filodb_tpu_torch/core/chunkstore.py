@@ -16,13 +16,14 @@ lock therefore guards the same thing it guards in the reference — a query
 captures the tensors and launches its kernels under it, a flush mutates
 them under it.
 
-Compressed residency, histogram stores: after a flush the [S, C, B] bucket
-block compresses to an i8/i16 2D-delta block (ops/narrow.py) plus a raw-f32
-cohort pool for the rows that do not round-trip, and the f32 block is
-released; on a grid-contiguous store the i64 timestamp block is released
-too (derived from first_ts, n and the interval). Appends rehydrate; the
-next flush re-compresses. The scalar narrow forms (quant16, delta16, delta8)
-come with the scalar residency slice.
+Compressed residency: after a flush the value block compresses to its
+narrowest exact form (ops/narrow.py) plus a raw-f32 cohort pool for the
+rows that do not round-trip, and the f32 block is released. A scalar [S, C]
+store takes the first of delta8, quant16 and delta16 (ops/decodereg.py)
+whose pool stays under the cohort gate; a histogram [S, C, B] store an
+i8/i16 2D-delta block. On a grid-contiguous store the i64 timestamp block
+is released too (derived from first_ts, n and the interval). Appends
+rehydrate; the next flush re-compresses.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops import decodereg
 from ..utils import diagnostics
 
 TS_PAD = np.int64(1) << np.int64(62)   # sentinel > any real timestamp
@@ -57,6 +59,43 @@ def _pad_size(m: int) -> int:
     while size < m:
         size *= 2
     return size
+
+
+def _decode_scalar(kind: str, ops, pool, pool_rows, S: int):
+    """The f32 [S, C] value block from the scalar narrow-resident state:
+    ``ops = (block, *row_operands)`` decoded in row blocks through the
+    registry's decode of ``kind`` (quant16: vmin + (q + 32768) * scale;
+    delta16/delta8: anchor + cumsum(dv)), bit-exact for rows the encoder
+    marked ok; pool rows overlay their exact f32 rows (pad entries carry row
+    S and are dropped). Delta rows extend their last value beyond the valid
+    count (the raw store holds zeros there) — every consumer masks by
+    ``n``."""
+    decode = decodereg.variant(kind).decode
+    blk, rows = ops[0], ops[1:]
+    v = torch.empty(blk.shape, dtype=torch.float32, device=blk.device)
+    for i in range(0, blk.shape[0], _BLOCK_ROWS):
+        j = min(i + _BLOCK_ROWS, blk.shape[0])
+        v[i:j] = decode(blk[i:j], *(r[i:j, None] for r in rows))
+    keep = pool_rows < S
+    v[pool_rows[keep].long()] = pool[keep]
+    return v
+
+
+def _decode_scalar_rows(kind: str, ops, pool, pool_slot, rid):
+    """Decode ONLY the given store rows ([P] ids) of a scalar narrow block
+    — a pool or minority fix must not materialize the full [S, C] block.
+    Pooled rows copy their raw f32 pool row and are not decoded."""
+    rid = rid.long()
+    slot = pool_slot[rid].long()
+    pooled = slot >= 0
+    blk = ops[0]
+    out = torch.empty((rid.shape[0], blk.shape[1]), dtype=torch.float32,
+                      device=blk.device)
+    out[pooled] = pool[slot[pooled]]
+    r = rid[~pooled]
+    out[~pooled] = decodereg.variant(kind).decode(
+        blk[r], *(o[r][:, None] for o in ops[1:]))
+    return out
 
 
 def _decode_hist(dd, first_d, pool, pool_rows, S: int):
@@ -144,6 +183,26 @@ class _Deferred:
 
     def __getitem__(self, idx):
         return self.materialize()[idx]
+
+
+class DeferredDecode(_Deferred):
+    """Lazy f32 view of a scalar narrow-resident store's [S, C] value
+    block."""
+
+    dtype = torch.float32
+
+    def _build(self):
+        return self._store.value_block()
+
+    def gather_rows(self, rid):
+        """[P, C] f32 of the given rows only (row-wise decode; falls back to
+        the materialized block if one exists or the store changed residency
+        since this view was handed out)."""
+        st = self._store
+        if self._arr is None and st._narrow is not None:
+            kind, ops, pool, _pp, slot, _ok = st._narrow
+            return _decode_scalar_rows(kind, ops, pool, slot, rid)
+        return self.materialize()[rid.long()]
 
 
 class DeferredDecodeHist(_Deferred):
@@ -250,6 +309,13 @@ class SeriesStore:
         # the shard attaches its lock so mutations can assert the discipline
         self.owner_lock = None
         self.stats = SeriesStoreStats()
+        # scalar narrow-resident state (compressed_residency "gauge"/"all"):
+        # (kind, ops, pool f32 [Rp, C], pp i32 [Rp] (pads = S), slot i32 [S]
+        # (-1 = not pooled), ok_host bool [S]); ``kind`` names the decode
+        # variant (ops/decodereg.py: "delta8" | "quant16" | "delta16") and
+        # ``ops`` its tensors ((q, vmin, scale) or (dv, anchor)). When set it
+        # IS the only resident value copy and ``val`` is None
+        self._narrow = None
         # hist-resident state (compressed_residency="all"): (dd i8/i16
         # [S,C,B], first_d f32 [S,B], pool f32 [Rp,C,B], pp i32 [Rp] (pads
         # = S), slot i32 [S] (-1 = not pooled), ok_host bool [S]). When set
@@ -306,13 +372,14 @@ class SeriesStore:
     #
     # Reference role: the reference keeps in-memory values ONLY in
     # compressed form and decompresses on access (doc/compression.md) —
-    # bytes per sample is the capacity lever. After a flush the histogram
-    # block compresses to the narrowest 2D-delta dtype that carries it
-    # bit-exactly and the f32 block is released; rows that do not round-trip
-    # keep their raw f32 in a small cohort pool. Appends rehydrate (write
-    # buffers stay raw in the reference too); the next flush re-compresses.
-    # Queries stream the narrow state (K2), or decode a transient f32 for
-    # general paths.
+    # bytes per sample is the capacity lever. After a flush the value block
+    # compresses to the narrowest form that carries it bit-exactly (a scalar
+    # decode variant, or a 2D-delta dtype for histograms) and the f32 block
+    # is released; rows that do not round-trip keep their raw f32 in a
+    # small cohort pool. Appends rehydrate (write buffers stay raw in the
+    # reference too); the next flush re-compresses. Queries stream the
+    # narrow state (K1's decode variants, K2), or decode a transient f32
+    # for general paths.
 
     def mutation_epoch(self) -> tuple:
         """Changes whenever a mutation ran (append/compact/free) — the
@@ -357,6 +424,45 @@ class SeriesStore:
         best = max(counts, key=lambda kv: kv[1])
         return best[0] if best[1] else counts[-1][0]
 
+    def _prepare_scalar(self):
+        """Scalar narrow residency, narrowest first: delta8 (1 B/sample),
+        then quant16 (2 B, keeps active-column slicing: ops/decodereg.py
+        full_columns), then delta16 (2 B, full columns). Counter-shaped rows
+        (large anchor, small integer increments) fail the quantized
+        contract but carry exactly in the delta form."""
+        from ..ops.narrow import (build_narrow, build_narrow_delta,
+                                  cast_narrow_delta_i8)
+        dv16, anchor, okd16, okd8, integral = build_narrow_delta(self.val,
+                                                                 self.n)
+        okd8_host = okd8.cpu().numpy()
+        bad = self._bad_rows(okd8_host)
+        if bad is not None:
+            dv8 = cast_narrow_delta_i8(dv16)
+            del dv16
+            return ("delta8", (dv8, anchor), *self._cohort_pool(bad),
+                    okd8_host)
+        q, vmin, scale, okq = build_narrow(self.val, self.n)
+        okq_host = okq.cpu().numpy()
+        bad = self._bad_rows(okq_host)
+        if bad is not None:
+            return ("quant16", (q, vmin, scale), *self._cohort_pool(bad),
+                    okq_host)
+        del q
+        okd16_host = okd16.cpu().numpy()
+        bad = self._bad_rows(okd16_host)
+        if bad is not None:
+            return ("delta16", (dv16, anchor), *self._cohort_pool(bad),
+                    okd16_host)
+        # every encoding breached the cohort gate: say why (non-integer
+        # deltas vs integral but out of range) — mostly continuous floats
+        # keep raw f32
+        live_bad = (self.n_host > 0) & ~okq_host & ~okd16_host
+        integral_host = integral.cpu().numpy()
+        self.residency_decline = self._majority_reason(
+            live_bad, [("non-integer", ~integral_host),
+                       ("range", integral_host)])
+        return None
+
     def _prepare_hist(self):
         """2D-delta residency for the [S, C, B] bucket block: the narrowest
         signed dtype (i8, then i16) whose bit-exact rows keep the cohort
@@ -390,15 +496,16 @@ class SeriesStore:
 
     def compress_prepare(self):
         """Phase 1 (no lock needed): stream the store into the compressed
-        form — 2D-delta bucket block + cohort pool, and the ts-derivability
-        verdict. Pure reads + host fetches; a concurrent mutation is caught
-        by the caller's mutation_epoch() check before the commit. Returns
-        None when the store or its data doesn't qualify (f64, multi-column
-        scalar, mostly non-exact rows); ``residency_decline`` then carries
-        the reason when the data itself refused."""
+        form — a scalar narrow block or a 2D-delta bucket block, + cohort
+        pool, and the ts-derivability verdict. Pure reads + host fetches; a
+        concurrent mutation is caught by the caller's mutation_epoch() check
+        before the commit. Returns None when the store or its data doesn't
+        qualify (f64, multi-column scalar, mostly non-exact rows);
+        ``residency_decline`` then carries the reason when the data itself
+        refused."""
         prep_val = None
         self.residency_decline = None
-        if self._nhist is None:
+        if not self._val_compressed:
             if self.dtype != torch.float32 or self.val is None:
                 return None
             if self.nbuckets:
@@ -407,9 +514,7 @@ class SeriesStore:
                 # scalar columns (prom-histogram's sum/count) stay raw
                 prep_val = self._prepare_hist()
             elif self.layout is None:
-                raise NotImplementedError(
-                    "scalar narrow residency (quant16/delta16/delta8) is not "
-                    "yet ported: ROADMAP queue 1 item 8")
+                prep_val = self._prepare_scalar()
             else:
                 return None   # multi-column scalar stores stay raw
             if prep_val is None:
@@ -430,7 +535,10 @@ class SeriesStore:
         prep_val, ts_ok = prep
         self._pre_mutate("SeriesStore.compress_commit")
         if prep_val is not None:
-            self._nhist = prep_val
+            if self.nbuckets:
+                self._nhist = prep_val
+            else:
+                self._narrow = prep_val
             self.val = None    # the f32 block's device memory is released
         if ts_ok and not self._ts_elided:
             self.ts = None     # the 8 B/sample block's memory is released
@@ -438,7 +546,7 @@ class SeriesStore:
 
     @property
     def _val_compressed(self) -> bool:
-        return self._nhist is not None
+        return self._narrow is not None or self._nhist is not None
 
     def _rehydrate(self) -> None:
         """Restore the resident f32/i64 blocks (mutations write raw); the
@@ -446,6 +554,10 @@ class SeriesStore:
         if not self._val_compressed and not self._ts_elided:
             return
         self._pre_mutate("SeriesStore.rehydrate")
+        if self._narrow is not None:
+            kind, ops, pool, pp, _slot, _ok = self._narrow
+            self._narrow = None
+            self.val = _decode_scalar(kind, ops, pool, pp, self.S)
         if self._nhist is not None:
             dd, first_d, pool, pp, _slot, _ok = self._nhist
             self._nhist = None
@@ -459,6 +571,9 @@ class SeriesStore:
         """f32 value block: the resident tensor, or a TRANSIENT decode of
         the narrow state (not retained — capacity stays at the compressed
         form + pool)."""
+        if self._narrow is not None:
+            kind, ops, pool, pp, _slot, _ok = self._narrow
+            return _decode_scalar(kind, ops, pool, pp, self.S)
         if self._nhist is not None:
             dd, first_d, pool, pp, _slot, _ok = self._nhist
             return _decode_hist(dd, first_d, pool, pp, self.S)
@@ -470,6 +585,15 @@ class SeriesStore:
             return self.ts
         return _derive_ts(self._first_ts_dev(), self.n, self.grid_interval,
                           self.C)
+
+    def narrow_operands(self):
+        """(kind, ops, ok_host) when scalar narrow-resident, else None — K1's
+        direct-stream operands: ``kind`` names the decode variant
+        (ops/decodereg.py), ``ops = (block, *row_operands)``."""
+        if self._narrow is None:
+            return None
+        kind, ops, _pool, _pp, _slot, ok = self._narrow
+        return kind, ops, ok
 
     def hist_operands(self):
         """(dd, first_d, ok_host) when hist-resident, else None — the narrow
@@ -485,6 +609,10 @@ class SeriesStore:
 
     def resident_value_bytes(self) -> int:
         """Resident device bytes of the default value column's state."""
+        if self._narrow is not None:
+            _kind, ops, pool, _pp, _slot, _ok = self._narrow
+            return (sum(o.numel() * o.element_size() for o in ops)
+                    + pool.numel() * 4)
         if self._nhist is not None:
             dd, first_d, pool, _pp, _slot, _ok = self._nhist
             return (dd.numel() * dd.element_size() + first_d.numel() * 4
@@ -738,6 +866,8 @@ class SeriesStore:
 
     def column_array(self, column: str | None = None):
         if column is None or column == self.default_col:
+            if self._narrow is not None:
+                return DeferredDecode(self)
             if self._nhist is not None:
                 return DeferredDecodeHist(self)
             return self.val

@@ -10,15 +10,17 @@ pressure.
 
 Histogram schemas (prom-histogram: sum, count and the ``h`` bucket column)
 create their store lazily — the bucket scheme arrives with the first
-container. Under ``compressed_residency="all"`` a flush compresses the
-[S, C, B] bucket block to i8/i16 2D-delta form in two phases: the build
-runs outside the shard lock, the swap under it only if the store did not
-mutate meanwhile.
+container. Under ``compressed_residency`` "gauge" a flush compresses a
+scalar single-column store to its narrowest exact decode variant (delta8,
+quant16 or delta16); under "all" also the [S, C, B] bucket block of a
+histogram store, to i8/i16 2D-delta form. Compression runs in two phases:
+the build outside the shard lock, the swap under it only if the store did
+not mutate meanwhile.
 
 The port's shards carry no durable sink yet, and no ingest offsets or group
 watermarks with it. Recovery, purge, on-demand paging, inline downsampling,
-the cardinality governor and scalar narrow residency arrive with later
-slices.
+the cardinality governor and the optional quant16 mirror beside a raw store
+(the reference's ``narrow_mirror``) arrive with later slices.
 """
 
 from __future__ import annotations
@@ -51,18 +53,20 @@ class StoreConfig:
     dtype: str = "float32"
     device: str | None = None
     # which store shapes adopt the compressed-resident form after flush:
-    #   "off" — raw f32/i64 blocks stay resident
-    #   "all" — [S, C, B] histogram stores (i8/i16 2D-delta bucket blocks
-    #           + timestamp elision); scalar stores are not yet ported
-    #           (ROADMAP queue 1 item 8) and such a shard refuses to be built
+    #   "off"   — raw f32/i64 blocks stay resident
+    #   "gauge" — scalar f32 single-column stores: the narrowest decode
+    #             variant that carries the data bit-exactly (delta8, quant16,
+    #             delta16: ops/decodereg.py) + timestamp elision
+    #   "all"   — "gauge", and [S, C, B] histogram stores (i8/i16 2D-delta
+    #             bucket blocks + timestamp elision)
     compressed_residency: str = "off"
 
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32|float64, got {self.dtype!r}")
-        if self.compressed_residency not in ("off", "all"):
+        if self.compressed_residency not in ("off", "gauge", "all"):
             raise ValueError(
-                f"compressed_residency must be off|all, "
+                f"compressed_residency must be off|gauge|all, "
                 f"got {self.compressed_residency!r}")
 
 
@@ -83,14 +87,6 @@ class TimeSeriesShard:
     def __init__(self, dataset: str, schema: Schema, shard_num: int,
                  config: StoreConfig, device=None,
                  eviction_policy: EvictionPolicy | None = None):
-        if (not schema.is_histogram and not schema.is_multi_column
-                and config.compressed_residency != "off"):
-            # the reference would compress this store to quant16/delta
-            # form at flush; refuse up front rather than mid-flush
-            raise NotImplementedError(
-                f"schema {schema.name!r} with compressed_residency="
-                f"{config.compressed_residency!r}: scalar narrow residency is "
-                "not yet ported (ROADMAP queue 1 item 8)")
         self.dataset = dataset
         self.schema = schema
         self.shard_num = shard_num
@@ -398,7 +394,7 @@ class TimeSeriesShard:
         with self.lock:
             staged = bool(self._staged)
             written = self._flush_staged_locked() if staged else 0
-        resident = self.config.compressed_residency == "all"
+        resident = self.config.compressed_residency != "off"
         if not staged:
             # nothing new — but a compaction since the last flush may have
             # rehydrated a compressed-resident store: re-adopt
@@ -420,9 +416,11 @@ class TimeSeriesShard:
         """Build the compressed-resident state without the shard lock, then
         swap under it iff nothing mutated meanwhile (a racing append writes
         into the very tensors the build streams — its result is stale and
-        dropped; the next flush retries). Only histogram stores compress."""
+        dropped; the next flush retries). Histogram stores compress only
+        under "all"."""
         st = self.store
-        if st is None or not st.nbuckets:
+        if st is None or (st.nbuckets
+                          and self.config.compressed_residency != "all"):
             return
         epoch0 = st.mutation_epoch()
         # idempotence: fully compressed already, or nothing mutated since

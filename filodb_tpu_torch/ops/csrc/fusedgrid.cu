@@ -2,7 +2,7 @@
 //
 // Replaces filodb_tpu/ops/fusedgrid.py::build_pallas (its body _kernel_body
 // and tile math tile_contrib): the partial state of op(fn(m[w])) over a
-// grid-aligned [S, C] f32 value store, read once. For fn in {rate, increase,
+// grid-aligned [S, C] value store, read once. For fn in {rate, increase,
 // delta}: counter-corrected increments, the window delta over (lo_t, hi_t],
 // the first sample at max(lo_t, 0), Prometheus extrapolation and the cnt >= 2
 // mask; for fn in {sum, avg, count}_over_time: the closed-window sum and the
@@ -21,12 +21,36 @@
 // --use_fast_math so no contraction or approximate division changes the
 // rounding.
 //
+// The decode stage. The store's value block is in one of the decode
+// variants of ops/decodereg.py, the Pallas body's var.pallas(...) at
+// filodb_tpu/ops/fusedgrid.py:151; the kernel is templated on it and only
+// the staging differs. Every variant stages f32 values into the same
+// shared-memory tile, and everything after the staging reads only that
+// tile:
+//   raw      f32 [S, C]          copied as it is;
+//   quant16  i16 [S, C]          vmin[r] + ((float)q + 32768) * scale[r],
+//                                the reference's order, one rounding each;
+//   delta16  i16 [S, C], delta8 i8 [S, C]   anchor[r] + inclusive prefix
+//                                sum of the row's deltas: one warp per
+//                                staged row, 4 cells a lane, 128-cell
+//                                chunks carried from one to the next.
+// The delta encoder admits only integer deltas whose every prefix is within
+// 2^23 (filodb_tpu/ops/narrow.py:173-177), so every partial sum of any
+// order is an exact integer in f32 and the one rounding is the final add
+// to the anchor, as in the plain anchor + cumsum. The delta variants need
+// the whole row from cell 0: c0 = 0 and ca = C, or the launch is refused.
+// Cohort-pool rows arrive with n = 0 and any block or anchor (NaN, Inf,
+// garbage): the row walk and the non-finite counts read only cells < n,
+// so they add nothing.
+//
 // What bounds it. The value store: the kernel reads val[:, c0:c0+Ca] once.
 // At bench.py's shape (S = 2^20 series, Ca = C = 768 columns for the full
-// 2 h range) that is 3.22 GB, 0.96 ms at the H100 SXM data sheet's
-// 3.35 TB/s; n, gid and the step operands are a few MB. The operations are
-// a few per byte, far below the card's compute ridge, so bytes bound it
-// (chip_smoke.py recomputes the bound for the card it runs on).
+// 2 h range) that is 3.22 GB in f32, 0.96 ms at the H100 SXM data sheet's
+// 3.35 TB/s; 0.81 GB (0.24 ms) for delta8, 1.61 GB (0.48 ms) for quant16
+// and delta16; n, gid, the row operands and the step operands are a few
+// MB. The operations are a few per byte, far below the card's compute
+// ridge, so bytes bound it (chip_smoke.py recomputes the bound for the
+// card it runs on).
 //
 // What the design does about it. Blocks run over (row chunk x step chunk of
 // 128 steps). A block stages RT rows of its chunk at a time in shared memory
@@ -61,8 +85,19 @@ enum Fn {
   FN_COUNT_OVER_TIME = 5,
 };
 
+// the decode variant of the value block (KIND_CODES in ops/fusedgrid.py)
+enum Kind {
+  KIND_RAW = 0,
+  KIND_QUANT16 = 1,
+  KIND_DELTA16 = 2,
+  KIND_DELTA8 = 3,
+};
+
 struct Params {
-  const float* val;      // [S, row_stride], columns [c0, c0 + ca) are read
+  const void* val;       // [S, row_stride] block of the kind's element type,
+                         // columns [c0, c0 + ca) are read
+  const float* row0;     // [S] quant16: vmin; delta16/delta8: anchor
+  const float* row1;     // [S] quant16: scale
   long long row_stride;  // elements between rows (the store capacity C)
   int c0;                // first active column
   int ca;                // active column count
@@ -82,7 +117,7 @@ struct Params {
   float rate_scale;      // (float)(1000.0 / window_ms)
   int rows_per_block;
   int rt;                // rows staged per shared-memory tile
-  int vec4;              // 16-byte loads are aligned
+  int vec4;              // 4-element vector loads are aligned
   float* scratch;        // [nchunks, nout, G, Tp]
 };
 
@@ -96,6 +131,114 @@ __device__ __forceinline__ float inc_of(const float* v, int lc, bool counter) {
   return counter ? relu_keep_nan(d) : d;
 }
 
+// Stage rows [r0, r0 + nr) of each variant as f32 into tile[nr, ca].
+
+__device__ __forceinline__ void stage_raw(const Params& p, float* tile,
+                                          int r0, int nr, int tid) {
+  const float* val = static_cast<const float*>(p.val);
+  const int c0 = p.c0;
+  if (p.vec4) {
+    const int ca4 = p.ca >> 2;
+    for (int i = tid; i < nr * ca4; i += kSteps) {
+      const int r = i / ca4;
+      const int c4 = i - r * ca4;
+      const float4 x = *reinterpret_cast<const float4*>(
+          val + (long long)(r0 + r) * p.row_stride + c0 + 4 * c4);
+      *reinterpret_cast<float4*>(tile + r * p.ca + 4 * c4) = x;
+    }
+  } else {
+    for (int i = tid; i < nr * p.ca; i += kSteps) {
+      const int r = i / p.ca;
+      const int c = i - r * p.ca;
+      tile[i] = val[(long long)(r0 + r) * p.row_stride + c0 + c];
+    }
+  }
+}
+
+__device__ __forceinline__ float dequant16(int16_t q, float vmin,
+                                           float scale) {
+  return vmin + ((float)q + 32768.f) * scale;
+}
+
+__device__ __forceinline__ void stage_quant16(const Params& p, float* tile,
+                                              int r0, int nr, int tid) {
+  const int16_t* q = static_cast<const int16_t*>(p.val);
+  const int c0 = p.c0;
+  if (p.vec4) {   // 4 cells, 8 bytes, a load
+    const int ca4 = p.ca >> 2;
+    for (int i = tid; i < nr * ca4; i += kSteps) {
+      const int r = i / ca4;
+      const int c4 = i - r * ca4;
+      const short4 x = *reinterpret_cast<const short4*>(
+          q + (long long)(r0 + r) * p.row_stride + c0 + 4 * c4);
+      const float vmin = p.row0[r0 + r];
+      const float scale = p.row1[r0 + r];
+      float4 y;
+      y.x = dequant16(x.x, vmin, scale);
+      y.y = dequant16(x.y, vmin, scale);
+      y.z = dequant16(x.z, vmin, scale);
+      y.w = dequant16(x.w, vmin, scale);
+      *reinterpret_cast<float4*>(tile + r * p.ca + 4 * c4) = y;
+    }
+  } else {
+    for (int i = tid; i < nr * p.ca; i += kSteps) {
+      const int r = i / p.ca;
+      const int c = i - r * p.ca;
+      tile[i] = dequant16(q[(long long)(r0 + r) * p.row_stride + c0 + c],
+                          p.row0[r0 + r], p.row1[r0 + r]);
+    }
+  }
+}
+
+__device__ __forceinline__ void load4(const int8_t* s, float* x) {
+  const char4 v = *reinterpret_cast<const char4*>(s);
+  x[0] = (float)v.x; x[1] = (float)v.y; x[2] = (float)v.z; x[3] = (float)v.w;
+}
+
+__device__ __forceinline__ void load4(const int16_t* s, float* x) {
+  const short4 v = *reinterpret_cast<const short4*>(s);
+  x[0] = (float)v.x; x[1] = (float)v.y; x[2] = (float)v.z; x[3] = (float)v.w;
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_delta(const Params& p, float* tile,
+                                            int r0, int nr, int warp,
+                                            int lane) {
+  const T* blk = static_cast<const T*>(p.val);
+  const int ca = p.ca;             // == C: the launch checked c0 = 0
+  for (int r = warp; r < nr; r += kSteps / 32) {
+    const T* src = blk + (long long)(r0 + r) * p.row_stride;
+    float* dst = tile + r * ca;
+    const float anchor = p.row0[r0 + r];
+    float carry = 0.f;             // sum of the row's cells before the chunk
+    for (int base = 0; base < ca; base += 128) {
+      const int c = base + 4 * lane;
+      float x[4];
+      if (p.vec4 && c + 3 < ca) {
+        load4(src + c, x);
+      } else {
+        for (int k = 0; k < 4; ++k) x[k] = c + k < ca ? (float)src[c + k] : 0.f;
+      }
+      // inclusive prefix over the lane's 4 cells, then over the lanes
+      x[1] = x[0] + x[1];
+      x[2] = x[1] + x[2];
+      x[3] = x[2] + x[3];
+      float tot = x[3];
+      for (int off = 1; off < 32; off <<= 1) {
+        const float y = __shfl_up_sync(0xffffffffu, tot, off);
+        if (lane >= off) tot = tot + y;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, tot, 1);
+      if (lane == 0) excl = 0.f;
+      const float before = carry + excl;   // sum of the cells before c
+      for (int k = 0; k < 4; ++k)
+        if (c + k < ca) dst[c + k] = anchor + (before + x[k]);
+      carry = carry + __shfl_sync(0xffffffffu, tot, 31);
+    }
+  }
+}
+
+template <int K>
 __global__ void fused_grid_map(Params p) {
   extern __shared__ float smem[];
   float* tile = smem;                                   // [rt, ca]
@@ -130,21 +273,14 @@ __global__ void fused_grid_map(Params p) {
   for (int r0 = row0; r0 < row_end; r0 += p.rt) {
     const int nr = min(p.rt, row_end - r0);
     __syncthreads();   // the previous tile is consumed
-    if (p.vec4) {
-      const int ca4 = p.ca >> 2;
-      for (int i = tid; i < nr * ca4; i += kSteps) {
-        const int r = i / ca4;
-        const int c4 = i - r * ca4;
-        const float4 x = *reinterpret_cast<const float4*>(
-            p.val + (long long)(r0 + r) * p.row_stride + c0 + 4 * c4);
-        *reinterpret_cast<float4*>(tile + r * p.ca + 4 * c4) = x;
-      }
+    if constexpr (K == KIND_RAW) {
+      stage_raw(p, tile, r0, nr, tid);
+    } else if constexpr (K == KIND_QUANT16) {
+      stage_quant16(p, tile, r0, nr, tid);
+    } else if constexpr (K == KIND_DELTA16) {
+      stage_delta<int16_t>(p, tile, r0, nr, warp, lane);
     } else {
-      for (int i = tid; i < nr * p.ca; i += kSteps) {
-        const int r = i / p.ca;
-        const int c = i - r * p.ca;
-        tile[i] = p.val[(long long)(r0 + r) * p.row_stride + c0 + c];
-      }
+      stage_delta<int8_t>(p, tile, r0, nr, warp, lane);
     }
     for (int r = tid; r < nr; r += kSteps) {
       s_n[r] = p.n[r0 + r];
@@ -276,16 +412,33 @@ __global__ void fused_grid_map(Params p) {
       out[(size_t)(o * G + g) * p.tp + t] = acc[(o * G + g) * kSteps + tid];
 }
 
+template <int K>
+cudaError_t launch_map(const Params& p, dim3 grid, size_t smem,
+                       cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_grid_map<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_grid_map<K><<<grid, kSteps, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fusedgrid_launch(
-    const float* val, long long row_stride, int c0, int ca, int cap, int rows,
+    const void* val, int kind, const float* row0, const float* row1,
+    long long row_stride, int c0, int ca, int cap, int rows,
     const int* n, const int* gid, const int* lo, const int* hi, const int* rel,
     int tp, int groups, int fn, int nout, int window_ms, int interval_ms,
     float rate_scale, int rows_per_block, int rt, int vec4, float* scratch,
     int nchunks, float* out, void* stream) {
+  // the delta variants decode from cell 0 of the whole row
+  if ((kind == KIND_DELTA16 || kind == KIND_DELTA8) && (c0 != 0 || ca != cap))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.val = val;
+  p.row0 = row0;
+  p.row1 = row1;
   p.row_stride = row_stride;
   p.c0 = c0;
   p.ca = ca;
@@ -311,12 +464,15 @@ extern "C" int fusedgrid_launch(
                                        + (size_t)nout * groups * kSteps)
                       + sizeof(int) * 4 * (size_t)rt;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_grid_map, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid(nchunks, tp / kSteps);
-  fused_grid_map<<<grid, kSteps, smem, s>>>(p);
-  err = cudaGetLastError();
+  cudaError_t err;
+  switch (kind) {
+    case KIND_RAW: err = launch_map<KIND_RAW>(p, grid, smem, s); break;
+    case KIND_QUANT16: err = launch_map<KIND_QUANT16>(p, grid, smem, s); break;
+    case KIND_DELTA16: err = launch_map<KIND_DELTA16>(p, grid, smem, s); break;
+    case KIND_DELTA8: err = launch_map<KIND_DELTA8>(p, grid, smem, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold(scratch, out, nchunks, nout * groups * tp, s);
 }

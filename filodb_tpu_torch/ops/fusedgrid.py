@@ -2,9 +2,11 @@
 
 Port of ``filodb_tpu/ops/fusedgrid.py``. The north-star query
 ``sum(rate(metric[5m]))`` over a grid-aligned shard is bound by the bytes of
-the value store ([S, C] f32, gigabytes). The fused tier reads the store once
+the value store ([S, C], gigabytes). The fused tier reads the store once
 and produces per-group partial state ([G, Tp] sum / count (/ sumsq)) without
-the [S, T] rate matrix ever existing in device memory.
+the [S, T] rate matrix ever existing in device memory. The store's block is
+raw f32 or one of the narrow decode variants of ops/decodereg.py (quant16,
+delta16, delta8), decoded tile by tile on the way in.
 
 Two implementations of one function, chosen by the tensor's device:
 
@@ -40,6 +42,8 @@ FUSED_OPS = {"sum", "avg", "count", "group", "stddev", "stdvar"}
 # K1's function codes (enum Fn in csrc/fusedgrid.cu)
 FN_CODES = {"rate": 0, "increase": 1, "delta": 2, "sum_over_time": 3,
             "avg_over_time": 4, "count_over_time": 5}
+# K1's decode variants (enum Kind in csrc/fusedgrid.cu)
+KIND_CODES = {"raw": 0, "quant16": 1, "delta16": 2, "delta8": 3}
 K1_STEPS = 128             # steps per block (kSteps in the CUDA source)
 
 
@@ -119,11 +123,14 @@ def tile_contrib(fn: str, window_ms: int, interval_ms: int, c0: int,
 def fused_grid_aggregate_plain(fn: str, needs_sumsq: bool, window_ms: int,
                                interval_ms: int, val, n, gids, band, ohlo,
                                lo, hi, rel, G: int, c0: int = 0,
-                               Ca: int | None = None):
+                               Ca: int | None = None, kind: str = "raw",
+                               row_ops=()):
     """Plain PyTorch twin of K1: walks the reference's [Sb, Ca] row tiles
-    (Sb = 512, or S when S <= 512) through :func:`tile_contrib` and folds
-    each into [G, Tp] partials with a one-hot product. Returns the 2 or 3
-    [G, Tp] f32 outputs (sum, count (, sumsq))."""
+    (Sb = 512, or S when S <= 512), decodes each through the registry's
+    ``kind`` (``val`` is that variant's block, ``row_ops`` its per-row [S]
+    operands), runs it through :func:`tile_contrib` and folds it into
+    [G, Tp] partials with a one-hot product. Returns the 2 or 3 [G, Tp] f32
+    outputs (sum, count (, sumsq))."""
     f32 = torch.float32
     S, C = val.shape
     Ca = Ca or C
@@ -135,9 +142,10 @@ def fused_grid_aggregate_plain(fn: str, needs_sumsq: bool, window_ms: int,
     gcol = torch.arange(G, dtype=torch.int32, device=dev)[None, :]
     n2 = n.to(torch.int32).reshape(S, 1)
     g2 = gids.to(torch.int32).reshape(S, 1)
-    decode = decodereg.variant("raw").decode
+    decode = decodereg.variant(kind).decode
     for i in range(0, S, Sb):
-        v = decode(val[i:i + Sb, c0:c0 + Ca])
+        v = decode(val[i:i + Sb, c0:c0 + Ca],
+                   *(r[i:i + Sb, None] for r in row_ops))
         contrib, okf = tile_contrib(fn, window_ms, interval_ms, c0, v,
                                     n2[i:i + Sb], band, ohlo, lo, hi, rel)
         oh = (gcol == g2[i:i + Sb]).to(f32).T                 # [G, Sb]
@@ -154,7 +162,8 @@ def _k1_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fusedgrid_launch.restype = i
     lib.fusedgrid_launch.argtypes = [
-        p, ctypes.c_longlong, i, i, i, i,        # val, row_stride, c0, ca, cap, rows
+        p, i, p, p,                              # val, kind, row0, row1
+        ctypes.c_longlong, i, i, i, i,           # row_stride, c0, ca, cap, rows
         p, p, p, p, p,                           # n, gid, lo, hi, rel
         i, i, i, i, i, i, ctypes.c_float,        # tp, G, fn, nout, window, interval, scale
         i, i, i, p, i, p, p]                     # rpb, rt, vec4, scratch, nchunks, out, stream
@@ -182,18 +191,25 @@ def k1_launch_shape(S: int, Ca: int, Tp: int, G: int, nout: int):
 
 def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
                       interval_ms: int, val, n, gids, lo, hi, rel, G: int,
-                      c0: int = 0, Ca: int | None = None):
+                      c0: int = 0, Ca: int | None = None, kind: str = "raw",
+                      row_ops=()):
     """Launch K1 on ``val``'s card; returns the 2 or 3 [G, Tp] f32 outputs.
 
     Checks what the kernel takes and raises on anything else: ``val`` a
-    CUDA f32 [S, C] tensor with unit column stride (the kernel reads columns
-    [c0, c0 + Ca) of each row); ``n``/``gids`` contiguous int32 [S];
+    CUDA [S, C] tensor of the decode variant ``kind``'s block dtype (f32 raw,
+    i16 quant16/delta16, i8 delta8) with unit column stride (the kernel
+    reads columns [c0, c0 + Ca) of each row; the full_columns variants
+    delta16/delta8 need c0 = 0 and Ca = C); ``row_ops`` the variant's
+    contiguous f32 [S] row operands ((vmin, scale) for quant16, (anchor,)
+    for the delta variants); ``n``/``gids`` contiguous int32 [S];
     ``lo``/``hi``/``rel`` contiguous int32 holding Tp values, Tp a multiple
     of 128; 1 <= G <= 64; all on one device. Launches on the current stream
-    and does not synchronise.
+    and does not synchronise. Counts its launches in ``.launches`` and, by
+    variant, in ``.launches_by_kind``.
 
     C interface (``fusedgrid_launch`` in csrc/fusedgrid.cu), in order:
-    val, row_stride, c0, ca, cap (= C), rows (= S) -- the value block;
+    val, kind (KIND_CODES), row0, row1 (row operands, or null) -- the
+    block and its decode; row_stride, c0, ca, cap (= C), rows (= S);
     n, gid, lo, hi, rel -- device pointers of the operands above;
     tp, groups, fn (FN_CODES), nout (2 or 3), window_ms, interval_ms,
     rate_scale (f32 of 1000.0 / window_ms) -- the query;
@@ -204,12 +220,22 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     Ca = Ca or val.shape[1]
     dev = val.device
     _require(fn in FN_CODES, f"unknown fn {fn!r}")
-    _require(val.is_cuda, "val must be a CUDA tensor")
-    _require(val.dtype == torch.float32, f"val must be float32, got {val.dtype}")
+    _require(kind in KIND_CODES, f"unknown decode variant {kind!r}")
+    var = decodereg.variant(kind)
+    _require(val.dtype == var.block_dtype,
+             f"a {kind} block must be {var.block_dtype}, got {val.dtype}")
     _require(val.dim() == 2 and val.stride(1) == 1,
              "val must be [S, C] with unit column stride")
     S, C = val.shape
     _require(0 <= c0 and 0 < Ca and c0 + Ca <= C, f"bad columns {c0}+{Ca} of {C}")
+    _require(not var.full_columns or (c0 == 0 and Ca == C),
+             f"{kind} decodes whole rows: columns {c0}+{Ca} of {C}")
+    _require(len(row_ops) == var.row_operands,
+             f"{kind} takes {var.row_operands} row operands, got {len(row_ops)}")
+    for t in row_ops:
+        _require(t.device == dev and t.dtype == torch.float32
+                 and t.is_contiguous() and t.numel() == S,
+                 f"row operands must be contiguous float32 [{S}] on {dev}")
     for name, t, length in (("n", n, S), ("gids", gids, S)):
         _require(t.device == dev and t.dtype == torch.int32
                  and t.is_contiguous() and t.numel() == length,
@@ -221,17 +247,19 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
                  and t.is_contiguous() and t.numel() == Tp,
                  f"{name} must be contiguous int32 [{Tp}] on {dev}")
     _require(1 <= G <= MAX_GROUPS, f"G={G} outside [1, {MAX_GROUPS}]")
+    _require(val.is_cuda, "val must be a CUDA tensor")
     nout = 3 if needs_sumsq else 2
     rt, rows_per_block, nchunks = k1_launch_shape(S, Ca, Tp, G, nout)
     vec4 = int(val.stride(0) % 4 == 0 and c0 % 4 == 0 and Ca % 4 == 0
-               and val.data_ptr() % 16 == 0)
+               and val.data_ptr() % (4 * val.element_size()) == 0)
     scratch = torch.empty((nchunks, nout, G, Tp), dtype=torch.float32,
                           device=dev)
     out = torch.empty((nout, G, Tp), dtype=torch.float32, device=dev)
     rate_scale = float(np.float32(1000.0 / window_ms))
     lib = _k1_lib()
+    rows = [t.data_ptr() for t in row_ops] + [None] * (2 - len(row_ops))
     err = lib.fusedgrid_launch(
-        val.data_ptr(), val.stride(0), c0, Ca, C, S,
+        val.data_ptr(), KIND_CODES[kind], *rows, val.stride(0), c0, Ca, C, S,
         n.data_ptr(), gids.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         rel.data_ptr(), Tp, G, FN_CODES[fn], nout, int(window_ms),
         int(interval_ms), rate_scale, rows_per_block, rt, vec4,
@@ -241,10 +269,12 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
         raise RuntimeError(f"fusedgrid kernel launch failed: CUDA error {err} "
                            f"({lib.fusedgrid_error_string(err).decode()})")
     fused_grid_kernel.launches += 1
+    fused_grid_kernel.launches_by_kind[kind] += 1
     return tuple(out.unbind(0))
 
 
 fused_grid_kernel.launches = 0
+fused_grid_kernel.launches_by_kind = dict.fromkeys(KIND_CODES, 0)
 
 
 def active_columns(C: int, lo: np.ndarray, hi: np.ndarray) -> tuple[int, int]:
@@ -363,17 +393,24 @@ class PaddedPartials:
 
 def fused_grid_aggregate(op: str, fn: str, val, n, gids, num_groups: int,
                          out_ts: np.ndarray, window_ms: int,
-                         base_ts: int, interval_ms: int, fetch: bool = True):
+                         base_ts: int, interval_ms: int, fetch: bool = True,
+                         narrow=None):
     """One-pass ``op(fn(metric[window]))`` partials over a grid-aligned block.
 
     val [S, C] f32, n [S] valid counts, gids [S] dense group ids (<
     num_groups). Returns the partial-state dict of
     ``aggregators.partial_aggregate(op, ...)`` with [num_groups, T] arrays;
     with ``fetch=False`` a :class:`PaddedPartials` whose ``resolve()`` does
-    the host copy later. CUDA tensors go through K1, CPU tensors through the
-    plain version; there is no other route.
+    the host copy later. ``narrow=(kind, operands)`` streams a registered
+    narrow block (ops/decodereg.py) instead of ``val``: ``kind`` names the
+    decode variant ("quant16" | "delta16" | "delta8") and ``operands =
+    (block, *row_operands)`` its tensors; the caller must already have
+    zeroed ``n`` on rows whose narrow form is not bit-exact. CUDA tensors go
+    through K1, CPU tensors through the plain version; there is no other
+    route.
     """
     assert fn in FUSED_FNS | FUSED_WINDOW_FNS and op in FUSED_OPS
+    kind, (val, *row_ops) = narrow if narrow is not None else ("raw", (val,))
     S, C = val.shape
     T = len(out_ts)
     assert fusable(S, C, T, num_groups), (S, C, T, num_groups)
@@ -383,7 +420,7 @@ def fused_grid_aggregate(op: str, fn: str, val, n, gids, num_groups: int,
         C, Tp, np.ascontiguousarray(np.asarray(out_ts, np.int64)).tobytes(),
         int(window_ms), int(base_ts), int(interval_ms),
         "window" if fn in FUSED_WINDOW_FNS else "rate",
-        decodereg.variant("raw").full_columns, val.device)
+        decodereg.variant(kind).full_columns, val.device)
     needs_sumsq = op in ("stddev", "stdvar")
     n = n.to(torch.int32)
     gids = gids.to(torch.int32)
@@ -391,12 +428,12 @@ def fused_grid_aggregate(op: str, fn: str, val, n, gids, num_groups: int,
         outs = fused_grid_kernel(fn, needs_sumsq, int(window_ms),
                                  int(interval_ms), val, n.contiguous(),
                                  gids.contiguous(), lo_d, hi_d, rel_d, G,
-                                 c0, Ck)
+                                 c0, Ck, kind, row_ops)
     else:
         outs = fused_grid_aggregate_plain(fn, needs_sumsq, int(window_ms),
                                           int(interval_ms), val, n, gids,
                                           band, ohlo, lo_d, hi_d, rel_d, G,
-                                          c0, Ck)
+                                          c0, Ck, kind, row_ops)
     padded = PaddedPartials(outs, op, num_groups, T)
     return padded.resolve() if fetch else padded
 

@@ -83,13 +83,16 @@ def count_fallback(shape: str) -> None:
 
 def scalar_aggregate(op: str, fn: str, val, n, gids, num_groups: int,
                      out_ts: np.ndarray, window_ms: int, base_ts: int,
-                     interval_ms: int, fetch: bool = True):
+                     interval_ms: int, fetch: bool = True, narrow=None):
     """One-pass ``op(fn(metric[w]))`` partials (operand contracts: see
-    fusedgrid.fused_grid_aggregate). The caller checked eligibility."""
+    fusedgrid.fused_grid_aggregate; ``narrow=(kind, operands)`` streams a
+    registered narrow block, ops/decodereg.py). The caller checked
+    eligibility."""
     out = fusedgrid.fused_grid_aggregate(
         op, fn, val, n, gids, num_groups, out_ts, window_ms, base_ts,
-        interval_ms, fetch=fetch)
-    count_served(scalar_shape_of(fn) or "rate_sum", backend_of(val))
+        interval_ms, fetch=fetch, narrow=narrow)
+    # ``n``: ``val`` may be a narrow store's deferred view
+    count_served(scalar_shape_of(fn) or "rate_sum", backend_of(n))
     return out
 
 

@@ -10,7 +10,11 @@ Execution shape, as in the reference: the leaf resolves part ids host-side
 selections gather rows; wide selections (the 1M-series aggregation) skip
 the gather — rows outside the selection are disabled through a zeroed
 sample count. On a grid-aligned f32 store, a window function followed by a
-basic aggregation runs as ONE fused pass (ops/fusedgrid.py: K1 on the card).
+basic aggregation runs as ONE fused pass (ops/fusedgrid.py: K1 on the card);
+on a scalar narrow-resident store that pass streams the narrow block
+(delta8/quant16/delta16) and the cohort-pool rows fold back through the
+general kernels. Other paths over a narrow-resident store decode a
+transient f32 block (``_dval``).
 Aggregation is host-computed dense group ids + one group reduce on device.
 Histogram shards answer ``histogram_quantile(q, sum(fn(h[w])))`` through
 the engine's fused-hist route (query/engine.py), which reads the leaf's
@@ -30,7 +34,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..core.chunkstore import TS_PAD, _Deferred
+from ..core.chunkstore import COHORT_GATE, TS_PAD, _Deferred
 from ..ops import aggregators, fusedgrid, fusedresident, gridfns, rangefns
 from ..utils.tracing import SPAN_QUERY_LEAF, SPAN_QUERY_REDUCE, span
 from .rangevector import (NotYetPorted, QueryError, QueryResult, QueryStats,
@@ -80,6 +84,11 @@ class SeriesSelection:
     # through the general kernels
     grid_minority: np.ndarray | None = None
     bucket_les: np.ndarray | None = None   # histogram bucket tops [B]
+    # scalar narrow-resident store: (kind, ops, bad_rows) of the FULL [S, C]
+    # value block (ops/decodereg.py variant, its tensors, the selected
+    # cohort-pool rows) — the fused pass streams it; ``bad_rows`` recompute
+    # through the general kernels. Wide selections only.
+    narrow: tuple | None = None
     # hist-resident store: (dd, first_d, bad_rows) of the FULL [S, C, B]
     # bucket block (ops/narrow.py) — the fused-hist route streams it, so the
     # whole-store f32 block never materializes; ``bad_rows`` (cohort-pool
@@ -108,6 +117,14 @@ def _pow2(n: int, floor: int = 8) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _dval(arr):
+    """Materialize a compressed-resident store's deferred view (a transient
+    f32 decode or i64 grid derivation); tensors pass through. The general
+    paths funnel through here; the fused paths plan from shape metadata and
+    never call it."""
+    return arr.materialize() if isinstance(arr, _Deferred) else arr
 
 
 def _gather_rows_padded(ts, val, n, rows: np.ndarray):
@@ -164,7 +181,7 @@ class FusedWindowData:
         base_ts, interval_ms = self.sel.grid
         out_eval, T = _pad_steps(self.out_ts)
         vals = gridfns.periodic_samples_grid(
-            self.sel.val, self.sel.n, out_eval, self.window, self.fn,
+            _dval(self.sel.val), self.sel.n, out_eval, self.window, self.fn,
             base_ts, interval_ms)
         minority = self.sel.grid_minority
         if minority is not None and len(minority):
@@ -245,15 +262,15 @@ class PeriodicSamplesMapper(Transformer):
                 # function with the aggregation in one pass
                 return FusedWindowData(data, out_ts, window, fn)
             base_ts, interval_ms = data.grid
-            vals = gridfns.periodic_samples_grid(data.val, data.n, out_eval,
-                                                 window, fn, base_ts,
-                                                 interval_ms)
+            vals = gridfns.periodic_samples_grid(_dval(data.val), data.n,
+                                                 out_eval, window, fn,
+                                                 base_ts, interval_ms)
             if minority is not None and len(minority):
                 vals = _correct_minority_cohort(data, vals, out_eval, window,
                                                 fn)
         else:
-            vals = rangefns.periodic_samples(data.ts, data.val, data.n,
-                                             out_eval, window, fn)
+            vals = rangefns.periodic_samples(_dval(data.ts), _dval(data.val),
+                                             data.n, out_eval, window, fn)
         if len(out_eval) != T:
             vals = vals[:, :T]
         return MatrixView(out_ts, vals, data.keys, data.rows)
@@ -367,12 +384,13 @@ class AggregateMapReduce(Transformer):
 
     def _apply_fused(self, data: FusedWindowData, ctx) -> AggPartial | None:
         """Single-pass window + aggregation (ops/fusedgrid.py): partial
-        state comes straight off the fused pass; churned minority rows are
-        excluded there (n forced to 0) and folded in via the general path.
-        None when the group count exceeds the fused cap."""
+        state comes straight off the fused pass; churned minority rows and a
+        narrow store's cohort-pool rows are excluded there (n forced to 0)
+        and folded in via the general path. None when the group count
+        exceeds the fused cap."""
         sel = data.sel
         R = sel.val.shape[0]
-        dev = sel.val.device
+        dev = sel.n.device
         gids, uniq, G = _group_ids_for(sel.keys, sel.rows, R, self.by,
                                        self.without)
         Gp = _pow2(G)
@@ -383,6 +401,15 @@ class AggregateMapReduce(Transformer):
         base_ts, interval_ms = sel.grid
         n_eff = sel.n
         minority = sel.grid_minority
+        narrow = None
+        if sel.narrow is not None:
+            # rows that don't round-trip bit-exactly join the minority set:
+            # excluded from the kernel, recomputed by the general path below
+            kind, nops, bad = sel.narrow
+            narrow = (kind, nops)
+            if len(bad):
+                minority = (bad if minority is None or not len(minority)
+                            else np.union1d(np.asarray(minority), bad))
         has_minority = minority is not None and len(minority)
         if has_minority:
             n_eff = n_eff.clone()
@@ -392,10 +419,14 @@ class AggregateMapReduce(Transformer):
         else:
             gids_dev = torch.from_numpy(gids).to(dev)
         # fetch=False: the leaf holds the shard lock through this launch —
-        # the blocking host copy happens at present/merge time, outside it
+        # the blocking host copy happens at present/merge time, outside it.
+        # With narrow operands the kernel streams the narrow block and
+        # sel.val stays a deferred view (shape metadata only)
         parts = fusedresident.scalar_aggregate(
-            self.operator, data.fn, sel.val, n_eff, gids_dev, Gp,
-            data.out_ts, data.window, base_ts, interval_ms, fetch=False)
+            self.operator, data.fn,
+            sel.val if narrow is not None else _dval(sel.val),
+            n_eff, gids_dev, Gp, data.out_ts, data.window, base_ts,
+            interval_ms, fetch=False, narrow=narrow)
         ctx.stats.add("fused_kernels")
         if has_minority:
             rows = np.asarray(minority, np.int64)
@@ -575,6 +606,18 @@ class SelectRawPartitionsExec(ExecPlan):
             n_eff = torch.where(torch.from_numpy(mask).to(store.device), n, 0)
         g_min = (pids[minority_sel].astype(np.int32)
                  if minority_sel is not None else None)
+        narrow = None
+        if grid is not None and les is None and val.dim() == 2:
+            # scalar narrow-resident store: ship the narrow operands so the
+            # fused pass streams them, unless the selection's pool rows pass
+            # the cohort gate (correcting that many costs more than the
+            # transient f32 decode)
+            nd = store.narrow_operands()
+            if nd is not None:
+                kind, nops, ok_host = nd
+                bad = pids[~ok_host[pids]].astype(np.int32)
+                if len(bad) <= COHORT_GATE * max(len(pids), 1):
+                    narrow = (kind, nops, bad)
         hist_narrow = None
         if grid is not None and les is not None and val.dim() == 3:
             # hist-resident store: ship the 2D-delta operands so the fused
@@ -584,10 +627,11 @@ class SelectRawPartitionsExec(ExecPlan):
                 dd, first_d, ok_host = hd
                 hist_narrow = (dd, first_d,
                                pids[~ok_host[pids]].astype(np.int32))
-        ctx.stats.add("blocks_narrow" if hist_narrow is not None
+        ctx.stats.add("blocks_narrow"
+                      if narrow is not None or hist_narrow is not None
                       else "blocks_raw")
         return SeriesSelection(ts, val, n_eff, keys, pids.astype(np.int32),
-                               grid, g_min, bucket_les=les,
+                               grid, g_min, bucket_les=les, narrow=narrow,
                                hist_narrow=hist_narrow)
 
 

@@ -3,8 +3,12 @@
 time, at bench.py's shape (2^20 series x 720 samples) on one card.
 
     python3 scripts/profile_torch_query.py [--queries 5] [--out DIR]
+                                           [--residency off|gauge]
 
-Builds the same engine as chip_smoke.py's scale phase, warms it, then:
+Builds the same engine as chip_smoke.py's scale phase — with ``--residency
+gauge`` its narrow scale phase's delta8 store instead: counters compressed
+by the shard's flush to i8 deltas, one row in 16 in the raw f32 cohort
+pool — warms it, then:
 
   1. times each query on the host clock, and with CUDA events recorded
      around it on the current stream;
@@ -15,7 +19,9 @@ Builds the same engine as chip_smoke.py's scale phase, warms it, then:
      time.
 
 Prints the card (name, power limit) first. Writes the profiler table and the
-cProfile listing to ``--out`` (default ``chiprun_out/``). Needs a CUDA card.
+cProfile listing to ``--out`` (default ``chiprun_out/``), in
+``profile_torch_query.txt`` or, with ``--residency gauge``,
+``profile_torch_query_gauge.txt``. Needs a CUDA card.
 """
 
 import argparse
@@ -33,6 +39,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--queries", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
+    ap.add_argument("--residency", choices=("off", "gauge"), default="off")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -51,7 +58,14 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     pkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine)
-    engine, _shard, _ = cs.build_scale(torch, np, pkg, "cuda")
+    engine, shard, _ = cs.build_scale(torch, np, pkg, "cuda", args.residency)
+    if args.residency == "gauge":
+        cs.install_narrow_scale(torch, shard, "delta8", "cuda")
+        shard.flush()
+        kind, _ops, ok = shard.store.narrow_operands()
+        print(f"store: {kind}, {int((~ok).sum())} pool rows, resident sample "
+              f"bytes {shard.store.resident_sample_bytes() / 1e9:.3f} GB",
+              flush=True)
     start = cs.BASE_TS + cs.WINDOW_MS
     end = cs.BASE_TS + cs.NUM_SAMPLES * cs.INTERVAL_MS
     q = "sum(rate(m[5m]))"
@@ -83,20 +97,23 @@ def main() -> int:
     # that time over the unprofiled host p50 above (the profiled window's
     # wall clock includes the profiler's own start-up)
     from torch.profiler import ProfilerActivity, profile
-    fg.fused_grid_kernel.launches = 0
+    cs.reset_k1(fg)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.queries):
             run()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / args.queries
+    # device rows only: an aten op's row repeats its kernels' time
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation) / 1e3 / args.queries
     table = events.table(sort_by="self_device_time_total", row_limit=15)
     print(table, flush=True)
     print(f"[{card}] device time per query {dev_ms:.3f} ms over "
           f"{args.queries} profiled queries, busy share of the host p50 "
           f"{dev_ms / np.percentile(host, 50):.3f}; K1 launches "
-          f"{fg.fused_grid_kernel.launches}", flush=True)
+          f"{fg.fused_grid_kernel.launches_by_kind}", flush=True)
 
     # 3. cProfile: host functions by cumulative time
     pr = cProfile.Profile()
@@ -109,7 +126,9 @@ def main() -> int:
     print(buf.getvalue(), flush=True)
 
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_torch_query.txt"), "w") as f:
+    name = ("profile_torch_query.txt" if args.residency == "off"
+            else f"profile_torch_query_{args.residency}.txt")
+    with open(os.path.join(args.out, name), "w") as f:
         f.write(f"card: {card}\n{table}\n{buf.getvalue()}")
     return 0
 

@@ -173,3 +173,177 @@ def test_cpu_tensors_take_the_plain_twin_and_the_kernel_refuses_them():
                               torch.from_numpy(n), torch.zeros(8, dtype=torch.int32),
                               lo, lo, lo, 8)
     assert tfg.fused_grid_kernel.launches == before
+
+
+# -- the decode variants (quant16, delta16, delta8) ----------------------------
+
+from filodb_tpu_torch.ops import decodereg  # noqa: E402
+from filodb_tpu_torch.ops import narrow as tnarrow  # noqa: E402
+
+KINDS = ("quant16", "delta16", "delta8")
+
+
+def narrow_block(kind, S, C, seed):
+    """(ops, n, dec): an [S, C] store of ``kind`` through the port's
+    encoder — ``ops = (block, *row_operands)`` as torch tensors — with short
+    rows, and one row in 8 excluded as a cohort-pool row is (n = 0, a
+    garbage block, a NaN row operand); ``dec`` is the decoded f32 block."""
+    rng = np.random.default_rng(seed)
+    if kind == "delta8":               # counters: small integer increments
+        val = (np.cumsum(rng.integers(0, 30, (S, C)), axis=1)
+               + rng.integers(0, 1 << 20, (S, 1)))
+    elif kind == "delta16":            # wider increments
+        val = np.cumsum(rng.integers(200, 3000, (S, C)), axis=1)
+    else:                              # half-integer gauges
+        val = (1000.0 + 0.5 * np.cumsum(rng.integers(0, 3, (S, C)), axis=1)
+               + rng.integers(0, 100, (S, 1)))
+    val = val.astype(np.float32)
+    n = np.full(S, C, np.int32)
+    short = rng.choice(S, max(1, S // 4), replace=False)
+    n[short] = rng.integers(0, C, len(short))
+    t_val, t_n = torch.from_numpy(val), torch.from_numpy(n)
+    if kind == "quant16":
+        q, vmin, scale, ok = tnarrow.build_narrow(t_val, t_n)
+        ops = [q, vmin, scale]
+    else:
+        dv, anchor, ok16, ok8, _ = tnarrow.build_narrow_delta(t_val, t_n)
+        ok = ok8 if kind == "delta8" else ok16
+        ops = [tnarrow.cast_narrow_delta_i8(dv) if kind == "delta8" else dv,
+               anchor]
+    assert bool(ok.all())
+    pool = np.arange(S) % 8 == 3
+    n[pool] = 0
+    lim = 127 if kind == "delta8" else 32767
+    ops[0][torch.from_numpy(pool)] = torch.from_numpy(
+        rng.integers(-lim, lim, (int(pool.sum()), C))).to(ops[0].dtype)
+    ops[1][torch.from_numpy(pool)] = float("nan")
+    var = decodereg.variant(kind)
+    dec = var.decode(ops[0], *(o[:, None] for o in ops[1:]))
+    return tuple(ops), n, dec
+
+
+def run_narrow(op, fn, kind, ops, n, gids, num_groups, out_ts,
+               variant="xla"):
+    jops = tuple(jnp.asarray(o.numpy()) for o in ops)
+    ref = jfg.fused_grid_aggregate(op, fn, None, jnp.asarray(n),
+                                   jnp.asarray(gids), num_groups, out_ts,
+                                   WINDOW, 0, IV, narrow=(kind, jops),
+                                   variant=variant)
+    got = tfg.fused_grid_aggregate(op, fn, None, torch.from_numpy(n),
+                                   torch.from_numpy(gids), num_groups, out_ts,
+                                   WINDOW, 0, IV, narrow=(kind, ops))
+    return {k: np.asarray(v) for k, v in ref.items()}, got
+
+
+def assert_narrow_parts(ref, got, what):
+    """Counts bit for bit; the rest within rtol 1e-5 of the largest
+    magnitude (the folds sum rows in different orders)."""
+    assert set(ref) == set(got), what
+    for k in ref:
+        r, g = ref[k], got[k]
+        assert r.shape == g.shape and g.dtype == np.float32, (what, k)
+        if k == "count":
+            np.testing.assert_array_equal(g, r, err_msg=f"{what} {k}")
+        else:
+            scale = float(np.abs(r).max(initial=0.0))
+            np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-5 * scale,
+                                       err_msg=f"{what} {k}")
+
+
+@pytest.mark.parametrize("fn", FNS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_narrow_fn_op_grid_matches_jax(kind, fn):
+    ops, n, _ = narrow_block(kind, 512, 128, seed=61)
+    gids = np.random.default_rng(62).integers(0, 8, 512).astype(np.int32)
+    for op in OPS:
+        ref, got = run_narrow(op, fn, kind, ops, n, gids, 8,
+                              out_steps(128, False))
+        assert_narrow_parts(ref, got, f"{kind} {fn} {op}")
+
+
+@pytest.mark.parametrize("sub", (False, True))
+@pytest.mark.parametrize("G", (8, 64))
+@pytest.mark.parametrize("kind", KINDS)
+def test_narrow_groups_and_subranges_match_jax(kind, G, sub):
+    """G in {8, 64}; a sub-range query on C = 256, where quant16 reads only
+    its active columns (c0 > 0) and the delta variants the whole row."""
+    ops, n, _ = narrow_block(kind, 4096, 256, seed=70 + G + sub)
+    gids = np.random.default_rng(G).integers(0, G, 4096).astype(np.int32)
+    out_ts = out_steps(256, sub)
+    for fn in ("rate", "delta", "avg_over_time"):
+        ref, got = run_narrow("stddev", fn, kind, ops, n, gids, G, out_ts)
+        assert_narrow_parts(ref, got, f"{kind} G={G} sub={sub} {fn}")
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_narrow_plain_matches_pallas_interpret(kind):
+    """The Pallas kernel with the variant's decode stage (interpret mode)."""
+    ops, n, _ = narrow_block(kind, 512, 128, seed=81)
+    gids = np.random.default_rng(82).integers(0, 8, 512).astype(np.int32)
+    ref, got = run_narrow("stddev", "rate", kind, ops, n, gids, 8,
+                          out_steps(128, False), variant="pallas")
+    assert_narrow_parts(ref, got, f"{kind} pallas")
+
+
+@pytest.mark.parametrize("sub", (False, True))
+@pytest.mark.parametrize("kind", KINDS)
+def test_narrow_plain_equals_plain_on_the_decoded_block(kind, sub):
+    """Over the same columns the twin on a narrow block equals the twin on
+    its decoded f32 block bit for bit: the decode is exact and the rest of
+    the walk is the same. Through fused_grid_aggregate a sub-range query
+    reads the delta variants' whole rows but the raw block's active columns
+    only: a longer product, another rounding — the 1e-5 bar there alone."""
+    C = 256
+    ops, n, dec = narrow_block(kind, 4096, C, seed=90 + sub)
+    gids = np.random.default_rng(91).integers(0, 8, 4096).astype(np.int32)
+    t_n, t_g = torch.from_numpy(n), torch.from_numpy(gids)
+    out_ts = out_steps(C, sub)
+    Tp = -(-len(out_ts) // 128) * 128
+    full = decodereg.variant(kind).full_columns
+    for fn in ("rate", "sum_over_time"):
+        fk = "window" if fn in tfg.FUSED_WINDOW_FNS else "rate"
+        band, ohlo, lo, hi, rel, c0, Ca = (
+            *(torch.from_numpy(a) for a in tfg.host_operands(
+                C, Tp, out_ts, WINDOW, 0, IV, fk, full)[:5]),
+            *tfg.host_operands(C, Tp, out_ts, WINDOW, 0, IV, fk, full)[5:])
+        a = tfg.fused_grid_aggregate_plain(fn, True, WINDOW, IV, ops[0], t_n,
+                                           t_g, band, ohlo, lo, hi, rel, 8,
+                                           c0, Ca, kind, ops[1:])
+        b = tfg.fused_grid_aggregate_plain(fn, True, WINDOW, IV, dec, t_n,
+                                           t_g, band, ohlo, lo, hi, rel, 8,
+                                           c0, Ca)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), (kind, sub, fn)
+        narrow = tfg.fused_grid_aggregate("sum", fn, None, t_n, t_g, 8, out_ts,
+                                          WINDOW, 0, IV, narrow=(kind, ops))
+        raw = tfg.fused_grid_aggregate("sum", fn, dec, t_n, t_g, 8, out_ts,
+                                       WINDOW, 0, IV)
+        if sub and full:
+            assert_narrow_parts(raw, narrow, f"{kind} {fn}")
+        else:
+            for k in raw:
+                np.testing.assert_array_equal(narrow[k], raw[k])
+
+
+def test_the_kernel_refuses_what_it_does_not_take():
+    """Every refusal happens before a launch, whatever the tensors' device:
+    a CPU block, a dtype that is not the variant's, a delta variant with
+    c0 > 0, missing or mis-shaped row operands, an unknown variant."""
+    ops, n, _ = narrow_block("delta8", 512, 128, seed=95)
+    t_n = torch.from_numpy(n)
+    g = torch.zeros(512, dtype=torch.int32)
+    lo = torch.zeros(128, dtype=torch.int32)
+    before = tfg.fused_grid_kernel.launches
+    cases = [
+        (ops[0], "delta8", ops[1:], 0, None, "CUDA"),
+        (ops[0].to(torch.int16), "delta8", ops[1:], 0, None, "int8"),
+        (ops[0], "delta8", ops[1:], 64, 64, "whole rows"),
+        (ops[0], "delta8", (), 0, None, "row operands"),
+        (ops[0], "delta8", (ops[1][:8],), 0, None, "row operands"),
+        (ops[0], "delta4", ops[1:], 0, None, "unknown decode variant"),
+    ]
+    for blk, kind, rows, c0, Ca, what in cases:
+        with pytest.raises(ValueError, match=what):
+            tfg.fused_grid_kernel("rate", False, WINDOW, IV, blk, t_n, g, lo,
+                                  lo, lo, 8, c0, Ca, kind, rows)
+    assert tfg.fused_grid_kernel.launches == before

@@ -298,29 +298,58 @@ def test_a_store_that_declines_says_why():
 
 
 def test_scalar_residency_is_refused_at_construction():
-    """Scalar narrow residency is not ported yet: the shard refuses to be
-    built rather than fail mid-flush."""
+    """No longer refused: scalar shards (GAUGE, PROM_COUNTER) under "all"
+    build, flush and compress — counter data lands on delta8, like the JAX
+    store over the same samples."""
     ms = TimeSeriesMemStore(device="cpu")
-    for schema in (GAUGE, PROM_COUNTER):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ms.setup(f"d-{schema.name}", schema, 0, StoreConfig(
-                max_series_per_shard=8, samples_per_series=16,
-                compressed_residency="all", device="cpu"))
-    ms.setup("ok", GAUGE, 0, StoreConfig(max_series_per_shard=8,
-                                          samples_per_series=16,
-                                          device="cpu"))
+    jms = JMemStore()
+    from filodb_tpu.core.schemas import PROM_COUNTER as JPROM_COUNTER
+    rng = np.random.default_rng(12)
+    counts = np.cumsum(rng.integers(0, 40, (4, N)), axis=1).astype(np.float64)
+    for schema, jschema in ((GAUGE, None), (PROM_COUNTER, JPROM_COUNTER)):
+        sh = ms.setup(f"d-{schema.name}", schema, 0, StoreConfig(
+            max_series_per_shard=8, samples_per_series=128,
+            flush_batch_size=10**9, compressed_residency="all", device="cpu"))
+        for s in range(4):
+            b = RecordBuilder(schema)
+            for t in range(N):
+                b.add({"_metric_": "c", "host": f"x{s}"}, START + t * IV,
+                      float(counts[s, t]))
+            sh.ingest(b.build())
+        sh.flush()
+        st = sh.store
+        assert st.is_narrow_resident and st.val is None and st.ts is None
+        kind, (dv, _anchor), ok = st.narrow_operands()
+        assert kind == "delta8" and dv.dtype == torch.int8 and ok.all()
+        np.testing.assert_array_equal(st.value_block().numpy()[:4, :N],
+                                      counts.astype(np.float32))
+        if jschema is not None:
+            jsh = jms.setup("c", jschema, 0, JStoreConfig(
+                max_series_per_shard=8, samples_per_series=128,
+                flush_batch_size=10**9, compressed_residency="all"))
+            for s in range(4):
+                b = JRecordBuilder(jschema)
+                for t in range(N):
+                    b.add({"_metric_": "c", "host": f"x{s}"}, START + t * IV,
+                          float(counts[s, t]))
+                jsh.ingest(b.build())
+            jsh.flush()
+            jkind, (jdv, _ja), jok = jsh.store.narrow_operands()
+            assert jkind == kind
+            np.testing.assert_array_equal(dv.numpy(), np.asarray(jdv))
+            np.testing.assert_array_equal(ok, jok)
 
 
 def test_store_config_matches_the_reference():
-    """The port's residency modes are the reference's "off" and "all";
-    "gauge" (scalar stores only) waits for scalar residency, item 8."""
-    for mode in ("off", "all"):
+    """The port's residency modes are the reference's "off", "gauge" and
+    "all" (the reference's ``narrow_resident=True`` is "gauge", which the
+    port spells only one way); any other raises in both."""
+    for mode in ("off", "gauge", "all"):
         assert StoreConfig(compressed_residency=mode).compressed_residency \
             == JStoreConfig(compressed_residency=mode).residency_mode()
     assert StoreConfig().compressed_residency \
         == JStoreConfig().residency_mode()
-    with pytest.raises(ValueError):
-        StoreConfig(compressed_residency="gauge")
+    assert JStoreConfig(narrow_resident=True).residency_mode() == "gauge"
     with pytest.raises(ValueError):
         StoreConfig(compressed_residency="everything")
     with pytest.raises(ValueError):
