@@ -19,6 +19,17 @@ Phases, in order; every check asserts and any failure exits non-zero:
                garbage blocks, NaN/Inf row operands); K1 on each narrow block
                bit for bit against K1 raw on the decoded block; delta8 with
                c0 > 0 refused before any launch.
+  2c. stream — K3 (the streaming pass) against its plain twin on the card:
+               S in {512, 4096, 4196 (100 tail rows it must skip), 65536,
+               2^20} x C in {128, 768}, integer data bit for bit and
+               bench.py's exponential-cumsum data within rtol 1e-5 of the
+               largest magnitude; a misaligned view takes the scalar loads
+               and agrees bit for bit; a CPU tensor, f16 and C = 64 are
+               refused before any launch. At 2^20 x 768 prints K3's time
+               (CUDA events), the plain time, torch.sum(val, 0)'s and the
+               bound, and fails if K3 beats its bound (bytes skipped).
+  2d. entry  — filodb_tpu_torch.entry.entry() on the card against the same
+               step on the CPU (rtol 1e-5); K1 launches once.
   3. small   — about 4096 series x 100 samples through RecordBuilder ->
                shard.ingest -> flush into a CUDA store; the slice's queries
                through QueryEngine.query_range on the card, compared with the
@@ -29,13 +40,22 @@ Phases, in order; every check asserts and any failure exits non-zero:
                the kind, the card matches the CPU, K1 of that kind launches
                once per fused query, and K1 on the store's narrow block
                equals K1 raw on its value_block() bit for bit.
-  4. scale   — bench.py's shape: 2^20 series registered through the real
-               ingest path, 720 samples each (C = 768, 10 s grid) synthesized
-               on the card from a seeded torch.Generator; sum(rate(m[5m]))
-               over bench.py's 8 range variants through the engine, each
-               against the plain twin on the same tensors. Prints the
-               engine's single-query p50, K1's time (CUDA events), the plain
-               time, K1's bound and launches per query.
+  4. scale   — bench.py's shape, built by filodb_tpu_torch.bench's
+               build_engine: 2^20 series registered through the real ingest
+               path, 720 samples each (C = 768, 10 s grid) synthesized on
+               the card from a seeded torch.Generator; sum(rate(m[5m])) over
+               bench.py's 8 range variants through the engine, each against
+               the plain twin on the same tensors. Prints the engine's
+               single-query p50, K1's time (CUDA events), the plain time,
+               K1's bound and launches per query. Then the port's bench on
+               the same engine, in this process (bench.measure, what
+               ``python3 -m filodb_tpu_torch.bench`` composes after its own
+               build_engine): 500 queries x 5 rounds from 64 threads, every
+               answer bit-equal to its variant's, K1 launched once per query
+               and pipelined dispatch, every reported number finite and
+               positive, K3's pass over the store no faster than its bound.
+               Prints the bench's result line and the card's busy share in
+               each concurrent round (K1 ms x queries / round wall time).
   4b. narrow scale — the same shape through a "gauge" store, once per
                kind: delta8 counters (integer anchors below 2^20, increments
                in [0, 8]), quant16 gauges (half-integer steps), delta16
@@ -75,7 +95,7 @@ Phases, in order; every check asserts and any failure exits non-zero:
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, it exits 2 and
-prints no result.
+prints no result (1 where torch itself is missing).
 
     python3 chip_smoke.py --profile-hist
 
@@ -86,22 +106,20 @@ cProfile, tables also written to chiprun_out/); it prints no result line.
 import gc
 import json
 import os
-import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(HERE, "filodb_tpu_torch")):
+    print("chip_smoke: filodb_tpu_torch/ is not beside this script",
+          file=sys.stderr)
+    sys.exit(2)
+sys.path.insert(0, HERE)
 
-# bench.py's north-star shape
-NUM_SERIES = 1 << 20
-NUM_SAMPLES = 720
-CAPACITY = 768
-INTERVAL_MS = 10_000
-WINDOW_MS = 300_000
-STEP_MS = 150_000
-BASE_TS = 1_700_000_000_000
-REG_BATCH = 1 << 19
-DATA_BATCH = 1 << 17
+# bench.py's north-star shape, as the port's bench holds it
+from filodb_tpu_torch.bench import (  # noqa: E402
+    BASE_TS, CAPACITY, DATA_BATCH, INTERVAL_MS, NUM_SAMPLES, NUM_SERIES,
+    STEP_MS, WINDOW_MS, cuda_ms, range_variants)
 
 # the histogram workload: scripts/bench_suite.py hist_retention/hist_query
 # (after the reference's HistogramQueryBenchmark) at B = 32 — at Tp = 128,
@@ -136,35 +154,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
-        f"nvidia-smi failed: {out.stderr.strip()}"
-
-
 def peaks_for(name: str):
     for key, bw, f32 in PEAKS:
         if key in name:
             return key, bw, f32
     return "H100", 3.35e12, 67e12
-
-
-def cuda_ms(fn, reps: int, warm: int = 2) -> float:
-    """Mean device milliseconds per call, between CUDA events."""
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
 
 
 def compare_parts(got: dict, ref: dict, exact_keys, what: str) -> float:
@@ -558,53 +552,12 @@ def phase_small_narrow(torch, np, fg, pkg, devs=("cuda", "cpu")):
     return launched
 
 
-def build_scale(torch, np, pkg, dev, residency="off"):
-    """2^20 registered series + a bulk-installed [S, 768] f32 block."""
-    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
-    ms = TimeSeriesMemStore(device=dev)
-    shard = ms.setup("prometheus", GAUGE, 0, StoreConfig(
-        max_series_per_shard=NUM_SERIES, samples_per_series=CAPACITY,
-        flush_batch_size=10**9, compressed_residency=residency, device=dev))
-    t0 = time.perf_counter()
-    for start in range(0, NUM_SERIES, REG_BATCH):
-        b = RecordBuilder(GAUGE)
-        b.add_series_batch(
-            {"_metric_": "m",
-             "host": [f"h{i}" for i in range(start, start + REG_BATCH)]},
-            BASE_TS, 0.0)
-        shard.ingest(b.build())
-    # registration only: the bulk data is installed on the card below
-    shard.discard_staged()
-    reg_s = time.perf_counter() - t0
-    assert shard.num_series == NUM_SERIES
-    st = shard.store
-    g = torch.Generator(device=dev).manual_seed(7)
-    with shard.lock:
-        for r0 in range(0, NUM_SERIES, DATA_BATCH):
-            inc = torch.empty((DATA_BATCH, NUM_SAMPLES), device=dev)
-            inc.exponential_(generator=g)
-            st.val[r0:r0 + DATA_BATCH, :NUM_SAMPLES] = torch.cumsum(inc * 5.0, 1)
-        st.val[:, NUM_SAMPLES:] = 0.0
-        row = BASE_TS + torch.arange(NUM_SAMPLES, device=dev) * INTERVAL_MS
-        st.ts[:, :NUM_SAMPLES] = row
-        st.n.fill_(NUM_SAMPLES)
-        st.n_host[:] = NUM_SAMPLES
-        st.first_ts[:] = BASE_TS
-        st.last_ts[:] = BASE_TS + (NUM_SAMPLES - 1) * INTERVAL_MS
-        st.grid_base, st.grid_interval, st.grid_ok = BASE_TS, INTERVAL_MS, True
-    torch.cuda.synchronize()
-    return QueryEngine(ms, "prometheus", device=dev), shard, reg_s
-
-
-def phase_scale(torch, np, fg, pkg, card, dev="cuda"):
-    engine, shard, reg_s = build_scale(torch, np, pkg, dev)
+def phase_scale(torch, np, fg, card, engine, shard, reg_s):
     log(f"scale: registered {NUM_SERIES} series in {reg_s:.1f} s; store "
         f"val {tuple(shard.store.val.shape)} f32, ts "
         f"{tuple(shard.store.ts.shape)} i64 on the card")
-    start = BASE_TS + WINDOW_MS
-    end = BASE_TS + NUM_SAMPLES * INTERVAL_MS
-    variants = [(start + k * INTERVAL_MS, end - k * INTERVAL_MS)
-                for k in range(8)]
+    variants = range_variants(shard)
+    start, end = variants[0]
     q = "sum(rate(m[5m]))"
     for s, e in variants:                      # first calls: load + warm
         engine.query_range(q, s, e, STEP_MS)
@@ -701,6 +654,212 @@ def phase_scale(torch, np, fg, pkg, card, dev="cuda"):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def k3_bound(card, S, C):
+    """(bound ms, bound_by, bytes, adds) of K3 over [S, C] f32: the whole
+    512-row tiles read once and the (8, 128) output written once, one add
+    per element read."""
+    key, bw, f32 = peaks_for(card)
+    rows = S // 512 * 512
+    nbytes = rows * C * 4 + 8 * 128 * 4
+    adds = rows * C
+    bound_by = "bytes" if nbytes / bw >= adds / f32 else "operations"
+    return max(nbytes / bw, adds / f32) * 1e3, bound_by, nbytes, adds
+
+
+def stream_block(torch, S, C, integer, seed, dev):
+    """[S, C] f32 made on the card: small integers (every partial sum an
+    integer below 2^24, exact in any order) or bench.py's counters
+    (exponential x 5 increments cumulated along each row)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if integer:
+        return torch.randint(0, 8, (S, C), generator=g, device=dev).float()
+    inc = torch.empty((S, C), device=dev).exponential_(generator=g)
+    return torch.cumsum(inc.mul_(5.0), 1)
+
+
+def k3_vs_plain(np, sp, val, exact: bool, what: str) -> float:
+    """K3 against its plain twin on the same card tensor: bit for bit when
+    ``exact``, else within rtol 1e-5 of the largest magnitude. Returns the
+    max |diff|."""
+    got = sp.stream_probe_kernel(val).cpu().numpy()
+    ref = sp.stream_probe_plain(val).cpu().numpy()
+    assert got.shape == ref.shape == (8, 128), (what, got.shape)
+    assert np.isfinite(got).all() and np.isfinite(ref).all(), what
+    if exact:
+        assert np.array_equal(got, ref), (what, "not bit-exact",
+                                          float(np.abs(got - ref).max()))
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(ref).max()),
+                                   err_msg=what)
+    return float(np.abs(got - ref).max())
+
+
+def phase_stream_kernels(torch, np, sp, card, dev):
+    """K3 against its plain twin over S x C x data, the tail rows, a
+    misaligned view, the refusals; then its times at bench.py's store."""
+    worst, checks = 0.0, 0
+    for S in (512, 4096, 4196, 65536, NUM_SERIES):
+        for C in (128, CAPACITY):
+            for integer in (True, False):
+                val = stream_block(torch, S, C, integer, 500 + checks, dev)
+                worst = max(worst, k3_vs_plain(
+                    np, sp, val, integer,
+                    f"S={S} C={C} {'integer' if integer else 'counters'}"))
+                checks += 1
+                del val
+    # the 100 rows past the last whole tile are never read: NaN there
+    # would poison any sum that read them
+    val = stream_block(torch, 4196, CAPACITY, True, 7, dev)
+    val[4096:] = float("nan")
+    k3_vs_plain(np, sp, val, True, "NaN tail rows")
+    assert torch.equal(sp.stream_probe_kernel(val),
+                       sp.stream_probe_kernel(val[:4096])), "tail rows read"
+    # an odd row stride and a base 4 bytes past 16: scalar loads
+    view = stream_block(torch, 4096, CAPACITY + 1, True, 8, dev)[:, 1:]
+    assert not sp.vector_loads(view)
+    k3_vs_plain(np, sp, view, True, "misaligned view")
+    checks += 3
+    before = sp.stream_probe_kernel.launches
+    for bad, what in ((torch.zeros(512, 128), "a CPU tensor"),
+                      (torch.zeros((512, 128), dtype=torch.float16,
+                                   device=dev), "float16"),
+                      (torch.zeros((512, 64), device=dev), "C = 64")):
+        try:
+            sp.stream_probe_kernel(bad)
+            raise AssertionError(f"K3 accepted {what}")
+        except ValueError:
+            pass
+    assert sp.stream_probe_kernel.launches == before
+    del val, view
+    # times at bench.py's store shape, on its kind of data
+    S, C = NUM_SERIES, CAPACITY
+    val = stream_block(torch, S, C, False, 9, dev)
+    k_ms = cuda_ms(lambda: sp.stream_probe_kernel(val), reps=20)
+    p_ms = cuda_ms(lambda: sp.stream_probe_plain(val), reps=3, warm=1)
+    lib_ms = cuda_ms(lambda: torch.sum(val, 0), reps=20)
+    del val
+    torch.cuda.synchronize()
+    bound_ms, bound_by, nbytes, adds = k3_bound(card, S, C)
+    key, bw, f32 = peaks_for(card)
+    log(f"stream [{card}]: K3 {k_ms:.4f} ms by CUDA events at {S} x {C} "
+        f"({nbytes / 1e9 / k_ms:.3f} TB/s); plain twin {p_ms:.3f} ms; "
+        f"library call torch.sum(val, 0) {lib_ms:.4f} ms "
+        f"({lib_ms / k_ms:.3f}x K3's time); bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at {key}'s "
+        f"{bw / 1e12:.2f} TB/s, {adds / 1e9:.2f} G adds at "
+        f"{f32 / 1e12:.0f} TFLOP/s f32)")
+    assert k_ms >= bound_ms, (k_ms, bound_ms, "K3 beat its bound: bytes "
+                              "skipped")
+    return dict(checks=checks, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_entry(torch, np, fg, dev):
+    """entry() on ``dev`` against the same step on the CPU (the plain
+    twin); K1 launches once. Returns (launches, max |diff|)."""
+    from filodb_tpu_torch.entry import entry
+    fn, args = entry(dev)
+    fn_cpu, args_cpu = entry("cpu")
+    reset_k1(fg)
+    got = fn(*args).cpu().numpy()
+    launches = fg.fused_grid_kernel.launches
+    ref = fn_cpu(*args_cpu).numpy()
+    assert launches == 1, launches
+    assert got.shape == ref.shape == (1, 17) and np.isfinite(got).all(), \
+        got.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(ref).max()))
+    return launches, float(np.abs(got - ref).max())
+
+
+def phase_bench(np, fg, sp, bench, card, engine, shard, reg_s, k1_ms):
+    """The port's bench on phase 4's engine, in this process: the same
+    ``bench.measure`` that ``python3 -m filodb_tpu_torch.bench`` runs after
+    its own build_engine. Returns (K1 launches, K3 launches, result)."""
+    reset_k1(fg)
+    sp.stream_probe_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = bench.measure(engine, shard, reg_s)
+    secs = time.perf_counter() - t0
+    k1 = fg.fused_grid_kernel.launches
+    k3 = sp.stream_probe_kernel.launches
+    # one K1 per query answered: 8 warm, 10 single, the pool's warm-up and
+    # the rounds; and one per pipelined dispatch of the two marginals
+    nv = bench.NUM_VARIANTS
+    queries = nv + 10 + bench.POOL_WORKERS + bench.ROUNDS * bench.NUM_QUERIES
+    dispatches = 2 * (nv + bench.MARGINAL_REPS * sum(bench.PIPELINE_DEPTHS))
+    assert k1 == fg.fused_grid_kernel.launches_by_kind["raw"] \
+        == queries + dispatches, (k1, queries, dispatches)
+    assert k3 > 0, k3
+    d = res["detail"]
+    assert res["metric"] == bench.METRIC and d["series"] == NUM_SERIES
+    numbers = [("value", res["value"]), ("vs_baseline", res["vs_baseline"])]
+    for k, v in d.items():
+        if isinstance(v, list):
+            numbers += [(k, x) for x in v]
+        elif not isinstance(v, str):
+            numbers.append((k, v))
+    for k, v in numbers:
+        assert isinstance(v, (int, float)) and np.isfinite(v) and v > 0, (k, v)
+    bound_ms = k3_bound(card, *shard.store.val.shape)[0]
+    for k in ("hbm_stream_pass_ms", "hbm_stream_pass_device_ms"):
+        assert d[k] >= bound_ms, (k, d[k], bound_ms)
+    log(f"bench result: {json.dumps(res)}")
+    busy = [k1_ms / r for r in d["per_query_ms_rounds"]]
+    single, full = d["single_query_p50_ms"], d["device_marginal_ms_per_query"]
+    sub = d["device_marginal_ms_subrange_30m"]
+    log(f"bench [{card}]: {bench.ROUNDS} x {bench.NUM_QUERIES} queries from "
+        f"{bench.POOL_WORKERS} threads, every answer equal to its variant's; "
+        f"per query {res['value']:.4f} ms best, {d['per_query_ms_p50']:.4f} "
+        f"p50; single-query p50 {single:.4f} ms ({single / res['value']:.3f}x "
+        f"the best round's per-query time); device marginal {full:.4f} ms, "
+        f"the 30-minute panel's {sub:.4f} ms ({sub / full:.3f} of it); card "
+        f"busy share per round (K1 {k1_ms:.4f} ms x queries / wall) "
+        f"{[round(b, 4) for b in busy]}; K1 launches {k1} ({queries} queries "
+        f"+ {dispatches} pipelined dispatches), K3 launches {k3}; baseline "
+        f"proxy {d['baseline_method']} in {d['baseline_proxy_s']:.1f} s; "
+        f"{secs:.1f} s in all")
+    return k1, k3, res
+
+
+def trace_concurrent_round(torch, bench, card, engine, shard):
+    """One more concurrent round (NUM_QUERIES from the pool) under
+    torch.profiler, device activity only: the card's busy share is the
+    device time of every kernel and copy in the round over the round's wall
+    time (which the trace itself lengthens a little). Returns the share, or
+    None where the trace shows no device time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+    run = bench.query_runner(engine, bench.range_variants(shard))
+    with ThreadPoolExecutor(max_workers=bench.POOL_WORKERS) as pool:
+        list(pool.map(run, range(bench.POOL_WORKERS)))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            list(pool.map(run, range(bench.NUM_QUERIES)))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation) / 1e3
+    top = sorted(((e.self_device_time_total / 1e3, e.key) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 reverse=True)[:5]
+    if dev_ms <= 0:
+        log(f"bench trace [{card}]: no device time in the trace; busy share "
+            f"not measured (round wall {wall_ms:.1f} ms)")
+        return None
+    share = dev_ms / wall_ms
+    log(f"bench trace [{card}]: one traced round of {bench.NUM_QUERIES} "
+        f"queries from {bench.POOL_WORKERS} threads: device time "
+        f"{dev_ms:.3f} ms over wall {wall_ms:.3f} ms, busy share "
+        f"{share:.4f}; largest device rows (ms) "
+        f"{[(round(t, 3), k[:60]) for t, k in top]}")
+    return share
+
+
 def install_narrow_scale(torch, shard, kind, dev):
     """Write ``kind``'s data at bench.py's shape into the store on the card
     from a seeded torch.Generator: delta8 counters (integer anchors below
@@ -740,10 +899,7 @@ def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
     from filodb_tpu_torch.ops import decodereg
     install_narrow_scale(torch, shard, kind, dev)
     st = shard.store
-    start = BASE_TS + WINDOW_MS
-    end = BASE_TS + NUM_SAMPLES * INTERVAL_MS
-    variants = [(start + k * INTERVAL_MS, end - k * INTERVAL_MS)
-                for k in range(8)]
+    variants = range_variants(shard)
     q = "sum(rate(m[5m]))"
     # the raw-residency answers: the same store before it compresses
     shard.config.compressed_residency = "off"
@@ -1315,35 +1471,28 @@ def profile_hist(torch, np, fr, card, pkg, queries: int = 5) -> None:
 
 
 def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
+    import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a card",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "filodb_tpu_torch")):
-        print("chip_smoke: filodb_tpu_torch/ is not beside this script",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
     import numpy as np
 
+    from filodb_tpu_torch import bench
     from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
     from filodb_tpu_torch.core.record import RecordBuilder
     from filodb_tpu_torch.core.schemas import GAUGE, PROM_HISTOGRAM
     from filodb_tpu_torch.ops import fusedgrid as fg
     from filodb_tpu_torch.ops import fusedresident as fr
     from filodb_tpu_torch.ops import kernels, narrow
+    from filodb_tpu_torch.ops import streamprobe as sp
     from filodb_tpu_torch.query.engine import QueryEngine
     pkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine)
     hpkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, PROM_HISTOGRAM,
             QueryEngine)
 
     t_all = time.perf_counter()
-    card = card_line()
+    card = bench.card_line()
     if sys.argv[1:2] == ["--profile-hist"]:
         # not part of the smoke run: the profile behind PERF.md section 5
         kernels.build()
@@ -1371,6 +1520,17 @@ def main() -> int:
         f"the plain twin, max |diff| by kind {worst2n}; {exact} bit-exact "
         f"checks against K1 raw on the decoded block; delta8 at c0 > 0 "
         f"refused; {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    k3 = phase_stream_kernels(torch, np, sp, card, "cuda")
+    log(f"stream: streamprobe_k3 ({k3['checks']} checks against the plain "
+        f"twin, max |diff| {k3['max_abs_err']:.3g}; tail rows skipped; "
+        f"scalar loads on a misaligned view; CPU, f16 and C = 64 refused; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, worst_e = phase_entry(torch, np, fg, "cuda")
+    log(f"entry: entry() on the card matches the CPU (max |diff| "
+        f"{worst_e:.3g}); K1 launches {launches}")
 
     t0 = time.perf_counter()
     small = phase_small(torch, np, fg, pkg)
@@ -1383,13 +1543,20 @@ def main() -> int:
         f"launches by kind {small_n} ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    k1 = phase_scale(torch, np, fg, pkg, card)
+    engine, shard, reg_s = bench.build_engine("cuda")
+    k1 = phase_scale(torch, np, fg, card, engine, shard, reg_s)
     log(f"scale: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _k1b, k3_launches, _res = phase_bench(np, fg, sp, bench, card, engine,
+                                          shard, reg_s, k1["ms"])
+    trace_concurrent_round(torch, bench, card, engine, shard)
+    del engine, shard
+    log(f"bench: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    engine, shard, reg_s = build_scale(torch, np, pkg, "cuda", "gauge")
+    engine, shard, reg_s = bench.build_engine("cuda", residency="gauge")
     log(f"narrow scale: registered {NUM_SERIES} series in {reg_s:.1f} s")
     k1n = {kind: phase_scale_narrow(torch, np, fg, card, shard, engine, kind)
            for kind in NARROW_KINDS}
@@ -1433,7 +1600,25 @@ def main() -> int:
         "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}, {
+        "name": "streamprobe_k3", "route": "cuda",
+        "source": "filodb_tpu_torch/ops/csrc/streamprobe.cu",
+        "replaces": "bench.py:184",
+        "launches": k3_launches, "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"]}]}
+    # every bound above is bytes over the data sheet's rate; K3's time is
+    # the pass this card reaches over the same kind of bytes
+    key, bw, _f32 = peaks_for(card)
+    rate = k3["bound_ms"] * bw / k3["ms"]
+    multiples = {r["name"]: (round(r["ms"] / (r["bound_ms"] * bw / rate), 2),
+                             round(r["ms"] / r["bound_ms"], 2))
+                 for r in table["kernels"] if r["bound_by"] == "bytes"}
+    log(f"floors [{card}]: K3's pass {rate / 1e12:.3f} TB/s "
+        f"({rate / bw:.3f} of {key}'s {bw / 1e12:.2f} TB/s); each kernel's "
+        f"time as a multiple of its bytes at that pass and of its data-sheet "
+        f"bound: {multiples}")
     print(card, flush=True)
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

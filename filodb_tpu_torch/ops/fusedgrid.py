@@ -268,8 +268,7 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     if err:
         raise RuntimeError(f"fusedgrid kernel launch failed: CUDA error {err} "
                            f"({lib.fusedgrid_error_string(err).decode()})")
-    fused_grid_kernel.launches += 1
-    fused_grid_kernel.launches_by_kind[kind] += 1
+    kernels.count_launch(fused_grid_kernel, kind)
     return tuple(out.unbind(0))
 
 
@@ -421,21 +420,29 @@ def fused_grid_aggregate(op: str, fn: str, val, n, gids, num_groups: int,
         int(window_ms), int(base_ts), int(interval_ms),
         "window" if fn in FUSED_WINDOW_FNS else "rate",
         decodereg.variant(kind).full_columns, val.device)
-    needs_sumsq = op in ("stddev", "stdvar")
+    outs = fused_grid_partials(fn, op in ("stddev", "stdvar"), int(window_ms),
+                               int(interval_ms), val, n, gids, band, ohlo,
+                               lo_d, hi_d, rel_d, G, c0, Ck, kind, row_ops)
+    padded = PaddedPartials(outs, op, num_groups, T)
+    return padded.resolve() if fetch else padded
+
+
+def fused_grid_partials(fn: str, needs_sumsq: bool, window_ms: int,
+                        interval_ms: int, val, n, gids, band, ohlo, lo, hi,
+                        rel, G: int, c0: int = 0, Ca: int | None = None,
+                        kind: str = "raw", row_ops=()):
+    """The 2 or 3 [G, Tp] partials of one fused pass over operands already
+    built (:func:`device_operands`): K1 for CUDA tensors, the plain twin for
+    CPU tensors; there is no other route."""
     n = n.to(torch.int32)
     gids = gids.to(torch.int32)
     if val.is_cuda:
-        outs = fused_grid_kernel(fn, needs_sumsq, int(window_ms),
-                                 int(interval_ms), val, n.contiguous(),
-                                 gids.contiguous(), lo_d, hi_d, rel_d, G,
-                                 c0, Ck, kind, row_ops)
-    else:
-        outs = fused_grid_aggregate_plain(fn, needs_sumsq, int(window_ms),
-                                          int(interval_ms), val, n, gids,
-                                          band, ohlo, lo_d, hi_d, rel_d, G,
-                                          c0, Ck, kind, row_ops)
-    padded = PaddedPartials(outs, op, num_groups, T)
-    return padded.resolve() if fetch else padded
+        return fused_grid_kernel(fn, needs_sumsq, window_ms, interval_ms, val,
+                                 n.contiguous(), gids.contiguous(), lo, hi,
+                                 rel, G, c0, Ca, kind, row_ops)
+    return fused_grid_aggregate_plain(fn, needs_sumsq, window_ms, interval_ms,
+                                      val, n, gids, band, ohlo, lo, hi, rel, G,
+                                      c0, Ca, kind, row_ops)
 
 
 @functools.lru_cache(maxsize=8)

@@ -404,7 +404,7 @@ def fused_hist_kernel(fn: str, window_ms: int, interval_ms: int, dd, first_d,
     if err:
         raise RuntimeError(f"fusedhist kernel launch failed: CUDA error {err} "
                            f"({lib.fusedhist_error_string(err).decode()})")
-    fused_hist_kernel.launches += 1
+    kernels.count_launch(fused_hist_kernel)
     return out[0], out[1]
 
 

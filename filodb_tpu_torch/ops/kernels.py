@@ -31,9 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-KERNELS = ("fusedgrid", "fusedhist")
+KERNELS = ("fusedgrid", "fusedhist", "streamprobe")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}       # name -> nvcc's report (-Xptxas -v)
 
@@ -99,3 +100,15 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
             lib = _libs[name] = ctypes.CDLL(lib_path(name))
         return lib
+
+
+def count_launch(wrapper, kind: str | None = None) -> None:
+    """One more launch on ``wrapper.launches`` (and, given ``kind``, on
+    ``wrapper.launches_by_kind[kind]``). Wrappers run on many query threads
+    at once, and ``+= 1`` on an attribute can lose an update between two of
+    them, so every count goes through one lock. The counts stay plain ints
+    that a caller reads (and sets to 0 between runs)."""
+    with _count_lock:
+        wrapper.launches += 1
+        if kind is not None:
+            wrapper.launches_by_kind[kind] += 1

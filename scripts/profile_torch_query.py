@@ -5,8 +5,9 @@ time, at bench.py's shape (2^20 series x 720 samples) on one card.
     python3 scripts/profile_torch_query.py [--queries 5] [--out DIR]
                                            [--residency off|gauge]
 
-Builds the same engine as chip_smoke.py's scale phase — with ``--residency
-gauge`` its narrow scale phase's delta8 store instead: counters compressed
+Builds the same engine as chip_smoke.py's scale phase
+(``filodb_tpu_torch.bench.build_engine``) — with ``--residency gauge`` its
+narrow scale phase's delta8 store instead: counters compressed
 by the shard's flush to i8 deltas, one row in 16 in the raw f32 cohort
 pool — warms it, then:
 
@@ -49,16 +50,12 @@ def main() -> int:
     import numpy as np
 
     import chip_smoke as cs
-    from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
-    from filodb_tpu_torch.core.record import RecordBuilder
-    from filodb_tpu_torch.core.schemas import GAUGE
+    from filodb_tpu_torch import bench
     from filodb_tpu_torch.ops import fusedgrid as fg
-    from filodb_tpu_torch.query.engine import QueryEngine
 
-    card = cs.card_line()
+    card = bench.card_line()
     print(f"card: {card}", flush=True)
-    pkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine)
-    engine, shard, _ = cs.build_scale(torch, np, pkg, "cuda", args.residency)
+    engine, shard, _ = bench.build_engine("cuda", residency=args.residency)
     if args.residency == "gauge":
         cs.install_narrow_scale(torch, shard, "delta8", "cuda")
         shard.flush()
