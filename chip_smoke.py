@@ -18,7 +18,18 @@ Phases, in order; every check asserts and any failure exits non-zero:
                quant16 sub-range query and excluded cohort-pool rows (n = 0,
                garbage blocks, NaN/Inf row operands); K1 on each narrow block
                bit for bit against K1 raw on the decoded block; delta8 with
-               c0 > 0 refused before any launch.
+               c0 > 0 refused before any launch. Then the launch shapes
+               the (row, step) walk and the raw double buffer can get
+               wrong (phase_k1_shapes): Tp = 256 and 512, leading steps
+               with hi < 0 and 46 live steps, S = 67072 (every block ends
+               in a short tile) at C = 768 and 128, C = 1024 and the C of
+               the largest shared memory at G = 64 with sumsq, a
+               misaligned view (4-byte copies); raw and the three decode
+               variants, narrow bit for bit against raw on the decode.
+  2b. quant16 scale — the quant16 encoder on the card and on the CPU over
+               rows whose spans lie near, not at, 65535 * 2^k: each
+               device's ok rows decode bit for bit; prints how many rows
+               the two devices encode differently.
   2c. stream — K3 (the streaming pass) against its plain twin on the card:
                S in {512, 4096, 4196 (100 tail rows it must skip), 65536,
                2^20} x C in {128, 768}, integer data bit for bit and
@@ -47,7 +58,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
                bench.py's 8 range variants through the engine, each against
                the plain twin on the same tensors. Prints the engine's
                single-query p50, K1's time (CUDA events), the plain time,
-               K1's bound and launches per query. Then the port's bench on
+               K1's bound and launches per query, and K1's time and bound
+               on the 30-minute panel's operands (13 steps). Then the
+               port's bench on
                the same engine, in this process (bench.measure, what
                ``python3 -m filodb_tpu_torch.bench`` composes after its own
                build_engine): 500 queries x 5 rounds from 64 threads, every
@@ -119,7 +132,7 @@ sys.path.insert(0, HERE)
 # bench.py's north-star shape, as the port's bench holds it
 from filodb_tpu_torch.bench import (  # noqa: E402
     BASE_TS, CAPACITY, DATA_BATCH, INTERVAL_MS, NUM_SAMPLES, NUM_SERIES,
-    STEP_MS, WINDOW_MS, cuda_ms, range_variants)
+    STEP_MS, SUB_RANGE_MS, WINDOW_MS, cuda_ms, range_variants)
 
 # the histogram workload: scripts/bench_suite.py hist_retention/hist_query
 # (after the reference's HistogramQueryBenchmark) at B = 32 — at Tp = 128,
@@ -266,10 +279,13 @@ def phase_kernels(torch, np, fg, dev):
     val, n = make_block(torch, 4096, 768, False, 7, dev)
     val[5, 40] = float("nan")
     val[777, 300] = float("inf")
-    n[5] = n[777] = 768
+    # finite cells whose increment overflows to +inf (K1 counts such rows
+    # cell by cell: a cell outside (-2^126, 2^126))
+    val[901, 200], val[901, 201] = -3.0e38, 3.0e38
+    n[5] = n[777] = n[901] = 768
     gids = (torch.arange(4096, device=dev) % 8).to(torch.int32)
     out_ts = np.arange(WINDOW_MS, 767 * INTERVAL_MS + 1, 60_000, dtype=np.int64)
-    for fn in ("rate", "sum_over_time"):
+    for fn in ("rate", "delta", "sum_over_time"):
         got = fg.fused_grid_aggregate("stddev", fn, val, n, gids, 8, out_ts,
                                       WINDOW_MS, 0, INTERVAL_MS)
         band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
@@ -401,6 +417,161 @@ def phase_narrow_kernels(torch, np, fg, narrow, dev,
     assert fg.fused_grid_kernel.launches == before
     torch.cuda.synchronize()
     return checks, exact, worst
+
+
+def k1_shape_cases(np, fg):
+    """(name, S, C, G, out_ts, misaligned) of the launch shapes K1's
+    (row, step) walk and its staging can get wrong beyond phase 2's grid:
+    several step chunks (blockIdx.y > 0), leading dead steps (hi < 0) and a
+    live count that is not a multiple of 32, blocks whose rows end in a
+    short tile, the largest shared memory a fusable shape asks for (at
+    C = 1024 and at the C that maximises k1_smem_bytes, G = 64 with
+    sumsq), and a misaligned view (4-byte copies)."""
+    def full(C, step):
+        return np.arange(WINDOW_MS, (C - 1) * INTERVAL_MS + 1, step,
+                         dtype=np.int64)
+
+    def smem(C):
+        rt = fg.k1_launch_shape(4096, C, 128, 64, 3)[0]
+        return fg.k1_smem_bytes(C, rt, 64, 3)
+    c_max = max(range(8, fg.MAX_CAPACITY + 1, 8), key=smem)
+    # S = 67072: 66 rows a block, so every block ends in a short tile (1
+    # row after 13 of 5 at C = 768, 2 rows after 2 of 32 at C = 128)
+    short = 67072
+    for C in (768, 128):
+        rt, rows_per_block, _ = fg.k1_launch_shape(short, C, 128, 8, 2)
+        assert rows_per_block % rt != 0, (C, rt, rows_per_block)
+    return [
+        ("Tp=256", 4096, 768, 8, WINDOW_MS + np.arange(250) * 29_000, False),
+        ("Tp=512", 4096, 768, 64, WINDOW_MS + np.arange(500) * 14_000, False),
+        ("4 dead leading steps, 46 live", 4096, 768, 8,
+         np.arange(-200_000, 2_250_001, 50_000, dtype=np.int64), False),
+        ("short last tile", short, 768, 8, full(768, 60_000), False),
+        ("short last tile, C=128", short, 128, 8, full(128, 60_000), False),
+        ("C=1024, G=64", 4096, 1024, 64, full(1024, 60_000), False),
+        (f"largest smem, C={c_max}, G=64", 4096, c_max, 64,
+         full(c_max, 60_000), False),
+        ("misaligned view", 4096, 768, 8, full(768, 60_000), True),
+    ]
+
+
+def phase_k1_shapes(torch, np, fg, narrow, dev):
+    """K1 raw and its three decode variants against the plain twin at
+    k1_shape_cases' shapes over every fn, ops sum / count / stddev (sumsq:
+    the largest accumulator); narrow K1 bit for bit against K1 raw on the
+    decoded block. Returns (checks, bit-exact checks, max |diff|)."""
+    from filodb_tpu_torch.ops import decodereg
+    checks = exact = 0
+    worst = 0.0
+    for i, (name, S, C, G, out_ts, misaligned) in enumerate(
+            k1_shape_cases(np, fg)):
+        T = len(out_ts)
+        Tp = -(-T // 128) * 128
+        assert fg.fusable(S, C, T, G), name
+        gids = torch.randint(0, G, (S,), device=dev, dtype=torch.int32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(700 + i))
+        blocks = []
+        integer = i % 2 == 0
+        if misaligned:
+            val, n = make_block(torch, S, C + 1, integer, 600 + i, dev)
+            val, n = val[:, 1:], torch.clamp(n, max=C)
+            assert val.stride(0) % 4 != 0
+        else:
+            val, n = make_block(torch, S, C, integer, 600 + i, dev)
+        blocks.append(("raw", (val,), n, None))
+        if not misaligned:
+            for kind in NARROW_KINDS:
+                ops, kn, dec = narrow_block_dev(torch, narrow, kind, S, C,
+                                                650 + i, dev)
+                blocks.append((kind, ops, kn, dec))
+        for kind, ops, n, dec in blocks:
+            full = decodereg.variant(kind).full_columns
+            for fn in FNS:
+                fk = "window" if fn in fg.FUSED_WINDOW_FNS else "rate"
+                band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
+                    C, Tp, out_ts.tobytes(), WINDOW_MS, 0, INTERVAL_MS, fk,
+                    full, dev)
+                plain = {sq: fg.fused_grid_aggregate_plain(
+                    fn, sq, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, band,
+                    ohlo, lo, hi, rel, G, c0, Ca, kind, ops[1:])
+                    for sq in (False, True)}
+                for op in ("sum", "count", "stddev"):
+                    got = fg.fused_grid_aggregate(
+                        op, fn, ops[0], n, gids, G, out_ts, WINDOW_MS, 0,
+                        INTERVAL_MS,
+                        narrow=None if kind == "raw" else (kind, ops))
+                    ref = fg.PaddedPartials(plain[op == "stddev"], op, G,
+                                            T).resolve()
+                    ex = {"count"} | ({"sum"} if fn == "count_over_time" or (
+                        kind == "raw" and integer and fn == "sum_over_time")
+                        else set())
+                    worst = max(worst, compare_parts(
+                        got, ref, ex, f"{name} {kind} {fn} {op}"))
+                    checks += 1
+                if dec is not None:
+                    a = fg.fused_grid_kernel(fn, True, WINDOW_MS, INTERVAL_MS,
+                                             ops[0], n, gids, lo, hi, rel, G,
+                                             c0, Ca, kind, ops[1:])
+                    b = fg.fused_grid_kernel(fn, True, WINDOW_MS, INTERVAL_MS,
+                                             dec, n, gids, lo, hi, rel, G, c0,
+                                             Ca)
+                    assert same_outputs(a, b), (name, kind, fn,
+                                                "narrow != raw on the decode")
+                    exact += 1
+        del blocks, val
+    torch.cuda.synchronize()
+    return checks, exact, worst
+
+
+def quant16_scale_rows(np, C=64):
+    """[R, C] f32 rows whose spans lie near, not at, 65535 * 2^k for k in
+    [-20, 20]: a few ulps either side, and integer multiples of 2^k one step
+    either side of 65535 of them (the encoder's scale = 2^ceil(log2(span /
+    65535)) turns on exactly those spans)."""
+    rows = []
+    rng = np.random.default_rng(21)
+    frac = np.linspace(0.0, 1.0, C)
+    for k in range(-20, 21):
+        unit = 2.0 ** k
+        for ulps in (-3, -1, 1, 3):
+            span = np.float32(65535.0 * unit)
+            toward = np.float32(np.copysign(np.inf, ulps))
+            for _ in range(abs(ulps)):
+                span = np.nextafter(span, toward)
+            vmin = rng.integers(-1000, 1000) * unit
+            rows.append(vmin + frac * np.float64(span))
+        for steps in (65534, 65536):
+            q = np.sort(rng.integers(0, steps + 1, C))
+            q[0], q[-1] = 0, steps
+            rows.append(rng.integers(-1000, 1000) * unit + q * unit)
+    return np.asarray(rows, np.float32)
+
+
+def phase_quant16_scale(torch, np, narrow, dev):
+    """The quant16 encoder on the card against the same encoder on the CPU,
+    over quant16_scale_rows: each device's ok rows must decode bit for bit
+    (the encoder's contract), and the two devices' blocks, vmin, scale and
+    ok rows are compared. Returns (rows, rows whose encoding differs
+    between the devices, ok rows on the card, ok rows on the CPU)."""
+    from filodb_tpu_torch.ops import decodereg
+    val = quant16_scale_rows(np)
+    R, C = val.shape
+    n = np.full(R, C, np.int32)
+    outs = {}
+    for d in (dev, "cpu"):
+        q, vmin, scale, ok = narrow.build_narrow(
+            torch.from_numpy(val).to(d), torch.from_numpy(n).to(d))
+        dec = decodereg.variant("quant16").decode(q, vmin[:, None],
+                                                  scale[:, None])
+        good = (dec == torch.from_numpy(val).to(d)).all(dim=1)
+        assert bool((good | ~ok).all()), (d, "an ok row does not decode")
+        outs[d] = [t.cpu().numpy() for t in (q, vmin, scale, ok)]
+    same = np.ones(R, bool)
+    for a, b in zip(outs[dev], outs["cpu"]):
+        same &= (a == b).reshape(R, -1).all(axis=1)
+    return R, int((~same).sum()), int(outs[dev][3].sum()), \
+        int(outs["cpu"][3].sum())
 
 
 def compare_engines(np, got, ref_engine, queries, start, end, step):
@@ -629,15 +800,27 @@ def phase_scale(torch, np, fg, card, engine, shard, reg_s):
         ohlo, lo, hi, rel, 8, c0, Ca), reps=3, warm=1)
     key, bw, f32 = peaks_for(card)
     S = st.S
-    nbytes = S * Ca * 4 + 2 * S * 4 + 3 * Tp * 4 + 2 * 8 * Tp * 4
-    lo_h, hi_h = lo.cpu().numpy()[0, :T], hi.cpu().numpy()[0, :T]
-    cells = np.clip(np.minimum(hi_h, NUM_SAMPLES - 1)
-                    - np.maximum(lo_h + 1, 1) + 1, 0, None)
-    # per (row, step): one subtract + max + add per window cell, ~30 for
-    # the extrapolation and the fold
-    flops = S * float((3 * cells + 30).sum())
-    bound_ms = max(nbytes / bw, flops / f32) * 1e3
-    bound_by = "bytes" if nbytes / bw >= flops / f32 else "operations"
+    nbytes, flops, bound_ms, bound_by = k1_raw_bound(np, card, S, Ca, T, lo,
+                                                     hi)
+    # the 30-minute panel's operands (bench.measure's sub-range, variant 0)
+    pts = np.arange(e - SUB_RANGE_MS, e + 1, STEP_MS, dtype=np.int64)
+    pT = len(pts)
+    pband, pohlo, plo, phi, prel, pc0, pCa = fg.device_operands(
+        CAPACITY, -(-pT // 128) * 128, pts.tobytes(), WINDOW_MS, BASE_TS,
+        INTERVAL_MS, "rate", False, st.val.device)
+    worst = max(worst, compare_parts(
+        fg.PaddedPartials(fg.fused_grid_kernel(
+            "rate", False, WINDOW_MS, INTERVAL_MS, st.val, st.n, gids, plo,
+            phi, prel, 8, pc0, pCa), "sum", 8, pT).resolve(),
+        fg.PaddedPartials(fg.fused_grid_aggregate_plain(
+            "rate", False, WINDOW_MS, INTERVAL_MS, st.val, st.n, gids, pband,
+            pohlo, plo, phi, prel, 8, pc0, pCa), "sum", 8, pT).resolve(),
+        {"count"}, "scale 30-minute panel"))
+    panel_ms = cuda_ms(lambda: fg.fused_grid_kernel(
+        "rate", False, WINDOW_MS, INTERVAL_MS, st.val, st.n, gids, plo, phi,
+        prel, 8, pc0, pCa), reps=20)
+    pbytes, pflops, pbound_ms, pbound_by = k1_raw_bound(np, card, S, pCa, pT,
+                                                        plo, phi)
     log(f"scale [{card}]: engine single-query p50 {p50:.3f} ms "
         f"(sum(rate(m[5m])), {T} steps, {n_queries} queries); last query's "
         f"stages (host clock, ms) {stages}; index selection of the "
@@ -646,12 +829,35 @@ def phase_scale(torch, np, fg, card, engine, shard, reg_s):
         f"{p_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
         f"{nbytes / 1e9:.3f} GB at {key}'s {bw / 1e12:.2f} TB/s, "
         f"{flops / 1e9:.2f} GFLOP at {f32 / 1e12:.0f} TFLOP/s f32)")
+    log(f"scale [{card}]: K1 on the 30-minute panel's operands ({pT} steps, "
+        f"columns {pc0}+{pCa}) {panel_ms:.4f} ms by CUDA events "
+        f"({panel_ms / k_ms:.3f} of the full range's); bound "
+        f"{pbound_ms:.4f} ms ({pbound_by}: {pbytes / 1e9:.3f} GB, "
+        f"{pflops / 1e9:.2f} GFLOP)")
     log(f"scale [{card}]: library call: none (no single PyTorch call "
         "computes this function)")
     log(f"scale [{card}]: launches per query {launches / n_queries:.2f}; "
         f"K1 vs plain max |diff| {worst:.3g}")
     return dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_raw_bound(np, card, S, Ca, T, lo, hi):
+    """(bytes, operations, bound ms, bound_by) of K1 raw over S rows of Ca
+    f32 columns for the T steps of ``lo``/``hi`` (device [1, Tp] i32): the
+    columns once, n and gid, the step operands, the [2, 8, Tp] output; per
+    (row, step) one subtract + max + add per window cell of this data and
+    ~30 operations for the extrapolation and the fold."""
+    key, bw, f32 = peaks_for(card)
+    Tp = lo.shape[-1]
+    nbytes = S * Ca * 4 + 2 * S * 4 + 3 * Tp * 4 + 2 * 8 * Tp * 4
+    lo_h, hi_h = lo.cpu().numpy()[0, :T], hi.cpu().numpy()[0, :T]
+    cells = np.clip(np.minimum(hi_h, NUM_SAMPLES - 1)
+                    - np.maximum(lo_h + 1, 1) + 1, 0, None)
+    flops = S * float((3 * cells + 30).sum())
+    bound_ms = max(nbytes / bw, flops / f32) * 1e3
+    bound_by = "bytes" if nbytes / bw >= flops / f32 else "operations"
+    return nbytes, flops, bound_ms, bound_by
 
 
 def k3_bound(card, S, C):
@@ -1520,6 +1726,19 @@ def main() -> int:
         f"the plain twin, max |diff| by kind {worst2n}; {exact} bit-exact "
         f"checks against K1 raw on the decoded block; delta8 at c0 > 0 "
         f"refused; {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    checks, exact, worst2s = phase_k1_shapes(torch, np, fg, narrow, "cuda")
+    log(f"kernels: fusedgrid_k1 launch shapes ({checks} checks against the "
+        f"plain twin at Tp = 256 and 512, leading dead steps, short last "
+        f"tiles, the largest shared memory, a misaligned view; max |diff| "
+        f"{worst2s:.3g}; {exact} bit-exact checks against K1 raw on the "
+        f"decoded block; {time.perf_counter() - t0:.1f} s)")
+    rows, differ, ok_card, ok_cpu = phase_quant16_scale(torch, np, narrow,
+                                                        "cuda")
+    log(f"quant16 scale: {rows} rows with spans near 65535 * 2^k, k in "
+        f"[-20, 20], encoded on the card and on the CPU: {differ} rows "
+        f"differ in block, vmin, scale or ok ({ok_card} ok rows on the "
+        f"card, {ok_cpu} on the CPU); every ok row decodes bit for bit")
     t0 = time.perf_counter()
     k3 = phase_stream_kernels(torch, np, sp, card, "cuda")
     log(f"stream: streamprobe_k3 ({k3['checks']} checks against the plain "

@@ -43,28 +43,48 @@
 // garbage): the row walk and the non-finite counts read only cells < n,
 // so they add nothing.
 //
-// What bounds it. The value store: the kernel reads val[:, c0:c0+Ca] once.
-// At bench.py's shape (S = 2^20 series, Ca = C = 768 columns for the full
-// 2 h range) that is 3.22 GB in f32, 0.96 ms at the H100 SXM data sheet's
+// What bounds it. The bytes: the kernel reads val[:, c0:c0+Ca] once. At
+// bench.py's shape (S = 2^20 series, Ca = C = 768 columns for the full 2 h
+// range) that is 3.22 GB in f32, 0.96 ms at the H100 SXM data sheet's
 // 3.35 TB/s; 0.81 GB (0.24 ms) for delta8, 1.61 GB (0.48 ms) for quant16
 // and delta16; n, gid, the row operands and the step operands are a few
-// MB. The operations are a few per byte, far below the card's compute
-// ridge, so bytes bound it (chip_smoke.py recomputes the bound for the
-// card it runs on).
+// MB. The operations (about 1.5e9 window cells and 49e6 extrapolations at
+// 47 steps) are a few per byte, below the card's f32 ridge, so bytes bound
+// it on paper (chip_smoke.py recomputes the bound for the card it runs
+// on). In practice the per-tile phases below issue more slowly than the
+// bytes arrive: the kernel runs at about twice its bound (PERF.md).
 //
-// What the design does about it. Blocks run over (row chunk x step chunk of
-// 128 steps). A block stages RT rows of its chunk at a time in shared memory
-// with coalesced (16-byte where aligned) loads, then each of its 128 threads
-// owns one step column: it walks the staged rows in order and adds into a
-// shared [nout, G, 128] accumulator that only it touches, so the per-block
-// fold has a fixed order and no atomics. Steps with hi < 0 (the padding up
-// to Tp) contribute nothing and skip the row walk. A block writes its
-// chunk's partials to scratch; fold_chunks then sums the chunks in
-// index order (the TPU grid accumulated tiles in order; blocks here run in
-// parallel, so the cross-block sum is a second pass, never float atomics;
-// fold.cuh, shared with K2).
-// Keeping several loads in flight per SM while other blocks compute is left
-// to occupancy; a TMA ring of tiles is later work.
+// What the design does about it. Blocks of 256 threads run over (row chunk
+// x step chunk of 128 steps). A block stages RT rows of its chunk at a time
+// in shared memory (k1_launch_shape: about 4096 cells, four blocks an SM),
+// then works each tile in three phases between barriers:
+//   non-finite counts — a warp per row; a row whose cells all lie in
+//     (-2^126, 2^126) is 0 and 0 after one compare a cell, only others are
+//     counted cell by cell;
+//   contributions — every thread of the block takes (row, step) items of
+//     the tile: the staged rows x the chunk's live steps (hi >= 0, listed
+//     once per block), consecutive threads on consecutive steps of one row
+//     (neighbouring windows start a step's worth of cells apart, so a warp's
+//     shared loads spread over the banks). Each item walks its window's
+//     cells in ascending order and runs the extrapolation, and writes its
+//     contribution and presence to shared [RT, 128] arrays. The time terms
+//     of rows that reach the step's last cell are the step's, computed once
+//     per block with the same expressions;
+//   fold — the step's thread (the first 128) adds the tile's rows, in row
+//     order, into a [nout, G, 128] accumulator that only it touches (the
+//     current group's sums in registers), so the per-step fold order is the
+//     row order and there are no atomics.
+// So every per-item expression and the per-step fold order are those of a
+// thread that walks every row in order: the partials are bit for bit the
+// same, whatever the tile. Raw f32 staging is double-buffered: the 16-byte
+// cp.async copies of tile k+1 and of its rows' n and gid (4-byte copies
+// where the view is not aligned) are in flight while tile k is worked. The
+// narrow variants still stage synchronously (the delta scan is a dependent
+// chain per row). A block writes its chunk's partials to scratch;
+// fold_chunks then sums the chunks in index order (the TPU grid accumulated
+// tiles in order; blocks here run in parallel, so the cross-block sum is a
+// second pass, never float atomics; fold.cuh, shared with K2). TMA, warp
+// specialisation and a one-pass delta decode are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,7 +94,9 @@
 
 namespace {
 
-constexpr int kSteps = 128;   // steps per block == threads per block
+constexpr int kSteps = 128;     // steps per block (K1_STEPS in ops/fusedgrid.py)
+constexpr int kThreads = 256;   // threads per block
+constexpr int kWarps = kThreads / 32;
 
 enum Fn {
   FN_RATE = 0,
@@ -133,25 +155,55 @@ __device__ __forceinline__ float inc_of(const float* v, int lc, bool counter) {
 
 // Stage rows [r0, r0 + nr) of each variant as f32 into tile[nr, ca].
 
-__device__ __forceinline__ void stage_raw(const Params& p, float* tile,
-                                          int r0, int nr, int tid) {
+// cp.async: a copy from device to shared memory that the issuing thread
+// does not wait for; commit closes a group of them, wait_group<N> waits
+// until at most N of the thread's groups are still in flight
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// raw f32: issues the copies of the tile (16 bytes where the view is
+// aligned, 4 otherwise) and of its rows' n and gid, without waiting for them
+__device__ __forceinline__ void stage_raw_async(const Params& p, float* tile,
+                                                int* n, int* gid, int r0,
+                                                int nr, int tid) {
   const float* val = static_cast<const float*>(p.val);
   const int c0 = p.c0;
   if (p.vec4) {
     const int ca4 = p.ca >> 2;
-    for (int i = tid; i < nr * ca4; i += kSteps) {
+    for (int i = tid; i < nr * ca4; i += kThreads) {
       const int r = i / ca4;
       const int c4 = i - r * ca4;
-      const float4 x = *reinterpret_cast<const float4*>(
-          val + (long long)(r0 + r) * p.row_stride + c0 + 4 * c4);
-      *reinterpret_cast<float4*>(tile + r * p.ca + 4 * c4) = x;
+      cp_async16(tile + r * p.ca + 4 * c4,
+                 val + (long long)(r0 + r) * p.row_stride + c0 + 4 * c4);
     }
   } else {
-    for (int i = tid; i < nr * p.ca; i += kSteps) {
+    for (int i = tid; i < nr * p.ca; i += kThreads) {
       const int r = i / p.ca;
       const int c = i - r * p.ca;
-      tile[i] = val[(long long)(r0 + r) * p.row_stride + c0 + c];
+      cp_async4(tile + i, val + (long long)(r0 + r) * p.row_stride + c0 + c);
     }
+  }
+  for (int r = tid; r < nr; r += kThreads) {
+    cp_async4(n + r, p.n + r0 + r);
+    cp_async4(gid + r, p.gid + r0 + r);
   }
 }
 
@@ -166,7 +218,7 @@ __device__ __forceinline__ void stage_quant16(const Params& p, float* tile,
   const int c0 = p.c0;
   if (p.vec4) {   // 4 cells, 8 bytes, a load
     const int ca4 = p.ca >> 2;
-    for (int i = tid; i < nr * ca4; i += kSteps) {
+    for (int i = tid; i < nr * ca4; i += kThreads) {
       const int r = i / ca4;
       const int c4 = i - r * ca4;
       const short4 x = *reinterpret_cast<const short4*>(
@@ -181,7 +233,7 @@ __device__ __forceinline__ void stage_quant16(const Params& p, float* tile,
       *reinterpret_cast<float4*>(tile + r * p.ca + 4 * c4) = y;
     }
   } else {
-    for (int i = tid; i < nr * p.ca; i += kSteps) {
+    for (int i = tid; i < nr * p.ca; i += kThreads) {
       const int r = i / p.ca;
       const int c = i - r * p.ca;
       tile[i] = dequant16(q[(long long)(r0 + r) * p.row_stride + c0 + c],
@@ -206,7 +258,7 @@ __device__ __forceinline__ void stage_delta(const Params& p, float* tile,
                                             int lane) {
   const T* blk = static_cast<const T*>(p.val);
   const int ca = p.ca;             // == C: the launch checked c0 = 0
-  for (int r = warp; r < nr; r += kSteps / 32) {
+  for (int r = warp; r < nr; r += kWarps) {
     const T* src = blk + (long long)(r0 + r) * p.row_stride;
     float* dst = tile + r * ca;
     const float anchor = p.row0[r0 + r];
@@ -238,43 +290,259 @@ __device__ __forceinline__ void stage_delta(const Params& p, float* tile,
   }
 }
 
+// The time terms of one (step, row) window, tile_contrib's expressions:
+// they depend on the row only through its last cell l_idx, and every row
+// whose samples reach the step's last cell (l_idx = hi) has the same ones,
+// so those are computed once per step (Terms in shared memory) and only
+// shorter rows compute their own
+struct Terms {
+  float dur_start, dur_end, sampled, avg_dur, thresh, half_avg;
+};
+constexpr int kTerms = 6;     // floats of Terms
+
+__device__ __forceinline__ Terms time_terms(const Params& p, int f_idx,
+                                            int l_idx, int rel_t) {
+  const float cnt_f = (float)max(l_idx - f_idx + 1, 0);
+  const float relf = (float)rel_t;
+  const float f_rel = (float)(f_idx * p.interval_ms);
+  const float l_rel = (float)(l_idx * p.interval_ms);
+  Terms t;
+  t.dur_start = (f_rel - (relf - (float)p.window_ms)) / 1000.0f;
+  t.dur_end = (relf - l_rel) / 1000.0f;
+  t.sampled = (l_rel - f_rel) / 1000.0f;
+  t.avg_dur = t.sampled / (cnt_f - 1.0f);
+  t.thresh = t.avg_dur * 1.1f;
+  t.half_avg = t.avg_dur / 2.0f;
+  return t;
+}
+
+// The window walks, ascending over the cells. With kCount they also count
+// the non-finite terms they add; a row with no non-finite cell (count 0,
+// the usual case) needs no count, since only a row count above the
+// window's turns the sum into NaN.
+template <bool kCount>
+__device__ __forceinline__ float closed_sum(const float* v, int cs, int ce,
+                                            int c0, int& nf_in) {
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = cs; c <= ce; ++c) {
+    const float x = v[c - c0];
+    s = s + x;
+    if (kCount) nf_in += !isfinite(x);
+  }
+  return s;
+}
+
+// inc @ band_open: the predecessor's value is carried in a register (the
+// same subtraction as v[c] - v[c - 1])
+template <bool kCount>
+__device__ __forceinline__ float open_delta(const float* v, int cs, int ce,
+                                            int c0, bool counter,
+                                            int& nf_in) {
+  float delta = 0.f;
+  if (cs > ce) return delta;
+  float prev = v[cs - c0 - 1];
+#pragma unroll 4
+  for (int c = cs; c <= ce; ++c) {
+    const float x = v[c - c0];
+    float d = x - prev;
+    if (counter) d = relu_keep_nan(d);
+    prev = x;
+    delta = delta + d;
+    if (kCount) nf_in += !isfinite(d);
+  }
+  return delta;
+}
+
+// One (row, step) item: the row's contribution to the step and its presence
+// (1 or 0), tile_contrib's expressions in tile_contrib's order. v is the
+// row's staged tile row (cell c at v[c - c0]); nfv / nfi its non-finite
+// value and increment counts; terms the step's Terms for full rows (stride
+// kSteps).
+__device__ __forceinline__ void item_contrib(
+    const Params& p, const float* v, int n_s, int nfv, int nfi, int lo_t,
+    int hi_t, int rel_t, const float* terms, bool window_fn, bool counter,
+    float& contrib, float& okf) {
+  const int c0 = p.c0;
+  const int f_idx = max(lo_t, 0);
+  const int vend = min(c0 + p.ca, n_s);      // valid active cells [c0, vend)
+  const int l_idx = min(hi_t, n_s - 1);
+  const int cnt = max(l_idx - f_idx + 1, 0);
+  const float cnt_f = (float)cnt;
+  int nf_in = 0;
+  if (window_fn) {
+    const bool ok = cnt >= 1;
+    if (p.fn == FN_COUNT_OVER_TIME) {
+      contrib = ok ? cnt_f : 0.f;
+    } else {
+      // v @ band_closed: cells lo_t <= c <= hi_t
+      const int cs = max(lo_t, c0);
+      const int ce = min(hi_t, vend - 1);
+      float s = nfv ? closed_sum<true>(v, cs, ce, c0, nf_in)
+                    : closed_sum<false>(v, cs, ce, c0, nf_in);
+      if (nfv > nf_in) s = NAN;
+      if (p.fn == FN_AVG_OVER_TIME) s = s / cnt_f;
+      contrib = ok ? s : 0.f;
+    }
+    okf = ok ? 1.f : 0.f;
+    return;
+  }
+  // inc @ band_open: cells lo_t < c <= hi_t with a valid predecessor
+  const int cs = max(lo_t + 1, c0 + 1);
+  const int ce = min(hi_t, vend - 1);
+  float delta = nfi ? open_delta<true>(v, cs, ce, c0, counter, nf_in)
+                    : open_delta<false>(v, cs, ce, c0, counter, nf_in);
+  if (nfi > nf_in) delta = NAN;
+  // v @ onehot_lo: the first sample, 0 outside the valid active cells
+  const int p_first = min(f_idx, p.cap - 1);  // one-hot row of the first sample
+  const bool in = p_first >= c0 && p_first < vend;
+  const float x = in ? v[p_first - c0] : 0.f;
+  const int nf_out = nfv - ((in && !isfinite(x)) ? 1 : 0);
+  const float f_v = nf_out > 0 ? NAN : x;
+
+  Terms t;
+  if (l_idx == hi_t) {
+    t.dur_start = terms[0];
+    t.dur_end = terms[kSteps];
+    t.sampled = terms[2 * kSteps];
+    t.avg_dur = terms[3 * kSteps];
+    t.thresh = terms[4 * kSteps];
+    t.half_avg = terms[5 * kSteps];
+  } else {
+    t = time_terms(p, f_idx, l_idx, rel_t);
+  }
+  float dur_start = t.dur_start;
+  if (counter) {
+    const float safe = delta > 0.f ? delta : 1.0f;
+    const float q = f_v / safe;
+    const float dur_zero = delta > 0.f ? t.sampled * q : INFINITY;
+    if (delta > 0.f && f_v >= 0.f && dur_zero < dur_start)
+      dur_start = dur_zero;
+  }
+  float extrap = t.sampled;
+  extrap = extrap + (dur_start < t.thresh ? dur_start : t.half_avg);
+  extrap = extrap + (t.dur_end < t.thresh ? t.dur_end : t.half_avg);
+  float scaled = delta * (extrap / t.sampled);
+  if (p.fn == FN_RATE) scaled = scaled * p.rate_scale;
+  const bool ok = cnt >= 2;
+  contrib = ok ? scaled : 0.f;
+  okf = ok ? 1.f : 0.f;
+}
+
+// Shared memory of one block, in this order (k1_smem_bytes in
+// ops/fusedgrid.py mirrors the sum; keep the two alike):
+//   f32 tile buffers [nbuf, rt, ca]  (nbuf: 2 for raw, 1 for the others)
+//   f32 contributions [rt, kSteps], presence [rt, kSteps]
+//   f32 accumulator [nout, G, kSteps]
+//   f32 the steps' Terms of full rows [kTerms, kSteps]
+//   i32 n, gid [2, rt] each (beside raw's two tile buffers), non-finite
+//       values, non-finite increments [rt] each
+//   i32 lo, hi, rel, live-step list [kSteps] each; live steps per warp [4]
+__host__ __device__ constexpr int tile_buffers(int kind) {
+  return kind == KIND_RAW ? 2 : 1;
+}
+
+size_t smem_bytes(int kind, int rt, int ca, int groups, int nout) {
+  return sizeof(float) * ((size_t)tile_buffers(kind) * rt * ca
+                          + 2 * (size_t)rt * kSteps
+                          + (size_t)nout * groups * kSteps
+                          + (size_t)kTerms * kSteps)
+         + sizeof(int) * (6 * (size_t)rt + 4 * kSteps + 4);
+}
+
 template <int K>
-__global__ void fused_grid_map(Params p) {
-  extern __shared__ float smem[];
-  float* tile = smem;                                   // [rt, ca]
-  float* acc = tile + p.rt * p.ca;                      // [nout, G, kSteps]
-  int* s_n = reinterpret_cast<int*>(acc + p.nout * p.groups * kSteps);
-  int* s_gid = s_n + p.rt;
-  int* s_nfv = s_gid + p.rt;      // non-finite valid values per staged row
+__global__ void __launch_bounds__(kThreads)
+fused_grid_map(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int tsz = p.rt * p.ca;
+  const int G = p.groups;
+  float* bufs = smem;                                   // [nbuf, rt, ca]
+  float* s_con = bufs + tile_buffers(K) * tsz;          // [rt, kSteps]
+  float* s_okf = s_con + p.rt * kSteps;                 // [rt, kSteps]
+  float* acc = s_okf + p.rt * kSteps;                   // [nout, G, kSteps]
+  float* s_terms = acc + p.nout * G * kSteps;           // [kTerms, kSteps]
+  int* s_nb = reinterpret_cast<int*>(s_terms + kTerms * kSteps);  // [2, rt]
+  int* s_gb = s_nb + 2 * p.rt;    // [2, rt]: n and gid beside each buffer
+  int* s_nfv = s_gb + 2 * p.rt;   // non-finite valid values per staged row
   int* s_nfi = s_nfv + p.rt;      // non-finite increments per staged row
+  int* s_lo = s_nfi + p.rt;       // the chunk's step operands
+  int* s_hi = s_lo + kSteps;
+  int* s_rel = s_hi + kSteps;
+  int* s_step = s_rel + kSteps;   // the live steps' local indices, ascending
+  int* s_wlive = s_step + kSteps; // live steps in each of the first 4 warps
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int t = blockIdx.y * kSteps + tid;
   const int row0 = blockIdx.x * p.rows_per_block;
   const int row_end = min(row0 + p.rows_per_block, p.rows);
-  const int G = p.groups;
   const bool window_fn = p.fn >= FN_SUM_OVER_TIME;
   const bool counter = p.fn == FN_RATE || p.fn == FN_INCREASE;
   const bool sumsq = p.nout == 3;
 
-  for (int i = tid; i < p.nout * G * kSteps; i += kSteps) acc[i] = 0.f;
+  for (int i = tid; i < p.nout * G * kSteps; i += kThreads) acc[i] = 0.f;
 
-  const int lo_t = p.lo[t];
-  const int hi_t = p.hi[t];
-  const int rel_t = p.rel[t];
-  // hi < 0 gives cnt = 0 for every row: nothing to add
-  const bool active = hi_t >= 0;
-  const int c0 = p.c0;
-  const int f_idx = max(lo_t, 0);
-  const int p_first = min(f_idx, p.cap - 1);   // one-hot row of the first sample
+  // the chunk's steps; hi < 0 gives cnt = 0 for every row (nothing to add),
+  // so only the live ones become items, listed once here
+  bool live = false;
+  unsigned live_mask = 0;
+  if (tid < kSteps) {               // warps 0-3, whole
+    const int t = blockIdx.y * kSteps + tid;
+    const int hi_t = p.hi[t];
+    s_lo[tid] = p.lo[t];
+    s_hi[tid] = hi_t;
+    s_rel[tid] = p.rel[t];
+    live = hi_t >= 0;
+    if (!window_fn) {
+      const Terms tt = time_terms(p, max(s_lo[tid], 0), hi_t, s_rel[tid]);
+      s_terms[tid] = tt.dur_start;
+      s_terms[kSteps + tid] = tt.dur_end;
+      s_terms[2 * kSteps + tid] = tt.sampled;
+      s_terms[3 * kSteps + tid] = tt.avg_dur;
+      s_terms[4 * kSteps + tid] = tt.thresh;
+      s_terms[5 * kSteps + tid] = tt.half_avg;
+    }
+    live_mask = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) s_wlive[warp] = __popc(live_mask);
+  }
+  __syncthreads();
+  const int nlive = s_wlive[0] + s_wlive[1] + s_wlive[2] + s_wlive[3];
+  if (live) {
+    int base = 0;
+    for (int w = 0; w < warp; ++w) base += s_wlive[w];
+    s_step[base + __popc(live_mask & ((1u << lane) - 1u))] = tid;
+  }
 
-  for (int r0 = row0; r0 < row_end; r0 += p.rt) {
+  if constexpr (K == KIND_RAW) {     // the first tile's copies
+    if (nlive > 0 && row0 < row_end)
+      stage_raw_async(p, bufs, s_nb, s_gb, row0, min(p.rt, row_end - row0),
+                      tid);
+    cp_async_commit();
+  }
+  float* a_sum = acc;
+  float* a_cnt = acc + G * kSteps;
+  float* a_sq = acc + 2 * G * kSteps;
+  int cg = -1;                          // the group held in registers
+  float c_sum = 0.f, c_cnt = 0.f, c_sq = 0.f;
+  int k = 0;
+  for (int r0 = row0; nlive > 0 && r0 < row_end; r0 += p.rt, ++k) {
     const int nr = min(p.rt, row_end - r0);
-    __syncthreads();   // the previous tile is consumed
+    __syncthreads();   // the previous tile, its items and its fold are done
+    const int b = K == KIND_RAW ? (k & 1) : 0;
+    float* tile = bufs + b * tsz;
+    int* s_n = s_nb + b * p.rt;
+    int* s_gid = s_gb + b * p.rt;
     if constexpr (K == KIND_RAW) {
-      stage_raw(p, tile, r0, nr, tid);
+      // tile k + 1's copies go out into the other buffers (their last
+      // readers, tile k - 1's items and fold, passed the barrier above);
+      // then wait for tile k's
+      const int r1 = r0 + p.rt;
+      if (r1 < row_end)
+        stage_raw_async(p, bufs + (b ^ 1) * tsz, s_nb + (b ^ 1) * p.rt,
+                        s_gb + (b ^ 1) * p.rt, r1, min(p.rt, row_end - r1),
+                        tid);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else if constexpr (K == KIND_QUANT16) {
       stage_quant16(p, tile, r0, nr, tid);
     } else if constexpr (K == KIND_DELTA16) {
@@ -282,24 +550,36 @@ __global__ void fused_grid_map(Params p) {
     } else {
       stage_delta<int8_t>(p, tile, r0, nr, warp, lane);
     }
-    for (int r = tid; r < nr; r += kSteps) {
-      s_n[r] = p.n[r0 + r];
-      s_gid[r] = p.gid[r0 + r];
+    if constexpr (K != KIND_RAW) {
+      for (int r = tid; r < nr; r += kThreads) {
+        s_n[r] = p.n[r0 + r];
+        s_gid[r] = p.gid[r0 + r];
+      }
     }
     __syncthreads();
     // per-row count of non-finite cells the band products multiply by 0:
-    // values in [c0, vend) and increments in [c0 + 1, vend)
-    for (int r = warp; r < nr; r += kSteps / 32) {
+    // values in [c0, vend) and increments in [c0 + 1, vend). A row whose
+    // valid cells all lie in (-2^126, 2^126) has no non-finite value and no
+    // non-finite increment (|x - y| < 2^127), so both counts are 0 without
+    // counting; only a row with a cell outside (NaN, +-Inf or huge) is
+    // counted cell by cell
+    for (int r = warp; r < nr; r += kWarps) {
       const float* v = tile + r * p.ca;
-      const int vend = min(c0 + p.ca, s_n[r]);
+      const int vend = min(p.c0 + p.ca, s_n[r]);
       int nfv = 0, nfi = 0;
-      for (int c = c0 + lane; c < vend; c += 32) {
-        nfv += !isfinite(v[c - c0]);
-        if (!window_fn && c > c0) nfi += !isfinite(inc_of(v, c - c0, counter));
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        nfv += __shfl_xor_sync(0xffffffffu, nfv, off);
-        nfi += __shfl_xor_sync(0xffffffffu, nfi, off);
+      bool wide = false;
+      for (int c = p.c0 + lane; c < vend; c += 32)
+        wide |= !(fabsf(v[c - p.c0]) < 0x1p126f);
+      if (__any_sync(0xffffffffu, wide)) {
+        for (int c = p.c0 + lane; c < vend; c += 32) {
+          nfv += !isfinite(v[c - p.c0]);
+          if (!window_fn && c > p.c0)
+            nfi += !isfinite(inc_of(v, c - p.c0, counter));
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          nfv += __shfl_xor_sync(0xffffffffu, nfv, off);
+          nfi += __shfl_xor_sync(0xffffffffu, nfi, off);
+        }
       }
       if (lane == 0) {
         s_nfv[r] = nfv;
@@ -307,119 +587,91 @@ __global__ void fused_grid_map(Params p) {
       }
     }
     __syncthreads();
-    if (!active) continue;
 
-    for (int r = 0; r < nr; ++r) {
-      const float* v = tile + r * p.ca;
-      const int n_s = s_n[r];
-      const int vend = min(c0 + p.ca, n_s);    // valid active cells [c0, vend)
-      const int l_idx = min(hi_t, n_s - 1);
-      const int cnt = max(l_idx - f_idx + 1, 0);
-      const float cnt_f = (float)cnt;
+    // contributions: (row, live step) items over the whole block,
+    // consecutive threads on consecutive steps of one row
+    for (int i = tid; i < nr * nlive; i += kThreads) {
+      const int r = i / nlive;
+      const int j = s_step[i - r * nlive];
       float contrib, okf;
-      if (window_fn) {
-        const bool ok = cnt >= 1;
-        if (p.fn == FN_COUNT_OVER_TIME) {
-          contrib = ok ? cnt_f : 0.f;
-        } else {
-          // v @ band_closed: cells lo_t <= c <= hi_t
-          const int cs = max(lo_t, c0);
-          const int ce = min(hi_t, vend - 1);
-          float s = 0.f;
-          int nf_in = 0;
-          for (int c = cs; c <= ce; ++c) {
-            const float x = v[c - c0];
-            s = s + x;
-            nf_in += !isfinite(x);
+      item_contrib(p, tile + r * p.ca, s_n[r], s_nfv[r], s_nfi[r], s_lo[j],
+                   s_hi[j], s_rel[j], s_terms + j, window_fn, counter,
+                   contrib, okf);
+      s_con[r * kSteps + j] = contrib;
+      s_okf[r * kSteps + j] = okf;
+    }
+    __syncthreads();
+
+    // fold: the step's thread adds the tile's rows in row order; one-hot
+    // fold: row -> its group, and a non-finite term times 0 is NaN in every
+    // other group's sum. The running sums of the last row's group stay in
+    // registers (cg) and go back to the accumulator only when a row of
+    // another group comes: the same additions in the same order, without a
+    // shared-memory round trip per row while the group stays the same
+    if (live) {
+      for (int r = 0; r < nr; ++r) {
+        const float contrib = s_con[r * kSteps + tid];
+        const float okf = s_okf[r * kSteps + tid];
+        const int g = s_gid[r];
+        const bool in_g = g >= 0 && g < G;
+        if (in_g && g != cg) {
+          if (cg >= 0) {
+            a_sum[cg * kSteps + tid] = c_sum;
+            a_cnt[cg * kSteps + tid] = c_cnt;
+            if (sumsq) a_sq[cg * kSteps + tid] = c_sq;
           }
-          if (s_nfv[r] > nf_in) s = NAN;
-          if (p.fn == FN_AVG_OVER_TIME) s = s / cnt_f;
-          contrib = ok ? s : 0.f;
+          cg = g;
+          c_sum = a_sum[g * kSteps + tid];
+          c_cnt = a_cnt[g * kSteps + tid];
+          if (sumsq) c_sq = a_sq[g * kSteps + tid];
         }
-        okf = ok ? 1.f : 0.f;
-      } else {
-        // inc @ band_open: cells lo_t < c <= hi_t with a valid predecessor
-        const int cs = max(lo_t + 1, c0 + 1);
-        const int ce = min(hi_t, vend - 1);
-        float delta = 0.f;
-        int nf_in = 0;
-        for (int c = cs; c <= ce; ++c) {
-          const float d = inc_of(v, c - c0, counter);
-          delta = delta + d;
-          nf_in += !isfinite(d);
+        if (in_g) {
+          c_sum += contrib;
+          c_cnt += okf;
         }
-        if (s_nfi[r] > nf_in) delta = NAN;
-        // v @ onehot_lo: the first sample, 0 outside the valid active cells
-        const bool in = p_first >= c0 && p_first < vend;
-        const float x = in ? v[p_first - c0] : 0.f;
-        const int nf_out = s_nfv[r] - ((in && !isfinite(x)) ? 1 : 0);
-        const float f_v = nf_out > 0 ? NAN : x;
-
-        const float relf = (float)rel_t;
-        const float f_rel = (float)(f_idx * p.interval_ms);
-        const float l_rel = (float)(l_idx * p.interval_ms);
-        float dur_start = (f_rel - (relf - (float)p.window_ms)) / 1000.0f;
-        const float dur_end = (relf - l_rel) / 1000.0f;
-        const float sampled = (l_rel - f_rel) / 1000.0f;
-        const float avg_dur = sampled / (cnt_f - 1.0f);
-        if (counter) {
-          const float safe = delta > 0.f ? delta : 1.0f;
-          const float q = f_v / safe;
-          const float dur_zero = delta > 0.f ? sampled * q : INFINITY;
-          if (delta > 0.f && f_v >= 0.f && dur_zero < dur_start)
-            dur_start = dur_zero;
+        if (!isfinite(contrib)) {
+          for (int k = 0; k < G; ++k) {
+            if (k == g) continue;
+            if (k == cg) c_sum += NAN;
+            else a_sum[k * kSteps + tid] += NAN;
+          }
         }
-        const float thresh = avg_dur * 1.1f;
-        float extrap = sampled;
-        extrap = extrap + (dur_start < thresh ? dur_start : avg_dur / 2.0f);
-        extrap = extrap + (dur_end < thresh ? dur_end : avg_dur / 2.0f);
-        float scaled = delta * (extrap / sampled);
-        if (p.fn == FN_RATE) scaled = scaled * p.rate_scale;
-        const bool ok = cnt >= 2;
-        contrib = ok ? scaled : 0.f;
-        okf = ok ? 1.f : 0.f;
-      }
-
-      // one-hot fold: row -> its group; a non-finite term times 0 is NaN
-      // in every other group's sum
-      const int g = s_gid[r];
-      const bool in_g = g >= 0 && g < G;
-      float* a_sum = acc;
-      float* a_cnt = acc + G * kSteps;
-      if (in_g) {
-        a_sum[g * kSteps + tid] += contrib;
-        a_cnt[g * kSteps + tid] += okf;
-      }
-      if (!isfinite(contrib)) {
-        for (int k = 0; k < G; ++k)
-          if (k != g) a_sum[k * kSteps + tid] += NAN;
-      }
-      if (sumsq) {
-        float* a_sq = acc + 2 * G * kSteps;
-        const float sq = contrib * contrib;
-        if (in_g) a_sq[g * kSteps + tid] += sq;
-        if (!isfinite(sq)) {
-          for (int k = 0; k < G; ++k)
-            if (k != g) a_sq[k * kSteps + tid] += NAN;
+        if (sumsq) {
+          const float sq = contrib * contrib;
+          if (in_g) c_sq += sq;
+          if (!isfinite(sq)) {
+            for (int k = 0; k < G; ++k) {
+              if (k == g) continue;
+              if (k == cg) c_sq += NAN;
+              else a_sq[k * kSteps + tid] += NAN;
+            }
+          }
         }
       }
     }
   }
-  __syncthreads();
-  float* out = p.scratch + (size_t)blockIdx.x * p.nout * G * p.tp;
-  for (int o = 0; o < p.nout; ++o)
-    for (int g = 0; g < G; ++g)
-      out[(size_t)(o * G + g) * p.tp + t] = acc[(o * G + g) * kSteps + tid];
+  if (cg >= 0) {
+    a_sum[cg * kSteps + tid] = c_sum;
+    a_cnt[cg * kSteps + tid] = c_cnt;
+    if (sumsq) a_sq[cg * kSteps + tid] = c_sq;
+  }
+  if (tid < kSteps) {     // only this thread touched its step's accumulator
+    const int t = blockIdx.y * kSteps + tid;
+    float* out = p.scratch + (size_t)blockIdx.x * p.nout * G * p.tp;
+    for (int o = 0; o < p.nout; ++o)
+      for (int g = 0; g < G; ++g)
+        out[(size_t)(o * G + g) * p.tp + t] = acc[(o * G + g) * kSteps + tid];
+  }
 }
 
 template <int K>
-cudaError_t launch_map(const Params& p, dim3 grid, size_t smem,
-                       cudaStream_t s) {
+cudaError_t launch_map(const Params& p, dim3 grid, cudaStream_t s) {
+  const size_t smem = smem_bytes(K, p.rt, p.ca, p.groups, p.nout);
   cudaError_t err = cudaFuncSetAttribute(
       fused_grid_map<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  fused_grid_map<K><<<grid, kSteps, smem, s>>>(p);
+  fused_grid_map<K><<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -460,17 +712,14 @@ extern "C" int fusedgrid_launch(
   p.rt = rt;
   p.vec4 = vec4;
   p.scratch = scratch;
-  const size_t smem = sizeof(float) * ((size_t)rt * ca
-                                       + (size_t)nout * groups * kSteps)
-                      + sizeof(int) * 4 * (size_t)rt;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   dim3 grid(nchunks, tp / kSteps);
   cudaError_t err;
   switch (kind) {
-    case KIND_RAW: err = launch_map<KIND_RAW>(p, grid, smem, s); break;
-    case KIND_QUANT16: err = launch_map<KIND_QUANT16>(p, grid, smem, s); break;
-    case KIND_DELTA16: err = launch_map<KIND_DELTA16>(p, grid, smem, s); break;
-    case KIND_DELTA8: err = launch_map<KIND_DELTA8>(p, grid, smem, s); break;
+    case KIND_RAW: err = launch_map<KIND_RAW>(p, grid, s); break;
+    case KIND_QUANT16: err = launch_map<KIND_QUANT16>(p, grid, s); break;
+    case KIND_DELTA16: err = launch_map<KIND_DELTA16>(p, grid, s); break;
+    case KIND_DELTA8: err = launch_map<KIND_DELTA8>(p, grid, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

@@ -45,6 +45,7 @@ FN_CODES = {"rate": 0, "increase": 1, "delta": 2, "sum_over_time": 3,
 # K1's decode variants (enum Kind in csrc/fusedgrid.cu)
 KIND_CODES = {"raw": 0, "quant16": 1, "delta16": 2, "delta8": 3}
 K1_STEPS = 128             # steps per block (kSteps in the CUDA source)
+K1_TERMS = 6               # per-step time terms (kTerms in the CUDA source)
 
 
 def _roundup(x: int, m: int) -> int:
@@ -177,10 +178,31 @@ def _require(cond: bool, what: str) -> None:
         raise ValueError(f"fused_grid_kernel: {what}")
 
 
+def k1_smem_bytes(Ca: int, rt: int, G: int, nout: int,
+                  kind: str = "raw") -> int:
+    """Shared memory of one K1 block: the sum ``smem_bytes`` in
+    csrc/fusedgrid.cu computes, term for term (keep the two alike) — the
+    f32 tile buffers [nbuf, rt, Ca] (two for raw's double buffer, one for
+    the decode variants), contributions and presence [rt, 128] each, the
+    accumulator [nout, G, 128], the steps' 6 time terms [6, 128]; and i32
+    n and gid [2, rt] each, two non-finite counts [rt] each, lo / hi / rel /
+    the live-step list [128] each, 4 warp counts."""
+    nbuf = 2 if kind == "raw" else 1
+    return (4 * (nbuf * rt * Ca + 2 * rt * K1_STEPS + nout * G * K1_STEPS
+                 + K1_TERMS * K1_STEPS)
+            + 4 * (6 * rt + 4 * K1_STEPS + 4))
+
+
 def k1_launch_shape(S: int, Ca: int, Tp: int, G: int, nout: int):
     """(rows staged per tile, rows per block, row chunks) of one K1 launch:
-    about 1024 blocks in all, scratch partials held under 64 MB."""
-    rt = max(1, min(64, 8192 // Ca))
+    about 1024 blocks in all, scratch partials held under 64 MB. A tile is
+    about 4096 cells (5 rows at bench.py's 768 columns), at most 32 rows:
+    two raw tile buffers, the [rt, 128] contribution arrays and a G = 8
+    accumulator then leave room for four blocks on an SM, and 5 rows x 47
+    live steps fill the block's 256 threads about once. The tile does not
+    depend on the decode variant, so a narrow block and its decode fold in
+    the same chunks (bit for bit the same partials)."""
+    rt = max(1, min(32, 4096 // Ca))
     by = Tp // K1_STEPS
     nchunks = min(-(-S // rt), max(1, 1024 // by),
                   max(1, (64 << 20) // (nout * G * Tp * 4)))
