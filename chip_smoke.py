@@ -89,7 +89,13 @@ Phases, in order; every check asserts and any failure exits non-zero:
                garbage dd and non-finite first_d (counts bit for bit, sums
                within rtol 1e-5); then one row per group, where every output
                must match bit for bit; then a shape outside the gate must be
-               refused.
+               refused. Then the shapes K2's launch design makes risky
+               (phase_k2_shapes): row strides that are not a multiple of
+               16 (C = 127, B = 11 i8; C = 129, B = 7 i16; C = 129, B = 12
+               i8), C = 1024 with every cell needed, G = 64 at Tp * B =
+               4096 (the accumulator in scratch), S = 504, a chunk whose
+               rows are all excluded, a query with no active step; and
+               one row per group, bit for bit, at the unaligned strides.
   6. hist small — 1024 histograms (B = 16) x 100 samples through real
                ingest and flush into CUDA and CPU stores, residency "off"
                and "all" (an eighth of the series non-integer or reset: the
@@ -103,7 +109,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
                + cohort pool; histogram_quantile(0.9, sum(rate(h[5m]))) over
                39 steps through the engine. Prints the engine p50, K2's time
                (CUDA events) and its fold's, the plain time, K2's bound,
-               launches per query, max |K2 - plain| and resident bytes.
+               its launch shape (blocks, rows a pass, stages, shared
+               memory, dd bytes in flight per SM), launches per query,
+               max |K2 - plain| and resident bytes.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -114,6 +122,15 @@ prints no result (1 where torch itself is missing).
 
 instead builds phase 7's store and profiles its query (torch.profiler and
 cProfile, tables also written to chiprun_out/); it prints no result line.
+
+    python3 chip_smoke.py --k2-parts OUT [--root DIR]
+    python3 chip_smoke.py --k2-compare A B [...]
+
+compare two checkouts' K2 on one card: --k2-parts builds phase 7's store
+with the package in DIR (default: beside this script), prints the engine's
+single-query p50 and K2's time by CUDA events, and saves K2's partials at
+phase 7's query to OUT; --k2-compare says whether saved partials are equal
+bit for bit. Neither prints a result line.
 """
 
 import gc
@@ -123,11 +140,14 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-if not os.path.isdir(os.path.join(HERE, "filodb_tpu_torch")):
-    print("chip_smoke: filodb_tpu_torch/ is not beside this script",
+# --root DIR (with --k2-parts only): the package of another checkout
+ROOT = (os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
+        if "--root" in sys.argv[1:-1] else HERE)
+if not os.path.isdir(os.path.join(ROOT, "filodb_tpu_torch")):
+    print(f"chip_smoke: filodb_tpu_torch/ is not in {ROOT}",
           file=sys.stderr)
     sys.exit(2)
-sys.path.insert(0, HERE)
+sys.path.insert(0, ROOT)
 
 # bench.py's north-star shape, as the port's bench holds it
 from filodb_tpu_torch.bench import (  # noqa: E402
@@ -1267,16 +1287,17 @@ def hist_operands_dev(torch, narrow, S, C, B, dtype, gids, seed, dev):
     return dd.contiguous(), first_d.contiguous(), n
 
 
-def k2_vs_plain(fr, fn, dd, first_d, n, gids, ops, G, exact: bool, what):
+def k2_vs_plain(fr, fn, dd, first_d, n, gids, ops, G, exact: bool, what,
+                window_ms=WINDOW_MS):
     """K2 against its plain twin on the same card tensors: counts bit for
     bit; sums bit for bit when ``exact`` (one row per group: no fold
     rounds), else within rtol 1e-5 of the largest magnitude. Returns the
     max |diff|."""
     import numpy as np
     got = [t.cpu().numpy() for t in fr.fused_hist_kernel(
-        fn, WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids, ops, G)]
+        fn, window_ms, INTERVAL_MS, dd, first_d, n, gids, ops, G)]
     ref = [t.cpu().numpy() for t in fr.fused_hist_map_plain(
-        fn, WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids, ops.band, ops.plo,
+        fn, window_ms, INTERVAL_MS, dd, first_d, n, gids, ops.band, ops.plo,
         ops.lo, ops.hi, ops.rel, G)]
     assert np.isfinite(got[0]).all() and np.isfinite(ref[0]).all(), what
     assert np.array_equal(got[1], ref[1]), (what, "counts differ")
@@ -1352,6 +1373,83 @@ def phase_hist_kernels(torch, np, fr, narrow, dev):
     except ValueError:
         pass
     assert fr.fused_hist_kernel.launches == before
+    torch.cuda.synchronize()
+    return checks, exact, worst
+
+
+def k2_shape_cases(np):
+    """(what, S, C, B, dtype, G, out_ts, window_ms) of the shapes K2's
+    launch design makes risky: row strides that are not a multiple of 16
+    (the covering span; one element a cell where B * elt % 4 != 0, 4-byte
+    words at 4-byte but not 16-byte aligned rows), C = 1024 with every
+    cell needed (1024 steps of B = 4: four step tiles, the accumulator in
+    scratch), G = 64 at Tp * B = 4096 (the accumulator in scratch), S =
+    504, and a query with no active step (t1 = t0: only the fold runs)."""
+    iv = INTERVAL_MS
+
+    def full(C, step=30_000):
+        return np.arange(-50_000, (C - 1) * iv + 1, step, dtype=np.int64)
+    return [
+        ("stride 1397 B", 4096, 127, 11, "i8", 8, full(127), WINDOW_MS),
+        ("stride 1806 B", 4096, 129, 7, "i16", 8, full(129), WINDOW_MS),
+        ("stride 1548 B", 4096, 129, 12, "i8", 64, full(129), WINDOW_MS),
+        ("C=1024, K=1024", 4096, 1024, 4, "i16", 8,
+         np.arange(0, 1024 * iv, iv, dtype=np.int64), WINDOW_MS),
+        ("G=64, Tp*B=4096", 65536, 320, 32, "i8", 64,
+         np.arange(0, 128 * 20_000, 20_000, dtype=np.int64), WINDOW_MS),
+        ("S=504", 504, 320, 32, "i8", 8, full(320, 60_000), WINDOW_MS),
+        ("no active step", 4096, 128, 32, "i8", 8,
+         np.arange(-400_000, -50_000, 30_000, dtype=np.int64), 30_000),
+    ]
+
+
+def phase_k2_shapes(torch, np, fr, narrow, dev):
+    """K2 against its plain twin on k2_shape_cases, x fn; then a chunk
+    whose rows are all excluded; then bit for bit with one row per group at
+    the two unaligned strides. Returns (checks, exact, max |diff|)."""
+    worst, checks, exact = 0.0, 0, 0
+    for i, (what, S, C, B, dtype, G, out_ts, window) in enumerate(
+            k2_shape_cases(np)):
+        gids = torch.randint(0, G, (S,), device=dev, dtype=torch.int32,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(400 + i))
+        dd, first_d, n = hist_operands_dev(torch, narrow, S, C, B, dtype,
+                                           gids, 400 + i, dev)
+        if what == "no active step":
+            # the first chunks' rows all excluded, too
+            gids[:2048] = EXCLUDED_GID
+        Tp = -(-len(out_ts) // 128) * 128
+        ops = fr.hist_device_operands(C, Tp, out_ts.tobytes(), window, 0,
+                                      INTERVAL_MS, dev)
+        for fn in HIST_FNS:
+            worst = max(worst, k2_vs_plain(
+                fr, fn, dd, first_d, n, gids, ops, G, False,
+                f"{what} {fn}", window_ms=window))
+            checks += 1
+        if what == "stride 1397 B":
+            # a chunk whose rows are all excluded, beside live chunks
+            shape = fr.k2_launch_shape(S, B, 1, G, ops.cmax,
+                                       ops.kseg.numel(), ops.nsegs,
+                                       ops.nsteps)
+            assert shape.nchunks > 2, shape
+            gx = gids.clone()
+            gx[shape.rows_per_block:2 * shape.rows_per_block] = EXCLUDED_GID
+            worst = max(worst, k2_vs_plain(
+                fr, "rate", dd, first_d, n, gx, ops, G, False,
+                f"{what} excluded chunk"))
+            checks += 1
+    for C, B, dtype in ((127, 11, "i8"), (129, 7, "i16"), (129, 12, "i8")):
+        gids = torch.arange(64, device=dev, dtype=torch.int32)
+        dd, first_d, n = hist_operands_dev(torch, narrow, 64, C, B, dtype,
+                                           gids, 500 + C, dev)
+        out_ts = np.arange(-50_000, (C - 1) * INTERVAL_MS + 1, 30_000,
+                           dtype=np.int64)
+        ops = fr.hist_device_operands(C, 128, out_ts.tobytes(), WINDOW_MS, 0,
+                                      INTERVAL_MS, dev)
+        for fn in HIST_FNS:
+            k2_vs_plain(fr, fn, dd, first_d, n, gids, ops, 64, True,
+                        f"exact C={C} B={B} {dtype} {fn}")
+            exact += 1
     torch.cuda.synchronize()
     return checks, exact, worst
 
@@ -1493,10 +1591,60 @@ def build_hist_scale(torch, np, pkg, dev):
             raw_bytes)
 
 
-def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
+HIST_START = BASE_TS + 600_000
+HIST_END = BASE_TS + (HIST_SAMPLES - 10) * INTERVAL_MS
+
+
+def hist_scale_queries(torch, fr, engine):
+    """Phase 7's query through the engine: two to load and warm, then 11
+    timed by the host clock with K2's count set to 0 just before and read
+    just after (one launch each). Returns (p50 ms, last result, the 11
+    latencies, launches)."""
+    import numpy as np
+    for _ in range(2):                                 # load + warm
+        engine.query_range(HIST_QUERY, HIST_START, HIST_END, HIST_STEP_MS)
+    torch.cuda.synchronize()
+    # the main path: counts from 0, read right after
+    fr.fused_hist_kernel.launches = 0
+    lat, r = [], None
+    for _ in range(11):
+        t0 = time.perf_counter()
+        r = engine.query_range(HIST_QUERY, HIST_START, HIST_END,
+                               HIST_STEP_MS)
+        lat.append((time.perf_counter() - t0) * 1000)
+    launches = fr.fused_hist_kernel.launches
+    assert launches == 11, launches
+    return float(np.percentile(lat, 50)), r, lat, launches
+
+
+def hist_scale_operands(torch, np, fr, engine, shard):
+    """K2's operands at phase 7's query, from the engine's own selection:
+    (data, dd, first_d, n, gids, gids on the card, pool correction, ops,
+    padded steps, true step count)."""
+    from filodb_tpu_torch.core.filters import Equals
     from filodb_tpu_torch.query import engine as qe
     from filodb_tpu_torch.query.exec import SelectRawPartitionsExec, _pad_steps
-    from filodb_tpu_torch.core.filters import Equals
+    out_ts = np.arange(HIST_START, HIST_END + 1, HIST_STEP_MS, dtype=np.int64)
+    leaf = SelectRawPartitionsExec(
+        shard=0, filters=(Equals("_metric_", "req_latency"),),
+        start_ms=HIST_START - WINDOW_MS, end_ms=HIST_END)
+    ctx = engine._ctx()
+    with shard.lock:
+        data = leaf.do_execute(ctx)
+    dd, first_d, bad = data.hist_narrow
+    S, C, _B = dd.shape
+    out_eval, T = _pad_steps(out_ts)
+    gids, corr = qe.pool_correction(data, np.zeros(S, np.int32), bad, 8,
+                                    "rate", out_eval, WINDOW_MS)
+    gids_t = torch.from_numpy(gids).to(dd.device)
+    Tp = -(-len(out_eval) // 128) * 128
+    ops = fr.hist_device_operands(C, Tp, out_eval.tobytes(), WINDOW_MS,
+                                  BASE_TS, INTERVAL_MS, dd.device)
+    return (data, dd, first_d, data.n.contiguous(), gids, gids_t, corr, ops,
+            out_eval, T)
+
+
+def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
     engine, shard, reg_s, comp_s, raw_bytes = build_hist_scale(
         torch, np, pkg, dev)
     st = shard.store
@@ -1506,23 +1654,10 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
         f"{raw_bytes / 1e9:.3f} GB raw -> {res_bytes / 1e9:.3f} GB "
         f"({raw_bytes / res_bytes:.2f}x), dd int8 + {HIST_SERIES // 16} "
         "pool rows")
-    start = BASE_TS + 600_000
-    end = BASE_TS + (HIST_SAMPLES - 10) * INTERVAL_MS
-    for _ in range(2):                                 # load + warm
-        engine.query_range(HIST_QUERY, start, end, HIST_STEP_MS)
-    torch.cuda.synchronize()
-    # the main path: counts from 0, read right after
-    fr.fused_hist_kernel.launches = 0
-    lat, r = [], None
-    for _ in range(11):
-        t0 = time.perf_counter()
-        r = engine.query_range(HIST_QUERY, start, end, HIST_STEP_MS)
-        lat.append((time.perf_counter() - t0) * 1000)
-    launches = fr.fused_hist_kernel.launches
-    assert launches == 11, launches
+    start, end = HIST_START, HIST_END
+    p50, r, lat, launches = hist_scale_queries(torch, fr, engine)
     assert r.exec_path == ("fused-hist-narrow[cuda]" if dev == "cuda"
                            else "fused-hist-narrow[plain]"), r.exec_path
-    p50 = float(np.percentile(lat, 50))
     vals = np.asarray(r.matrix.values)
     out_ts = np.arange(start, end + 1, HIST_STEP_MS, dtype=np.int64)
     assert vals.shape == (1, len(out_ts)) and np.isfinite(vals).all(), \
@@ -1530,22 +1665,10 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
 
     # the same selection as the engine's, then K2 against its plain twin
     # and the engine's quantiles against the twin's
-    leaf = SelectRawPartitionsExec(
-        shard=0, filters=(Equals("_metric_", "req_latency"),),
-        start_ms=start - WINDOW_MS, end_ms=end)
-    ctx = engine._ctx()
-    with shard.lock:
-        data = leaf.do_execute(ctx)
-    dd, first_d, bad = data.hist_narrow
+    data, dd, first_d, n, gids, gids_t, corr, ops, out_eval, T = \
+        hist_scale_operands(torch, np, fr, engine, shard)
     S, C, B = dd.shape
-    out_eval, T = _pad_steps(out_ts)
-    gids, corr = qe.pool_correction(data, np.zeros(S, np.int32), bad, 8,
-                                    "rate", out_eval, WINDOW_MS)
-    gids_t = torch.from_numpy(gids).to(dd.device)
-    Tp = -(-len(out_eval) // 128) * 128
-    ops = fr.hist_device_operands(C, Tp, out_eval.tobytes(), WINDOW_MS,
-                                  BASE_TS, INTERVAL_MS, dd.device)
-    n = data.n.contiguous()
+    Tp = ops.lo.numel()
     worst = k2_vs_plain(fr, "rate", dd, first_d, n, gids_t, ops, 8, False,
                         "hist scale")
     ps, pc = fr.fused_hist_map_plain("rate", WINDOW_MS, INTERVAL_MS, dd,
@@ -1560,7 +1683,9 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
     k_ms = cuda_ms(lambda: fr.fused_hist_kernel(
         "rate", WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids_t, ops, 8),
         reps=20)
-    fold_ms = k2_fold_ms(torch, fr, S, B, Tp, 8, ops, dd.device)
+    shape = fr.k2_launch_shape(S, B, dd.element_size(), 8, ops.cmax,
+                               ops.kseg.numel(), ops.nsegs, ops.nsteps)
+    fold_ms = k2_fold_ms(torch, fr, shape, B, Tp, 8, ops, dd.device)
     p_ms = cuda_ms(lambda: fr.fused_hist_map_plain(
         "rate", WINDOW_MS, INTERVAL_MS, dd, first_d, n, gids_t, ops.band,
         ops.plo, ops.lo, ops.hi, ops.rel, 8), reps=3, warm=1)
@@ -1570,8 +1695,10 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
     # (row, step, bucket) of a window with >= 2 samples, B adds per cell
     key, bw, f32 = peaks_for(card)
     live = int(((gids < 8) & (data.n.cpu().numpy() >= 2)).sum())
-    cmax = int(ops.cells.max())
-    lo_h, hi_h = ops.lo.cpu().numpy()[0], ops.hi.cpu().numpy()[0]
+    cmax = ops.cmax
+    # the distinct steps (the engine's padding repeats the last one)
+    us = ops.usteps.cpu().numpy()
+    lo_h, hi_h = ops.lo.cpu().numpy()[0][us], ops.hi.cpu().numpy()[0][us]
     steps2 = int(((np.minimum(hi_h, HIST_SAMPLES - 1)
                    - np.maximum(lo_h, 0) + 1) >= 2).sum())
     nbytes = (live * ((cmax + 1) * B * dd.element_size() + B * 4)
@@ -1588,6 +1715,16 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
         f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB at {key}'s "
         f"{bw / 1e12:.2f} TB/s, {flops / 1e9:.2f} GFLOP at "
         f"{f32 / 1e12:.0f} TFLOP/s f32)")
+    # the launch: one block an SM (its shared memory), a pass of rows in
+    # flight while the block works on the one before
+    span = (cmax + 1) * B * dd.element_size()
+    log(f"hist scale [{card}]: K2 launch shape {shape.nchunks} blocks of "
+        f"{fr.K2_THREADS} threads x {shape.rows_per_block} rows, "
+        f"{shape.rows_pass} rows a pass, 2 stages, {shape.smem} B shared "
+        f"memory (accumulator {'shared' if shape.acc_shared else 'in scratch'}"
+        f"), {shape.rows_pass * span} dd bytes in flight per SM while a pass "
+        f"works; {ops.kseg.numel()} needed cells in {ops.nsegs} segments, "
+        f"{ops.nsteps} distinct of {int((ops.ucol >= 0).sum())} active steps")
     log(f"hist scale [{card}]: library call: none (no single PyTorch call "
         f"computes this function); launches per query {launches / 11:.2f}; "
         f"K2 vs plain max |diff| {worst:.3g}")
@@ -1595,19 +1732,18 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def k2_fold_ms(torch, fr, S, B, Tp, G, ops, dev):
+def k2_fold_ms(torch, fr, shape, B, Tp, G, ops, dev):
     """Device ms of K2's second pass alone, on a scratch of the shape K2's
     launch at these operands uses."""
-    _rp, _rpb, nchunks, _ts, _nt = fr.k2_launch_shape(
-        S, B, Tp, G, ops.cells.numel(), ops.t0, ops.t1)
-    scratch = torch.zeros((nchunks, 2, G, Tp * B), device=dev)
+    scratch = torch.zeros((shape.nchunks, 2, G, ops.nsteps * B), device=dev)
     out = torch.empty((2, G, Tp * B), device=dev)
     lib = fr._k2_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def fold():
         assert lib.fusedhist_fold(scratch.data_ptr(), out.data_ptr(),
-                                  nchunks, 2 * G * Tp * B, stream) == 0
+                                  shape.nchunks, 2 * G, B, Tp, ops.nsteps,
+                                  ops.ucol.data_ptr(), stream) == 0
     return cuda_ms(fold, reps=50)
 
 
@@ -1676,6 +1812,41 @@ def profile_hist(torch, np, fr, card, pkg, queries: int = 5) -> None:
         f.write(f"card: {card}\n{table}\n{buf.getvalue()}")
 
 
+def k2_parts(torch, np, fr, card, pkg, out_path: str, dev="cuda") -> None:
+    """Phase 7's store and query with the package at ROOT: the engine's
+    single-query p50, K2's time by CUDA events (with the scratch zeroing
+    and the fold, as a caller pays them), and K2's partials saved to
+    ``out_path``."""
+    engine, shard, _reg, _comp, _raw = build_hist_scale(torch, np, pkg, dev)
+    p50, _r, lat, _launches = hist_scale_queries(torch, fr, engine)
+    _data, dd, first_d, n, _g, gids_t, _corr, ops, _oe, _T = \
+        hist_scale_operands(torch, np, fr, engine, shard)
+
+    def k2():
+        return fr.fused_hist_kernel("rate", WINDOW_MS, INTERVAL_MS, dd,
+                                    first_d, n, gids_t, ops, 8)
+    psum, pcnt = k2()
+    k_ms = cuda_ms(k2, reps=20)
+    torch.save({"sum": psum.cpu(), "count": pcnt.cpu()}, out_path)
+    log(f"k2 parts [{card}] {ROOT}: K2 {k_ms:.4f} ms by CUDA events; engine "
+        f"single-query p50 {p50:.3f} ms (min {min(lat):.3f}); partials "
+        f"saved to {out_path}")
+
+
+def k2_compare(torch, paths) -> bool:
+    """Whether every saved K2 partial equals the first's bit for bit."""
+    ref = torch.load(paths[0])
+    same = True
+    for p in paths[1:]:
+        got = torch.load(p)
+        for k in ("sum", "count"):
+            eq = bool(torch.equal(got[k].view(torch.int32),
+                                  ref[k].view(torch.int32)))
+            log(f"k2 compare: {p} {k} bit for bit as {paths[0]}: {eq}")
+            same = same and eq
+    return same
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1704,6 +1875,12 @@ def main() -> int:
         kernels.build()
         profile_hist(torch, np, fr, card, hpkg)
         return 0
+    if sys.argv[1:2] == ["--k2-parts"]:
+        kernels.build(("fusedhist",))
+        k2_parts(torch, np, fr, card, hpkg, sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--k2-compare"]:
+        return 0 if k2_compare(torch, sys.argv[2:]) else 1
     log(f"build: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
@@ -1789,6 +1966,15 @@ def main() -> int:
     log(f"hist kernels: fusedhist_k2 ({checks} checks against the plain "
         f"twin, max |diff| {worst5:.3g}; {exact} bit-exact checks with one "
         f"row per group; {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    checks, exact, worst5s = phase_k2_shapes(torch, np, fr, narrow, "cuda")
+    log(f"hist kernels: fusedhist_k2 launch shapes ({checks} checks against "
+        f"the plain twin at unaligned row strides, C = 1024 with every cell "
+        f"needed, G = 64 at Tp * B = 4096, S = 504, an all-excluded chunk, "
+        f"no active step; max |diff| {worst5s:.3g}; {exact} bit-exact checks "
+        f"with one row per group at unaligned strides; "
+        f"{time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     small = phase_hist_small(torch, np, fr, hpkg)

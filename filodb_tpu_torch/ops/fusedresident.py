@@ -262,19 +262,62 @@ def k2_cell_tables(C: int, lo: np.ndarray, hi: np.ndarray):
     return cells.astype(np.int32), slots, t0, t1
 
 
+K2_SEG_CELLS = 8                 # cells a prefix segment holds at most
+
+
+def k2_segments(cells: np.ndarray):
+    """K2's prefix segments from :func:`k2_cell_tables`' cells: the cells
+    [0, cells[-1]] cut into consecutive segments that end at every needed
+    cell and hold at most K2_SEG_CELLS cells each (so the kernel's per-
+    segment sums are balanced work items). Returns (bounds [J + 1] i32,
+    segment j holding cells [bounds[j], bounds[j + 1]); kseg [K] i32, the
+    segment that ends at cells[k])."""
+    bounds, kseg = [0], []
+    for c in np.asarray(cells, np.int64).ravel():
+        while bounds[-1] <= c:
+            bounds.append(min(bounds[-1] + K2_SEG_CELLS, int(c) + 1))
+        kseg.append(len(bounds) - 2)
+    return np.asarray(bounds, np.int32), np.asarray(kseg, np.int32)
+
+
+def k2_step_table(lo: np.ndarray, hi: np.ndarray, rel: np.ndarray):
+    """K2's distinct active steps from the padded [Tp] edges: a step whose
+    window holds data (hi >= 0) and whose (lo, hi, rel) no earlier step
+    repeats (the engine pads a query's steps by repeating its last one).
+    Returns (usteps [U] i32, those steps in order; ucol [Tp] i32, the index
+    in usteps of each step's first copy, -1 where hi < 0). A repeated step's
+    columns are its first copy's: the same additions in the same order."""
+    lo, hi, rel = (np.asarray(a, np.int64).ravel() for a in (lo, hi, rel))
+    first: dict = {}
+    usteps, ucol = [], np.full(len(lo), -1, np.int32)
+    for t in np.nonzero(hi >= 0)[0]:
+        key = (int(lo[t]), int(hi[t]), int(rel[t]))
+        if key not in first:
+            first[key] = len(usteps)
+            usteps.append(int(t))
+        ucol[t] = first[key]
+    return np.asarray(usteps, np.int32), ucol
+
+
 @dataclass(frozen=True)
 class HistOperands:
     """Device operands of one hist query shape: the plain twin's bands and
-    edges, and K2's cell tables (see :func:`k2_cell_tables`)."""
+    edges, and K2's cell tables (see :func:`k2_cell_tables`), prefix
+    segments (:func:`k2_segments`) and distinct steps
+    (:func:`k2_step_table`), with their sizes as host ints."""
     band: torch.Tensor
     plo: torch.Tensor
     lo: torch.Tensor
     hi: torch.Tensor
     rel: torch.Tensor
-    cells: torch.Tensor
     slots: torch.Tensor
-    t0: int
-    t1: int
+    kseg: torch.Tensor
+    bounds: torch.Tensor
+    usteps: torch.Tensor
+    ucol: torch.Tensor
+    cmax: int       # cells[-1]: the last cell K2 reads
+    nsegs: int      # J
+    nsteps: int     # U, the distinct active steps
 
 
 @functools.lru_cache(maxsize=32)
@@ -286,12 +329,16 @@ def hist_device_operands(C: int, Tp: int, out_ts_key: bytes, window_ms: int,
     out_ts = np.frombuffer(out_ts_key, np.int64)
     band, plo, lo, hi, rel = hist_operands(C, Tp, out_ts, window_ms, base_ts,
                                            interval_ms)
-    cells, slots, t0, t1 = k2_cell_tables(C, lo, hi)
+    cells, slots, _t0, _t1 = k2_cell_tables(C, lo, hi)
+    bounds, kseg = k2_segments(cells)
+    usteps, ucol = k2_step_table(lo, hi, rel)
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return HistOperands(dev(band), dev(plo), dev(lo), dev(hi), dev(rel),
-                        dev(cells), dev(slots), t0, t1)
+                        dev(slots), dev(kseg), dev(bounds), dev(usteps),
+                        dev(ucol), int(cells[-1]), len(bounds) - 1,
+                        len(usteps))
 
 
 @functools.lru_cache(maxsize=1)
@@ -302,12 +349,15 @@ def _k2_lib():
     lib.fusedhist_launch.argtypes = [
         p, i, i, i, i,                 # dd, dd_bytes, rows, C, B
         p, p, p,                       # first_d, n, gid
-        p, p, p, p, p, i, i, i,        # lo, hi, rel, cells, slots, ncells, t0, t1
+        p, p, p, p, p, p, p, p,        # lo, hi, rel, slots, kseg, bounds,
+                                       # usteps, ucol
+        i, i, i, i,                    # ncells, nsegs, cmax, nsteps
         i, i, i, i, i, ctypes.c_float,  # tp, G, fn, window, interval, scale
-        i, i, i,                       # rows_per_block, rows_per_pass, tile_steps
+        i, i, i, i,                    # rows_per_block, rows_pass, tile_steps,
+                                       # acc_shared
         p, i, p, p]                    # scratch, nchunks, out, stream
     lib.fusedhist_fold.restype = i
-    lib.fusedhist_fold.argtypes = [p, p, i, i, p]
+    lib.fusedhist_fold.argtypes = [p, p, i, i, i, i, i, p, p]
     lib.fusedhist_error_string.restype = ctypes.c_char_p
     lib.fusedhist_error_string.argtypes = [i]
     return lib
@@ -319,26 +369,85 @@ def _require(cond: bool, what: str) -> None:
 
 
 K2_THREADS = 256                 # threads per block (kThreads in fusedhist.cu)
-K2_ACC_BYTES = 64 << 10          # shared accumulator budget per block
-K2_PREFIX_BYTES = 96 << 10       # shared 2D-prefix budget per block
-K2_SCRATCH_BYTES = 64 << 20      # per-block partials held under this
+K2_COLS = 8                      # columns a thread owns per step tile (kCols)
+K2_CHUNKS = 256                  # row chunks (blocks) a launch aims at
+K2_STAGE_BYTES = 32 << 10        # dd bytes a pass stages, at least
+K2_MAX_ROWS = 16                 # rows a pass stages, at most
+K2_PAIR_BYTES = 115_200          # shared memory that leaves two blocks an SM
+K2_TERMS_BYTES = 24 << 10        # shared time-term budget per block
+K2_SMEM_LIMIT = 232_448          # shared memory an H100 block may opt into
+K2_SCRATCH_BYTES = 64 << 20      # per-chunk partials held under this
 
 
-def k2_launch_shape(S: int, B: int, Tp: int, G: int, ncells: int,
-                    t0: int, t1: int):
-    """(rows per pass, rows per block, row chunks, steps per tile, tiles) of
-    one K2 launch: a block stages ``rows per pass`` rows' prefixes at a
-    time and accumulates a [2, G, steps per tile * B] tile in shared
-    memory; about 1024 blocks in all, scratch under 64 MB."""
-    rows_pass = max(1, min(K2_THREADS // B,
-                           K2_PREFIX_BYTES // (ncells * B * 4)))
-    tile_steps = max(1, min(max(t1 - t0, 1), K2_ACC_BYTES // (8 * G * B)))
-    ntiles = max(1, -(-(t1 - t0) // tile_steps))
-    nchunks = min(-(-S // rows_pass), max(1, 1024 // ntiles),
-                  max(1, K2_SCRATCH_BYTES // (2 * G * Tp * B * 4)))
-    nchunks = max(1, nchunks)
+def k2_smem_bytes(B: int, elt: int, cmax: int, G: int, nsteps: int,
+                  ncells: int, nsegs: int, rows_pass: int, tile_steps: int,
+                  acc_shared: bool) -> int:
+    """Shared memory of one K2 block: the sum ``layout`` in
+    csrc/fusedhist.cu computes, term for term (keep the two alike) — the
+    accumulator [2, G, nsteps * B] f32 when shared (rounded up to 16
+    bytes); two stages of ``rows_pass`` slots, each the 16-byte-aligned
+    span covering a row's cells [0, cmax] plus its first_d; the time terms
+    [rows_pass, tile_steps] float4; the prefixes [rows_pass, J, B + 1] u32; F
+    [rows_pass, B] f32; the terms' ok flags [rows_pass, tile_steps]; the n /
+    gid ring [3, 2, rows_pass]; kseg [K] and bounds [J + 1]."""
+    span = _roundup((cmax + 1) * B * elt + 15, 16)
+    slot = span + _roundup(4 * B, 16)
+    acc = _roundup(8 * G * nsteps * B, 16) if acc_shared else 0
+    return (acc + 2 * rows_pass * slot + 16 * rows_pass * tile_steps
+            + 4 * rows_pass * nsegs * (B + 1) + 4 * rows_pass * B
+            + 4 * rows_pass * tile_steps + 4 * 6 * rows_pass
+            + 4 * ncells + 4 * (nsegs + 1))
+
+
+@dataclass(frozen=True)
+class K2Shape:
+    """One K2 launch: ``nchunks`` blocks of ``rows_per_block`` rows (one
+    block per chunk: every step in one block, so dd is read once), staged
+    ``rows_pass`` rows a pass, time terms ``tile_steps`` steps at a time,
+    the accumulator in shared memory or in scratch, ``smem`` bytes."""
+    rows_pass: int
+    rows_per_block: int
+    nchunks: int
+    tile_steps: int
+    acc_shared: bool
+    smem: int
+
+
+def k2_launch_shape(S: int, B: int, elt: int, G: int, cmax: int,
+                    ncells: int, nsegs: int, nsteps: int) -> K2Shape:
+    """K2's launch shape for ``nsteps`` distinct active steps. A pass
+    stages at least K2_STAGE_BYTES of dd (so the next pass's copies keep
+    that much in flight while this one works), at most K2_MAX_ROWS rows; a
+    step tile holds at most K2_THREADS * K2_COLS columns and K2_TERMS_BYTES
+    of time terms. The accumulator goes to shared memory only where the
+    block still leaves room for a second one on its SM (K2_PAIR_BYTES):
+    two blocks overlap one's barrier-bound phases with the other's work,
+    and a column's current group sits in registers, so the scratch slice
+    is touched only when a row's group differs from the last. K2_CHUNKS
+    chunks (one wave at two blocks an SM), fewer for small S or where the
+    partials would pass 64 MB."""
+    slot = _roundup((cmax + 1) * B * elt + 15, 16) + _roundup(4 * B, 16)
+    want = max(1, min(K2_MAX_ROWS, -(-K2_STAGE_BYTES // slot)))
+
+    def fit(acc_shared, rp):
+        ts = max(1, min(max(nsteps, 1), K2_THREADS * K2_COLS // B,
+                        K2_TERMS_BYTES // (20 * rp)))
+        return ts, k2_smem_bytes(B, elt, cmax, G, nsteps, ncells, nsegs, rp,
+                                 ts, acc_shared)
+    for acc_shared, rp, limit in [(True, want, K2_PAIR_BYTES)] + [
+            (False, rp, K2_SMEM_LIMIT) for rp in range(want, 0, -1)]:
+        ts, smem = fit(acc_shared, rp)
+        if smem <= limit:
+            break
+    else:
+        raise ValueError(f"fused_hist_kernel: no launch shape fits B={B} "
+                         f"cmax={cmax} G={G} steps={nsteps}")
+    per_chunk = 8 * G * max(nsteps * B, 1)
+    nchunks = max(1, min(-(-S // rp), K2_CHUNKS,
+                         K2_SCRATCH_BYTES // per_chunk))
     rows_per_block = -(-S // nchunks)
-    return rows_pass, rows_per_block, -(-S // rows_per_block), tile_steps, ntiles
+    return K2Shape(rp, rows_per_block, -(-S // rows_per_block), ts,
+                   acc_shared, smem)
 
 
 def fused_hist_kernel(fn: str, window_ms: int, interval_ms: int, dd, first_d,
@@ -353,12 +462,14 @@ def fused_hist_kernel(fn: str, window_ms: int, interval_ms: int, dd, first_d,
 
     C interface (``fusedhist_launch`` in csrc/fusedhist.cu), in order: dd,
     dd_bytes (1 or 2), rows (S), C, B; first_d, n, gid; lo, hi, rel ([Tp]
-    i32), cells ([K] i32), slots ([3, Tp] i32), ncells (K), t0, t1 (active
-    steps); tp, groups, fn (K2_FN_CODES), window_ms, interval_ms,
-    rate_scale (f32 of 1000.0 / window_ms); rows_per_block, rows_per_pass,
-    tile_steps (the launch shape); scratch ([nchunks, 2, G, Tp*B] f32,
-    zeroed), nchunks, out ([2, G, Tp*B] f32), stream. It returns
-    cudaGetLastError() after each of its two launches."""
+    i32), slots ([3, Tp] i32), kseg ([K] i32), bounds ([J + 1] i32), usteps
+    ([U] i32), ucol ([Tp] i32); ncells (K), nsegs (J), cmax, nsteps (U);
+    tp, groups, fn
+    (K2_FN_CODES), window_ms, interval_ms, rate_scale (f32 of 1000.0 /
+    window_ms); rows_per_block, rows_pass, tile_steps, acc_shared (the
+    launch shape); scratch ([nchunks, 2, G, U * B] f32), nchunks,
+    out ([2, G, Tp*B] f32), stream. It launches the map (when a step is
+    active) and the fold, and returns cudaGetLastError() after each."""
     _require(fn in K2_FN_CODES, f"unknown fn {fn!r}")
     _require(dd.is_cuda, "dd must be a CUDA tensor")
     _require(dd.dtype in (torch.int8, torch.int16),
@@ -379,16 +490,22 @@ def fused_hist_kernel(fn: str, window_ms: int, interval_ms: int, dd, first_d,
                  and t.is_contiguous() and t.numel() == S,
                  f"{name} must be contiguous int32 [{S}] on {dev}")
     for name, t in (("lo", ops.lo), ("hi", ops.hi), ("rel", ops.rel),
-                    ("cells", ops.cells), ("slots", ops.slots)):
+                    ("slots", ops.slots), ("kseg", ops.kseg),
+                    ("bounds", ops.bounds), ("usteps", ops.usteps),
+                    ("ucol", ops.ucol)):
         _require(t.device == dev and t.dtype == torch.int32
                  and t.is_contiguous(), f"{name} must be int32 on {dev}")
-    ncells = ops.cells.numel()
-    _require(ops.slots.numel() == 3 * Tp and 1 <= ncells <= C,
+    ncells = ops.kseg.numel()
+    _require(ops.slots.numel() == 3 * Tp and 1 <= ncells <= C
+             and ops.kseg.numel() == ncells
+             and ops.bounds.numel() == ops.nsegs + 1 and ops.cmax < C
+             and ops.usteps.numel() == ops.nsteps and ops.ucol.numel() == Tp,
              "cell tables do not match the edges")
-    rows_pass, rows_per_block, nchunks, tile_steps, ntiles = k2_launch_shape(
-        S, B, Tp, G, ncells, ops.t0, ops.t1)
-    scratch = torch.zeros((nchunks, 2, G, Tp * B), dtype=torch.float32,
-                          device=dev)
+    shape = k2_launch_shape(S, B, dd.element_size(), G, ops.cmax, ncells,
+                            ops.nsegs, ops.nsteps)
+    ncols = ops.nsteps * B
+    scratch = torch.empty((shape.nchunks, 2, G, max(ncols, 1)),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((2, G, Tp * B), dtype=torch.float32, device=dev)
     rate_scale = float(np.float32(1000.0 / window_ms))
     lib = _k2_lib()
@@ -396,11 +513,13 @@ def fused_hist_kernel(fn: str, window_ms: int, interval_ms: int, dd, first_d,
         dd.data_ptr(), dd.element_size(), S, C, B,
         first_d.data_ptr(), n.data_ptr(), gids.data_ptr(),
         ops.lo.data_ptr(), ops.hi.data_ptr(), ops.rel.data_ptr(),
-        ops.cells.data_ptr(), ops.slots.data_ptr(), ncells, ops.t0, ops.t1,
+        ops.slots.data_ptr(), ops.kseg.data_ptr(), ops.bounds.data_ptr(),
+        ops.usteps.data_ptr(), ops.ucol.data_ptr(),
+        ncells, ops.nsegs, ops.cmax, ops.nsteps,
         Tp, G, K2_FN_CODES[fn], int(window_ms), int(interval_ms), rate_scale,
-        rows_per_block, rows_pass, tile_steps,
-        scratch.data_ptr(), nchunks, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        shape.rows_per_block, shape.rows_pass, shape.tile_steps,
+        int(shape.acc_shared), scratch.data_ptr(), shape.nchunks,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fusedhist kernel launch failed: CUDA error {err} "
                            f"({lib.fusedhist_error_string(err).decode()})")
