@@ -112,6 +112,30 @@ Phases, in order; every check asserts and any failure exits non-zero:
                its launch shape (blocks, rows a pass, stages, shared
                memory, dd bytes in flight per SM), launches per query,
                max |K2 - plain| and resident bytes.
+  8a. general small (run after phase 3) — 1024 counters, 256 integer
+               gauges and classic le buckets x 100 samples through real
+               ingest and flush into CUDA and CPU stores; the general mix
+               (every range function, the instant selector, scalar and
+               vector operators, and/or/unless, instant, sort, label and
+               scalar functions, histogram_quantile over le series, the
+               order statistics; query_range and query_instant) on the card
+               against the CPU engine: keys, NaN/Inf placement, values
+               (counts bit for bit, the rest rtol 1e-5), QueryStats and
+               route; K1's launches equal the fused routes QueryStats
+               counts, two for the ratio of sums.
+  8b. general scale (run after phase 4, on its engine and store) — S1-S7
+               over bench range variant 0 (47 steps): S1 a ratio of two
+               fused sum(rate) legs (K1 twice) against the quotient of the
+               legs; S2 topk(10, rate) against a stable top 10 of the grid
+               rate matrix; S3 quantile(0.99, rate) against torch.quantile
+               within the sketch's 1.96 %; S4 max(max_over_time) exactly and
+               S6 avg(irate) within 1e-9 against a plain windowed max and
+               irate written out over the grid-aligned store's cells (no
+               code of the engine); S5 count(rate > 0.5) exactly; S7 an instant
+               sum(m) at the last sample against the f64 sum of the rows'
+               last values (rtol 1e-4: the engine sums f32 as the reference
+               does). Prints each query's p50 over 3 runs and its K1
+               launches.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -594,25 +618,41 @@ def phase_quant16_scale(torch, np, narrow, dev):
         int(outs["cpu"][3].sum())
 
 
+def compare_result(np, q, g, r, exact: bool) -> None:
+    """One answer on the card against the CPU engine's: keys in order,
+    steps, shape, NaN and Inf placement, values (bit for bit where
+    ``exact``, else rtol 1e-5 of the largest finite magnitude) and the
+    QueryStats counters."""
+    assert [k.labels for k in g.matrix.keys] == \
+        [k.labels for k in r.matrix.keys], q
+    assert np.array_equal(g.matrix.out_ts, r.matrix.out_ts), q
+    gv = np.asarray(g.matrix.values, np.float64)
+    rv = np.asarray(r.matrix.values, np.float64)
+    assert gv.shape == rv.shape, (q, gv.shape, rv.shape)
+    assert (np.isnan(gv) == np.isnan(rv)).all(), (q, "NaN placement")
+    assert (np.isinf(gv) == np.isinf(rv)).all(), (q, "Inf placement")
+    if exact:
+        assert np.array_equal(gv, rv, equal_nan=True), (q, "not exact")
+    else:
+        fin = np.isfinite(rv)
+        scale = float(np.abs(rv[fin]).max(initial=0.0))
+        np.testing.assert_allclose(gv[fin], rv[fin], rtol=1e-5,
+                                   atol=1e-5 * scale, err_msg=q)
+        assert (gv[np.isinf(rv)] == rv[np.isinf(rv)]).all(), q
+    for k in ("fused_kernels", "blocks_narrow", "blocks_raw",
+              "series_matched"):
+        assert getattr(g.stats, k) == getattr(r.stats, k), (q, k)
+    assert g.exec_path == r.exec_path == "local", (q, g.exec_path)
+
+
 def compare_engines(np, got, ref_engine, queries, start, end, step):
-    """Each query's answer on the card against the CPU engine's: keys,
-    shape, NaN pattern, values at rtol 1e-5 of the largest magnitude, and
-    the same QueryStats counters."""
+    """Each query's answer on the card against the CPU engine's
+    (compare_result at rtol 1e-5), every value finite."""
     for q in queries:
-        r = ref_engine.query_range(q, start, end, step)
-        g = got[q]
-        assert [k.labels for k in g.matrix.keys] == \
-            [k.labels for k in r.matrix.keys], q
-        gv = np.asarray(g.matrix.values, np.float64)
-        rv = np.asarray(r.matrix.values, np.float64)
-        assert gv.shape == rv.shape and gv.shape[1] == len(r.matrix.out_ts), q
-        assert (np.isnan(gv) == np.isnan(rv)).all(), q
+        compare_result(np, q, got[q], ref_engine.query_range(q, start, end,
+                                                             step), False)
+        gv = np.asarray(got[q].matrix.values, np.float64)
         assert np.isfinite(gv[~np.isnan(gv)]).all(), q
-        scale = float(np.nanmax(np.abs(rv)))
-        np.testing.assert_allclose(gv, rv, rtol=1e-5, atol=1e-5 * scale,
-                                   equal_nan=True, err_msg=q)
-        for k in ("fused_kernels", "blocks_narrow", "blocks_raw"):
-            assert getattr(g.stats, k) == getattr(r.stats, k), (q, k)
 
 
 def ingest_small(RecordBuilder, GAUGE, shards, np):
@@ -1847,6 +1887,256 @@ def k2_compare(torch, paths) -> bool:
     return same
 
 
+# ---- phase 8: the general PromQL path --------------------------------------
+
+# phase 8a's mix: every range function and the instant selector, scalar and
+# vector operators, set operators, instant, sort, label and scalar
+# functions, classic le histogram quantiles, the order statistics
+GENERAL_QUERIES = (
+    "rate(m[5m])", "increase(m[5m])", "delta(m[5m])", "irate(m[5m])",
+    "idelta(m[5m])", "sum_over_time(m[5m])", "count_over_time(m[5m])",
+    "avg_over_time(m[5m])", "min_over_time(m[5m])", "max_over_time(m[5m])",
+    "stddev_over_time(m[5m])", "stdvar_over_time(m[5m])",
+    "last_over_time(m[5m])", "changes(g[5m])", "resets(m[5m])",
+    "deriv(m[5m])", "predict_linear(m[5m], 600)",
+    "quantile_over_time(0.9, m[5m])", "holt_winters(m[5m], 0.5, 0.1)",
+    "m", "g",
+    "rate(m[5m]) * 2", "2 / rate(m[5m])", "rate(m[5m]) % 0.3",
+    "rate(m[5m]) ^ 2", "-rate(m[5m])", "rate(m[5m]) > 0.5",
+    "rate(m[5m]) > bool 0.5", "g == 3", "g != bool 3",
+    "rate(m[5m]) * scalar(sum(g))", "time() - timestamp(m)",
+    "rate(m[5m]) / irate(m[5m])",
+    'sum(rate(m{host=~"h1.*"}[5m])) / sum(rate(m[5m]))',
+    "rate(m[5m]) / on(host) group_left sum by (host) (rate(m[5m]))",
+    "sum by (host) (g) * on(host) group_right rate(m[5m])",
+    "rate(m[5m]) and on(inst) (g > 3)", "m or g",
+    "rate(m[5m]) unless on(inst) (g > 2)",
+    "abs(delta(m[5m]))", "clamp_min(rate(m[5m]), 0.4)",
+    "round(rate(m[5m]), 0.1)", "hour(timestamp(m))", "absent(nope)",
+    "histogram_quantile(0.9, sum by (le) (rate(lat_bucket[5m])))",
+    "histogram_quantile(0.5, sum by (le, host) (rate(lat_bucket[5m])))",
+    'label_replace(rate(m[5m]), "hostnum", "$1", "host", "h(.*)")',
+    "sort_desc(rate(m[5m]))", "scalar(sum(g))", "vector(1)", "time()",
+    "topk(3, rate(m[5m]))", "topk(2, g)", "bottomk(3, g)",
+    "topk by (host) (2, rate(m[5m]))", "bottomk by (host) (1, g)",
+    "quantile(0.9, rate(m[5m]))", "quantile by (host) (0.5, g)",
+    'count_values("v", g)', 'count_values by (host) ("v", g)',
+    "count(rate(m[5m]) > 0.5)",
+)
+# answers that are counts or small integers: the card equals the CPU
+GENERAL_EXACT = {
+    "count_over_time(m[5m])", "changes(g[5m])", "resets(m[5m])", "g",
+    "g == 3", "g != bool 3", "topk(2, g)", "bottomk(3, g)",
+    "bottomk by (host) (1, g)", 'count_values("v", g)',
+    'count_values by (host) ("v", g)', "quantile by (host) (0.5, g)",
+    "scalar(sum(g))", "vector(1)", "time()", "absent(nope)"}
+GENERAL_INSTANT = ("m", "topk(2, g)", 'count_values("v", g)', "sum(m)")
+GENERAL_LES = ("0.1", "0.5", "1", "+Inf")
+
+
+def ingest_general(RecordBuilder, GAUGE, shards, np):
+    """Phase 8a's store through the real ingest path, 100 samples a series:
+    1024 counters ``m`` with resets (a sixteenth start 20 cells late: a
+    churned cohort), 256 small-integer gauges ``g`` (ties, repeated
+    values), classic histogram counters ``lat_bucket`` (8 hosts x 4 le)."""
+    rng = np.random.default_rng(6)
+    n_samples = 100
+
+    def ts_of(s):
+        late = 20 if s % 16 == 5 else 0
+        return BASE_TS + (late + np.arange(n_samples - late,
+                                           dtype=np.int64)) * INTERVAL_MS
+    b = RecordBuilder(GAUGE)
+    for s in range(1024):
+        ts = ts_of(s)
+        vals = np.cumsum(rng.exponential(5.0, len(ts)))
+        if s % 7 == 3:
+            vals[len(ts) // 2:] -= vals[len(ts) // 2] - 1.0   # counter reset
+        b.add_batch({"_metric_": "m", "host": f"h{s % 8}", "inst": f"i{s}"},
+                    ts, vals)
+    for s in range(256):
+        ts = ts_of(s)
+        b.add_batch({"_metric_": "g", "host": f"h{s % 8}", "inst": f"i{s}"},
+                    ts, rng.integers(0, 6, len(ts)).astype(np.float64))
+    for h in range(8):
+        ts = ts_of(h)
+        cum = np.cumsum(np.cumsum(rng.poisson(2.0, (len(ts), 4)), axis=1),
+                        axis=0).astype(np.float64)
+        for j, le in enumerate(GENERAL_LES):
+            b.add_batch({"_metric_": "lat_bucket", "host": f"h{h}", "le": le},
+                        ts, cum[:, j])
+    cont = b.build()
+    for sh in shards:
+        sh.ingest(cont)
+        sh.flush()
+
+
+def phase_general_small(torch, np, fg, pkg, devs=("cuda", "cpu")):
+    """Phase 8a: the general mix on the card against the CPU engine.
+    Returns (queries, K1 launches, fused routes)."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+    engines, shards = {}, []
+    for dev in devs:
+        ms = TimeSeriesMemStore(device=dev)
+        shards.append(ms.setup("p", GAUGE, 0, StoreConfig(
+            max_series_per_shard=2048, samples_per_series=128,
+            flush_batch_size=10**9, device=dev)))
+        engines[dev] = QueryEngine(ms, "p", device=dev)
+    ingest_general(RecordBuilder, GAUGE, shards, np)
+    kind, _ = shards[0].store.grid_cohorts()
+    assert kind == "mixed", kind
+    start, end, step = BASE_TS + 300_000, BASE_TS + 990_000, 30_000
+    t_inst = BASE_TS + 700_000
+    card, cpu = engines[devs[0]], engines[devs[1]]
+    # the main path: counts from 0, read right after
+    reset_k1(fg)
+    got = {q: card.query_range(q, start, end, step) for q in GENERAL_QUERIES}
+    got_i = {q: card.query_instant(q, t_inst) for q in GENERAL_INSTANT}
+    launches = fg.fused_grid_kernel.launches
+    fused = (sum(r.stats.fused_kernels for r in got.values())
+             + sum(r.stats.fused_kernels for r in got_i.values()))
+    assert launches == fused >= 5, (launches, fused)
+    for q in GENERAL_QUERIES:
+        compare_result(np, q, got[q], cpu.query_range(q, start, end, step),
+                       q in GENERAL_EXACT)
+    for q in GENERAL_INSTANT:
+        r = cpu.query_instant(q, t_inst)
+        assert got_i[q].result_type == r.result_type == "vector", q
+        compare_result(np, q, got_i[q], r, q != "sum(m)")
+    ratio = got['sum(rate(m{host=~"h1.*"}[5m])) / sum(rate(m[5m]))']
+    assert ratio.stats.fused_kernels == 2, ratio.stats.fused_kernels
+    return len(GENERAL_QUERIES) + len(GENERAL_INSTANT), launches, fused
+
+
+# phase 8b's queries over phase 4's store (bench range variant 0)
+SCALE_GENERAL = {
+    "S1": 'sum(rate(m{host=~"h1.*"}[5m])) / sum(rate(m[5m]))',
+    "S2": "topk(10, rate(m[5m]))",
+    "S3": "quantile(0.99, rate(m[5m]))",
+    "S4": "max(max_over_time(m[5m]))",
+    "S5": "count(rate(m[5m]) > 0.5)",
+    "S6": "avg(irate(m[5m]))",
+    "S7": "sum(m)",
+}
+SCALE_GENERAL_REPS = 3
+
+
+def phase_general_scale(torch, np, fg, card, engine, shard):
+    """Phase 8b: S1-S7 through the engine on phase 4's store, each held
+    against an independent device computation on the same store; returns
+    {name: p50 ms} and K1's launches a query."""
+    from filodb_tpu_torch.ops import gridfns
+    S = shard.num_series
+    s, e = range_variants(shard)[0]
+    out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
+    T = len(out_ts)
+    t_last = int(shard.store.last_ts.max())
+
+    def run(name):
+        if name == "S7":
+            return engine.query_instant(SCALE_GENERAL[name], t_last)
+        return engine.query_range(SCALE_GENERAL[name], s, e, STEP_MS)
+
+    for name in SCALE_GENERAL:                 # first calls: load + warm
+        run(name)
+    # the main path: counts from 0, read right after
+    reset_k1(fg)
+    res, lat, k1 = {}, {}, {}
+    for name in SCALE_GENERAL:
+        before = fg.fused_grid_kernel.launches
+        times = []
+        for _ in range(SCALE_GENERAL_REPS):
+            t0 = time.perf_counter()
+            res[name] = run(name)
+            times.append((time.perf_counter() - t0) * 1000)
+        lat[name] = float(np.percentile(times, 50))
+        k1[name] = (fg.fused_grid_kernel.launches - before) / SCALE_GENERAL_REPS
+        assert k1[name] == res[name].stats.fused_kernels, (name, k1[name])
+    assert k1["S1"] == 2 and sum(k1.values()) == 2, k1
+
+    st = shard.store
+    # S1 against the quotient of its legs' answers, taken on the host in
+    # their own dtype (f32 sums, as the join divides them): within an f32
+    # ulp of the card's division
+    legs = [np.asarray(engine.query_range(q, s, e, STEP_MS).matrix.values)
+            for q in ('sum(rate(m{host=~"h1.*"}[5m]))', "sum(rate(m[5m]))")]
+    want = (legs[0] / legs[1]).astype(np.float64)
+    v1 = np.asarray(res["S1"].matrix.values, np.float64)
+    assert v1.shape == (1, T) and np.isfinite(v1).all(), v1.shape
+    np.testing.assert_allclose(v1, want, rtol=float(np.finfo(np.float32).eps),
+                               err_msg="S1")
+    # the rate matrix of the whole store through the grid function
+    out_eval = np.concatenate([out_ts, np.full(-(-T // 32) * 32 - T,
+                                               out_ts[-1], np.int64)])
+    rate = gridfns.periodic_samples_grid(st.val, st.n, out_eval, WINDOW_MS,
+                                         "rate", BASE_TS, INTERVAL_MS)[:, :T]
+    assert rate.shape == (S, T) and bool(torch.isfinite(rate).all())
+    # S2: a stable top 10 per step, lower row first among equal values
+    top = torch.sort(rate.T, dim=1, descending=True, stable=True)
+    want2 = {}
+    rows, vals = top.indices[:, :10].cpu().numpy(), top.values[:, :10].cpu()
+    for t in range(T):
+        for j in range(10):
+            want2.setdefault(f"h{rows[t, j]}", {})[t] = float(vals[t, j])
+    got2 = {}
+    v2 = np.asarray(res["S2"].matrix.values, np.float64)
+    for key, row in zip(res["S2"].matrix.keys, v2):
+        got2[key.as_dict()["host"]] = {t: float(row[t]) for t in range(T)
+                                       if not np.isnan(row[t])}
+    assert got2 == want2, "S2: not the stable top 10 of the rate matrix"
+    # S3: torch.quantile of each step's rates, within the sketch's error
+    exact3 = np.array([float(torch.quantile(rate[:, t].double(), 0.99))
+                       for t in range(T)])
+    v3 = np.asarray(res["S3"].matrix.values, np.float64)[0]
+    err3 = float(np.abs(v3 / exact3 - 1).max())
+    assert err3 <= 0.0196, ("S3", err3)
+    # S4 and S6: a plain windowed max and irate, written out over the
+    # store's cells and not through the engine's range functions. Every row
+    # is full and cell i sits at BASE_TS + i * INTERVAL_MS, so the window
+    # [t - 5m, t] is the cells lo..hi of every row
+    cells = int(st.n_host.max())
+    assert int(st.n_host.min()) == cells and bool(
+        (st.ts[:, :cells] == BASE_TS + INTERVAL_MS * torch.arange(
+            cells, device=st.ts.device)).all()), "the store is not on its grid"
+    want4, want6 = np.empty(T), np.empty(T)
+    for k, t in enumerate(out_ts.tolist()):
+        lo = max(-(-(t - WINDOW_MS - BASE_TS) // INTERVAL_MS), 0)
+        hi = min((t - BASE_TS) // INTERVAL_MS, cells - 1)
+        win = st.val[:, lo:hi + 1]
+        want4[k] = float(win.amax())
+        prev, last = win[:, -2].double(), win[:, -1].double()
+        # a counter reset between the last two samples: the counter restarted
+        want6[k] = float((torch.where(last >= prev, last - prev, last)
+                          / (INTERVAL_MS / 1000.0)).mean())
+    v4 = np.asarray(res["S4"].matrix.values, np.float64)[0]
+    assert np.array_equal(v4, want4), ("S4", v4[:4], want4[:4])
+    v6 = np.asarray(res["S6"].matrix.values, np.float64)[0]
+    np.testing.assert_allclose(v6, want6, rtol=1e-9, err_msg="S6")
+    # S5: exactly, as a count
+    want5 = (rate > 0.5).sum(0).double().cpu().numpy()
+    v5 = np.asarray(res["S5"].matrix.values, np.float64)[0]
+    assert np.array_equal(v5, want5), ("S5", v5[:4], want5[:4])
+    # S7: the f64 sum of each row's last value (the engine sums the f32
+    # grid output in f32, as the reference does: rtol 1e-4 over 2^20 rows)
+    last = st.val[torch.arange(st.S, device=st.val.device),
+                  (st.n.long() - 1).clamp(min=0)]
+    want7 = float(last.double().sum())
+    v7 = np.asarray(res["S7"].matrix.values, np.float64)
+    assert v7.shape == (1, 1), v7.shape
+    assert abs(v7[0, 0] / want7 - 1) <= 1e-4, ("S7", v7[0, 0], want7)
+    log(f"general scale [{card}]: {S} series x {T} steps; S1 "
+        f"max rel diff to its legs {float(np.abs(v1 / want - 1).max()):.3g}; "
+        f"S3 max rel err {err3:.4f}; S5 {v5.min():.0f}-{v5.max():.0f} of "
+        f"{S} rates above 0.5; S6 max rel diff "
+        f"{float(np.abs(v6 / want6 - 1).max()):.3g}; S7 rel diff "
+        f"{abs(v7[0, 0] / want7 - 1):.3g}")
+    for name, q in SCALE_GENERAL.items():
+        log(f"general scale [{card}]: {name} {q}: p50 {lat[name]:.3f} ms "
+            f"over {SCALE_GENERAL_REPS} runs, K1 launches a query "
+            f"{k1[name]:g}")
+    return lat, k1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1939,6 +2229,12 @@ def main() -> int:
         f"launches by kind {small_n} ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
+    n_q, launches8a, fused8a = phase_general_small(torch, np, fg, pkg)
+    log(f"general small: {n_q} queries of the general mix on 1312 series "
+        f"match the CPU engine; K1 launches {launches8a} = the fused routes "
+        f"QueryStats counts ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
     engine, shard, reg_s = bench.build_engine("cuda")
     k1 = phase_scale(torch, np, fg, card, engine, shard, reg_s)
     log(f"scale: done in {time.perf_counter() - t0:.1f} s")
@@ -1946,8 +2242,11 @@ def main() -> int:
     _k1b, k3_launches, _res = phase_bench(np, fg, sp, bench, card, engine,
                                           shard, reg_s, k1["ms"])
     trace_concurrent_round(torch, bench, card, engine, shard)
-    del engine, shard
     log(f"bench: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_general_scale(torch, np, fg, card, engine, shard)
+    del engine, shard
+    log(f"general scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -3,10 +3,11 @@
 Port of ``filodb_tpu/ops/gridfns.py``. When every live series has sample k
 at timestamp base + k * interval, window edges are closed-form grid cells
 and window reductions are [S, C] x [C, T] products with static 0/1 band
-matrices (the host builders below). Scalar stores: the functions of the
-fused tier, rate/increase/delta and sum/avg/count_over_time;
-``periodic_samples_grid`` is what an un-aggregated ``rate(m[5m])`` (or a
-group count above the fused cap) materializes through. Histogram stores:
+matrices (the host builders below). Scalar stores: the reference's grid
+functions, rate/increase/delta, sum/avg/count_over_time, last_over_time
+and the instant selector's last_sample; ``periodic_samples_grid`` is what
+an un-aggregated ``rate(m[5m])``, an instant selector ``m`` (or a group
+count above the fused cap) materializes through. Histogram stores:
 the one-program ``histogram_quantile(q, sum(fn(h[w])))`` routes over the
 raw [S, C, B] block and over the i8/i16 2D-delta block, and
 ``histogram_quantile`` itself in f64. The products run through
@@ -22,10 +23,8 @@ import functools
 import numpy as np
 import torch
 
-# the reference's grid functions this slice ports (last_sample and
-# last_over_time come with the instant-selector slice)
 GRID_FNS = {"rate", "increase", "delta", "sum_over_time", "count_over_time",
-            "avg_over_time"}
+            "avg_over_time", "last_sample", "last_over_time"}
 
 
 def grid_edges(out_ts: np.ndarray, window_ms: int, base_ts: int, interval_ms: int):
@@ -52,7 +51,7 @@ def onehot_matrix(C: int, pos: np.ndarray, dtype=np.float32) -> np.ndarray:
     return m
 
 
-def _grid_kernel(fn, val, n, ops):
+def _grid_kernel(fn, val, n, ops, stale_ms: int):
     """val [S, C]: sample k of each series at column k == grid cell k.
 
     Time arithmetic is int32 grid-relative milliseconds (rel_out = out_ts -
@@ -82,6 +81,17 @@ def _grid_kernel(fn, val, n, ops):
         if fn == "avg_over_time":
             s = s / cnt_f
         return torch.where(cnt >= 1, s, nan)
+
+    if fn in ("last_sample", "last_over_time"):
+        static_v = v @ ops["onehot_hi"]                           # value at cell hi_t
+        row_last = torch.gather(
+            v, 1, torch.clamp(last_cell, 0, C - 1).long())        # [S, 1]
+        l_v = torch.where(hi[None, :] <= last_cell, static_v, row_last)
+        ok = cnt >= 1
+        if fn == "last_sample":
+            l_rel = l_idx * interval_ms                           # i32 [S, T]
+            ok = ok & ((rel_out[None, :] - l_rel) <= stale_ms)
+        return torch.where(ok, l_v, nan)
 
     if fn in ("rate", "increase", "delta"):
         is_counter = fn != "delta"
@@ -161,13 +171,14 @@ def _grid_operands_build(C, out_ts_key, window_ms, base_ts, interval_ms,
 
 
 def periodic_samples_grid(val, n, out_ts: np.ndarray, window_ms: int, fn: str,
-                          base_ts: int, interval_ms: int):
+                          base_ts: int, interval_ms: int,
+                          stale_ms: int = 300_000):
     """Grid-path periodic samples over a uniform-start shard: [S, T] output
     in the store's dtype, NaN where the function is undefined."""
     C = val.shape[1]
     ops = grid_operands(C, out_ts, window_ms, base_ts, interval_ms,
                         val.dtype, val.device)
-    return _grid_kernel(fn, val, n, ops)
+    return _grid_kernel(fn, val, n, ops, min(stale_ms, 2**31 - 1))
 
 
 # ---- histograms -------------------------------------------------------------

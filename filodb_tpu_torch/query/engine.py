@@ -66,7 +66,8 @@ def pool_correction(data, gids: np.ndarray, bad: np.ndarray, Gp: int,
 
 @dataclass
 class QueryConfig:
-    """Ref: query/.../QueryConfig.scala (sample limits)."""
+    """Ref: query/.../QueryConfig.scala (stale-sample-after, sample limits)."""
+    stale_sample_after_ms: int = 5 * 60 * 1000
     sample_limit: int = 1_000_000
 
 
@@ -93,7 +94,8 @@ class QueryEngine:
 
     def _ctx(self) -> QueryContext:
         return QueryContext(self.memstore, self.dataset, self.device,
-                            sample_limit=self.config.sample_limit)
+                            sample_limit=self.config.sample_limit,
+                            stale_ms=self.config.stale_sample_after_ms)
 
     def query_range(self, promql_text: str, start_ms: int, end_ms: int,
                     step_ms: int) -> QueryResult:

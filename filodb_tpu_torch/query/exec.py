@@ -2,8 +2,10 @@
 
 Port of the local path of ``filodb_tpu/query/exec.py`` (ref:
 query/.../exec/ExecPlan.scala, SelectRawPartitionsExec.scala,
-ReduceAggregateExec, PeriodicSamplesMapper.scala, AggregateMapReduce /
-AggregatePresenter).
+DistConcatExec / ReduceAggregateExec / BinaryJoinExec / SetOperatorExec,
+RangeVectorTransformer.scala: PeriodicSamplesMapper, ScalarOperationMapper,
+InstantVectorFunctionMapper, AggregateMapReduce / AggregatePresenter, the
+sort and miscellaneous mappers).
 
 Execution shape, as in the reference: the leaf resolves part ids host-side
 (index), then hands the store's device tensors to the kernel chain. Narrow
@@ -15,30 +17,36 @@ on a scalar narrow-resident store that pass streams the narrow block
 (delta8/quant16/delta16) and the cohort-pool rows fold back through the
 general kernels. Other paths over a narrow-resident store decode a
 transient f32 block (``_dval``).
-Aggregation is host-computed dense group ids + one group reduce on device.
+Aggregation is host-computed dense group ids + one group reduce on device;
+the order statistics (topk/bottomk, quantile, count_values) map to
+per-shard partial state (candidates, a log-bucket sketch, value counts)
+that merges at the reduce. Joins, set operators and the presenters work on
+the children's host matrices, their element math on the query's device.
 Histogram shards answer ``histogram_quantile(q, sum(fn(h[w])))`` through
 the engine's fused-hist route (query/engine.py), which reads the leaf's
 histogram fields (``bucket_les``, ``hist_narrow``) directly.
 
-Routes the port does not have yet (instant functions, binary operators,
-order statistics, subqueries, __col__ selectors, on-demand paging, remote
-legs) raise ``QueryError(... not yet ported)``; range functions over
-histogram blocks (the general hist ExecPlan path) raise ``NotYetPorted`` —
-never another path.
+Routes the port does not have yet (subqueries, ``@``, __col__ selectors,
+chunk-metadata plans, on-demand paging, remote legs) raise
+``QueryError(... not yet ported)``; range functions over histogram blocks
+(the general hist ExecPlan path) raise ``NotYetPorted`` — never another
+path.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..core.chunkstore import COHORT_GATE, TS_PAD, _Deferred
-from ..ops import aggregators, fusedgrid, fusedresident, gridfns, rangefns
+from ..ops import (aggregators, binop, fusedgrid, fusedresident, gridfns,
+                   instantfns, rangefns)
 from ..utils.tracing import SPAN_QUERY_LEAF, SPAN_QUERY_REDUCE, span
 from .rangevector import (NotYetPorted, QueryError, QueryResult, QueryStats,
-                          RangeVectorKey, ResultMatrix)
+                          RangeVectorKey, ResultMatrix, fmt_value, to_numpy)
 
 # what a histogram query off the fused-hist pattern needs, and where the
 # ROADMAP lists it
@@ -176,23 +184,24 @@ class FusedWindowData:
     out_ts: np.ndarray
     window: int
     fn: str
+    stale_ms: int
 
     def materialize(self) -> MatrixView:
         base_ts, interval_ms = self.sel.grid
         out_eval, T = _pad_steps(self.out_ts)
         vals = gridfns.periodic_samples_grid(
             _dval(self.sel.val), self.sel.n, out_eval, self.window, self.fn,
-            base_ts, interval_ms)
+            base_ts, interval_ms, stale_ms=self.stale_ms)
         minority = self.sel.grid_minority
         if minority is not None and len(minority):
             vals = _correct_minority_cohort(self.sel, vals, out_eval,
-                                            self.window, self.fn)
+                                            self.window, self.fn, 0.0, 0.0)
         if vals.shape[1] != T:
             vals = vals[:, :T]
         return MatrixView(self.out_ts, vals, self.sel.keys, self.sel.rows)
 
 
-def _correct_minority_cohort(data, vals, out_ts, window, fn):
+def _correct_minority_cohort(data, vals, out_ts, window, fn, a0, a1):
     """Patch grid-kernel output for churned rows: series whose start cell
     differs from the majority cohort are recomputed through the general
     kernels (an [M, C] row gather) and written back into the [R, T]
@@ -202,7 +211,7 @@ def _correct_minority_cohort(data, vals, out_ts, window, fn):
     sub_ts, sub_val, sub_n, _ = _gather_rows_padded(data.ts, data.val,
                                                     data.n, rows)
     corr = rangefns.periodic_samples(sub_ts, sub_val, sub_n, out_ts, window,
-                                     fn)
+                                     fn, a0, a1)
     vals[torch.from_numpy(rows).to(vals.device)] = corr[:M].to(vals.dtype)
     return vals
 
@@ -216,14 +225,23 @@ class Transformer:
         raise NotImplementedError
 
 
+def _tensor(values, device) -> torch.Tensor:
+    """A matrix block as a tensor on ``device``: device blocks pass
+    through, host blocks (children already copied back) are copied up."""
+    if isinstance(values, torch.Tensor):
+        return values
+    return torch.from_numpy(np.ascontiguousarray(values)).to(device)
+
+
 @dataclass
 class PeriodicSamplesMapper(Transformer):
-    """Range function evaluation (ref: PeriodicSamplesMapper.scala:23)."""
+    """Range/instant function evaluation (ref: PeriodicSamplesMapper.scala:23)."""
     start_ms: int
     step_ms: int
     end_ms: int
     window_ms: int | None     # None => instant selector (staleness lookback)
     function: str | None      # None => last_sample
+    args: tuple = ()
 
     def out_ts(self) -> np.ndarray:
         step = max(self.step_ms, 1)
@@ -239,15 +257,22 @@ class PeriodicSamplesMapper(Transformer):
             return MatrixView(out_ts, torch.full(
                 (0, len(out_ts)), float("nan"), dtype=torch.float64,
                 device=data.n.device), [], None)
-        fn = self.function or "last_sample"
-        if fn not in rangefns.PORTED_FNS:
-            raise QueryError(f"range function {fn} not yet ported")
         out_ts = self.out_ts()
         if len(out_ts) == 0:
             return MatrixView(out_ts, torch.zeros((len(data.keys), 0)),
                               data.keys, data.rows)
         out_eval, T = _pad_steps(out_ts)
-        window = self.window_ms
+        fn = self.function or "last_sample"
+        if fn == "last_sample":
+            # instant selector: the window is the staleness lookback, which
+            # is also the function's bound on the last sample's age
+            window = ctx.stale_ms
+            args = (float(ctx.stale_ms),)
+        else:
+            window = self.window_ms
+            args = tuple(float(a) for a in self.args)
+        a0 = args[0] if len(args) > 0 else 0.0
+        a1 = args[1] if len(args) > 1 else 0.0
         grid_usable = (
             data.grid is not None
             and max(abs(int(out_ts[0]) - data.grid[0]),
@@ -260,20 +285,131 @@ class PeriodicSamplesMapper(Transformer):
                     and fusedgrid.fusable(S, C, len(out_ts), 1)):
                 # defer: a following AggregateMapReduce fuses the window
                 # function with the aggregation in one pass
-                return FusedWindowData(data, out_ts, window, fn)
+                return FusedWindowData(data, out_ts, window, fn, ctx.stale_ms)
             base_ts, interval_ms = data.grid
             vals = gridfns.periodic_samples_grid(_dval(data.val), data.n,
                                                  out_eval, window, fn,
-                                                 base_ts, interval_ms)
+                                                 base_ts, interval_ms,
+                                                 stale_ms=ctx.stale_ms)
             if minority is not None and len(minority):
                 vals = _correct_minority_cohort(data, vals, out_eval, window,
-                                                fn)
+                                                fn, a0, a1)
         else:
             vals = rangefns.periodic_samples(_dval(data.ts), _dval(data.val),
-                                             data.n, out_eval, window, fn)
+                                             data.n, out_eval, window, fn,
+                                             a0, a1)
         if len(out_eval) != T:
             vals = vals[:, :T]
         return MatrixView(out_ts, vals, data.keys, data.rows)
+
+
+@dataclass
+class InstantVectorFunctionMapper(Transformer):
+    function: str
+    args: tuple = ()
+
+    def apply(self, data, ctx):
+        m = _as_matrix(data)
+        if self.function in ("histogram_quantile", "histogram_bucket",
+                             "histogram_max_quantile"):
+            if self.function == "histogram_quantile":
+                # classic le-labeled bucket series (what remote-write and
+                # the Influx gateway ingest): group by labels minus le,
+                # sort buckets, fix monotonicity, the same quantile algebra
+                # (ref: HistogramQuantileMapper.scala:23-90)
+                return _classic_le_quantile(m, float(self.args[0]))
+            raise QueryError(f"{self.function} requires native histogram series")
+        if self.function == "absent":
+            vals = to_numpy(m.values)
+            empty = (np.isnan(vals).all(axis=0) if len(m.keys)
+                     else np.ones(len(m.out_ts), bool))
+            out = np.where(empty, 1.0, np.nan)[None, :]
+            return ResultMatrix(m.out_ts, out, [RangeVectorKey(())])
+        vals = _tensor(m.values, ctx.device)
+        return ResultMatrix(m.out_ts,
+                            instantfns.apply(self.function, vals, self.args),
+                            m.keys)
+
+
+def _classic_le_quantile(m, q: float) -> ResultMatrix:
+    """histogram_quantile over classic ``le``-labeled scalar bucket series
+    (ref: HistogramQuantileMapper.scala:23-90 + Histogram.scala:288).
+
+    Groups input series by labels minus ``le``, sorts each group's buckets
+    by ascending le, repairs monotonicity (NaN or decreasing bucket rates
+    take the running max — scrapes are not atomic across buckets), and
+    computes the Prometheus quantile with the SAME algebra as the
+    native-histogram path (ops/gridfns.histogram_quantile), on the host:
+    group counts are dashboard-sized and the ragged per-group bucket
+    layouts do not batch."""
+    if not len(m.keys):
+        return ResultMatrix(m.out_ts, np.zeros((0, len(m.out_ts))), [])
+    vals = to_numpy(m.values).astype(np.float64)            # [R, T]
+    groups: dict[RangeVectorKey, list[tuple[float, int]]] = {}
+    for i, k in enumerate(m.keys):
+        d = k.as_dict()
+        le_s = d.get("le")
+        if le_s is None:
+            raise QueryError(
+                "cannot calculate histogram quantile: 'le' tag is absent in "
+                f"time series {d}")
+        try:
+            le = np.inf if le_s == "+Inf" else float(le_s)
+        except ValueError:
+            raise QueryError(
+                f"cannot calculate histogram quantile: unparseable le tag "
+                f"{le_s!r} in time series {d}") from None
+        groups.setdefault(k.without(("le",)), []).append((le, i))
+    T = len(m.out_ts)
+    out = np.full((len(groups), T), np.nan)
+    keys = list(groups)
+    for g, gk in enumerate(keys):
+        buckets = sorted(groups[gk], key=lambda p: p[0])
+        les = np.array([b[0] for b in buckets])
+        if not np.isinf(les[-1]):
+            continue              # no +Inf bucket: quantile undefined (NaN)
+        counts = vals[[b[1] for b in buckets]].T            # [T, B] cumulative
+        # makeMonotonic: running max along the bucket axis, floor 0 — NaN
+        # and regressions (bucket churn, non-atomic scrapes) take the prior max
+        counts = np.maximum.accumulate(
+            np.where(np.isnan(counts), -np.inf, counts), axis=1)
+        counts = np.maximum(counts, 0.0)
+        out[g] = gridfns.histogram_quantile(
+            q, les, torch.from_numpy(counts)).numpy()
+    return ResultMatrix(m.out_ts, out, keys)
+
+
+@dataclass
+class ScalarOperationMapper(Transformer):
+    operator: str
+    scalar: object            # a float, or the ExecPlan of a step-varying scalar
+    scalar_is_lhs: bool = False
+
+    _resolved = None
+
+    def prepare(self, ctx) -> None:
+        """Resolve a step-varying scalar subplan (time(), scalar(v)) ONCE
+        per query. The leaf calls this BEFORE it takes its shard lock:
+        running the subplan inside it would nest shard locks across queries
+        (ABBA deadlock)."""
+        if isinstance(self.scalar, ExecPlan) and self._resolved is None:
+            sm = _as_matrix(self.scalar.execute(ctx)).to_host()
+            self._resolved = np.asarray(sm.values, np.float64)[0]
+
+    def apply(self, data, ctx):
+        m = _as_matrix(data)
+        s = self.scalar
+        if isinstance(s, ExecPlan):
+            self.prepare(ctx)     # non-leaf chains have no lock to avoid
+            s = torch.from_numpy(self._resolved).to(ctx.device)  # [T]
+        vals = binop.apply_scalar_op(self.operator, s,
+                                     _tensor(m.values, ctx.device),
+                                     self.scalar_is_lhs)
+        keys = m.keys
+        op = self.operator.removesuffix("_bool")
+        if op in binop.MATH_OPS or self.operator.endswith("_bool"):
+            keys = [k.without(("_metric_",)) for k in keys]
+        return ResultMatrix(m.out_ts, vals, keys)
 
 
 class LazyKeys:
@@ -307,6 +443,21 @@ class LazyKeys:
             self._check()
             keys = [self._shard.rv_key_of(int(p)) for p in self._pids]
         return iter(keys)
+
+    def take(self, idx) -> list:
+        """The keys at positions ``idx``: one lock and one release check
+        for all of them."""
+        with self._shard.lock:
+            self._check()
+            return [self._shard.rv_key_of(int(self._pids[i])) for i in idx]
+
+
+def _keys_at(keys, idx) -> list:
+    """``[keys[i] for i in idx]``; a wide selection's LazyKeys checks its
+    2^20 release epochs once, not once a key."""
+    if isinstance(keys, LazyKeys):
+        return keys.take(idx)
+    return [keys[i] for i in idx]
 
 
 def _group_ids_for(keys, rows, R, by, without):
@@ -365,21 +516,29 @@ def _segment_partial(op, values, gids, num_groups):
 class AggregateMapReduce(Transformer):
     """Map phase: matrix -> per-group partial state (ref: AggregateMapReduce)."""
     operator: str
+    params: tuple = ()
     by: tuple = ()
     without: tuple = ()
 
+    # order-statistic aggregators with more groups fall back to full
+    # matrices; G is small in practice (topk is usually global)
+    ORDER_STAT_MAX_GROUPS = 64
+
     def apply(self, data, ctx):
+        if self.operator in ("topk", "bottomk", "quantile", "count_values"):
+            return self._map_order_stat(data, ctx)
         if isinstance(data, FusedWindowData):
             if self.operator in fusedgrid.FUSED_OPS:
                 fused = self._apply_fused(data, ctx)
                 if fused is not None:
                     return fused
             data = data.materialize()
-        m = data if isinstance(data, MatrixView) else _as_mview(data)
+        m = _as_mview(data)
         gids, uniq, G = _group_ids_for(m.keys, m.rows, m.values.shape[0],
                                        self.by, self.without)
-        gid_t = torch.from_numpy(gids).to(m.values.device)
-        parts = _segment_partial(self.operator, m.values, gid_t, _pow2(G))
+        vals = _tensor(m.values, ctx.device)
+        gid_t = torch.from_numpy(gids).to(vals.device)
+        parts = _segment_partial(self.operator, vals, gid_t, _pow2(G))
         return AggPartial(self.operator, m.out_ts, parts, list(uniq), G)
 
     def _apply_fused(self, data: FusedWindowData, ctx) -> AggPartial | None:
@@ -441,6 +600,191 @@ class AggregateMapReduce(Transformer):
             parts = aggregators.combine_partials(self.operator, parts, mparts)
         return AggPartial(self.operator, data.out_ts, parts, list(uniq), G)
 
+    def _map_order_stat(self, data, ctx):
+        """Map phase for topk/bottomk/quantile/count_values: per-shard
+        partial state instead of shipping the full [P, T] matrix to the
+        reduce (ref: RowAggregator partial state incl. t-digest,
+        AggrOverRangeVectors.scala:244-)."""
+        if isinstance(data, FusedWindowData):
+            data = data.materialize()
+        return _order_stat_map(_as_mview(data), self.operator, self.params,
+                               self.by, self.without, ctx.device,
+                               cap=self.ORDER_STAT_MAX_GROUPS)
+
+
+# quantile partial memory gate: fall back to the exact full matrix when the
+# dense sketch would dwarf what it replaces
+_SKETCH_BYTES_CAP = 64 << 20
+
+
+def _order_stat_map(m: MatrixView, op, params, by, without, device,
+                    cap=None):
+    """Shared map phase; with ``cap`` set, large group counts (or oversized
+    sketches) fall back to the exact full matrix. The reduce calls this
+    WITHOUT a cap to normalize a fallen-back shard into partial form when
+    its siblings produced partials."""
+    R = m.values.shape[0]
+    gids, uniq, G = _group_ids_for(m.keys, m.rows, R, by, without)
+    T = len(m.out_ts)
+    if cap is not None and G > cap:
+        return m.compact()               # exact full-matrix fallback
+    if op in ("topk", "bottomk"):
+        k = max(int(params[0]), 0)       # topk(0, ...) selects nothing
+        return _map_topk(m, gids, uniq, G, k, op == "bottomk", device)
+    if op == "quantile":
+        # the bytes gate holds even for reduce-side normalization (cap=None):
+        # a dense sketch for a huge group count must never be allocated
+        if G * aggregators.SKETCH_WIDTH * T * 4 > _SKETCH_BYTES_CAP:
+            return m.compact()
+        vals = _tensor(m.values, device)
+        counts = aggregators.quantile_sketch(
+            vals, torch.from_numpy(gids).to(vals.device), G)
+        return SketchPartial(float(params[0]), m.out_ts, list(uniq), counts)
+    # count_values: vectorized host histogram of distinct values
+    vals_h = to_numpy(m.values)
+    label = str(params[0])
+    present = ~np.isnan(vals_h)
+    p_idx, t_idx = np.nonzero(present)
+    v = vals_h[p_idx, t_idx]
+    g = gids[p_idx] if len(gids) else np.zeros(0, np.int32)
+    uvals, vinv = np.unique(v, return_inverse=True)
+    pair = g.astype(np.int64) * max(len(uvals), 1) + vinv
+    upairs, pinv = np.unique(pair, return_inverse=True)
+    counts = np.zeros((len(upairs), T))
+    np.add.at(counts, (pinv, t_idx), 1.0)
+    entries: dict = {}
+    for i, pr in enumerate(upairs):
+        gi, vi = divmod(int(pr), max(len(uvals), 1))
+        key = (gi, fmt_value(uvals[vi]))
+        # distinct floats could share a rendering: counts accumulate
+        if key in entries:
+            entries[key] = entries[key] + counts[i]
+        else:
+            entries[key] = counts[i]
+    return CountValuesPartial(label, m.out_ts, list(uniq), entries)
+
+
+def _map_topk(m: MatrixView, gids, uniq, G: int, k: int, bottom: bool,
+              device):
+    """Per-shard top-k candidates per (group, step): [G, k, T] values + key
+    refs — only k series' worth of data crosses the reduce. Presence is an
+    exact per-slot mask (selected row AND non-NaN), so real +/-Inf samples
+    survive and un-selected pad rows never leak in. Among equal values the
+    lower row ranks first (a stable sort, as the reference's top_k)."""
+    T0 = len(m.out_ts)
+    R = m.values.shape[0]
+    if k == 0 or not len(m.keys):
+        return TopKPartial(k, bottom, m.out_ts, list(uniq),
+                           np.full((G, 0, T0), np.nan),
+                           np.full((G, 0, T0), -1, np.int64), [])
+    # array row -> key index (rows may be a non-identity store-row mapping)
+    valid_rows = np.zeros(R, bool)
+    if m.rows is None:
+        valid_rows[:len(m.keys)] = True
+        row_to_key = None
+    else:
+        valid_rows[m.rows] = True
+        row_to_key = np.full(R, -1, np.int64)
+        row_to_key[m.rows] = np.arange(len(m.rows))
+    vals = _tensor(m.values, device).to(torch.float64)
+    dev = vals.device
+    nanmask = torch.isnan(vals)
+    vmask = torch.from_numpy(valid_rows).to(dev)
+    garr = torch.from_numpy(np.asarray(gids)).to(dev)
+    fill = float("inf") if bottom else float("-inf")
+    fmax = float(np.finfo(np.float64).max)
+    # real +/-Inf samples must outrank fill rows at equal sort value: clamp
+    # them to +/-DBL_MAX in the SORT domain only (reported values come from
+    # the original matrix via the selected indices)
+    sortable = torch.clamp(vals, -fmax, fmax)
+    out_vals = np.full((G, k, T0), np.nan)
+    out_ref = np.full((G, k, T0), -1, np.int64)
+    key_rows: list[int] = []
+    row_slot: dict[int, int] = {}
+    kk = min(k, R)
+    for g in range(G):
+        presence = (vmask & (garr == g))[:, None] & ~nanmask     # [R, T]
+        gv = torch.where(presence, sortable, fill)
+        sv = -gv if bottom else gv
+        top_i = torch.sort(sv.T, dim=1, descending=True,
+                           stable=True).indices[:, :kk]          # [T, kk]
+        top_ok = torch.gather(presence.T, 1, top_i)              # exact mask
+        # ONE host copy for the three small arrays
+        host = torch.stack([torch.gather(vals.T, 1, top_i),
+                            top_i.to(torch.float64),
+                            top_ok.to(torch.float64)]).cpu().numpy()
+        top_v, top_r, ok = host[0], host[1].astype(np.int64), host[2] > 0
+        for t, s in zip(*np.nonzero(ok)):
+            row = int(top_r[t, s])
+            slot = row_slot.get(row)
+            if slot is None:
+                slot = row_slot[row] = len(key_rows)
+                key_rows.append(row)
+            out_vals[g, s, t] = top_v[t, s]
+            out_ref[g, s, t] = slot
+    ki = (key_rows if row_to_key is None
+          else row_to_key[np.asarray(key_rows, np.int64)].tolist())
+    key_table = _keys_at(m.keys, ki)
+    return TopKPartial(k, bottom, m.out_ts, list(uniq), out_vals, out_ref,
+                       key_table)
+
+
+@dataclass
+class TopKPartial:
+    """topk/bottomk partial state: per (group, slot, step) candidate values
+    and their source-series keys."""
+    k: int
+    bottom: bool
+    out_ts: np.ndarray
+    group_keys: list
+    values: np.ndarray            # [G, k, T] f64, NaN = empty slot
+    key_ref: np.ndarray           # [G, k, T] int64 into key_table, -1 = empty
+    key_table: list
+
+
+@dataclass
+class SketchPartial:
+    """quantile partial state: log-bucket counts [G, W, T] (a device tensor
+    off the map phase, a host array once merged)."""
+    q: float
+    out_ts: np.ndarray
+    group_keys: list
+    counts: object
+
+
+@dataclass
+class CountValuesPartial:
+    """count_values partial state: (group, value-string) -> [T] counts."""
+    label: str
+    out_ts: np.ndarray
+    group_keys: list
+    entries: dict                  # (gid, vstr) -> np[T]
+
+
+def _merge_heterogeneous(results, op, params, by, without, device):
+    """Merge a mixed list of aggregation partials (normalizing any member
+    that fell back to a full matrix). Returns None when no partials are
+    present — the caller concatenates matrices instead."""
+    if results and all(isinstance(r, AggPartial) for r in results):
+        return _merge_partials(op, results)
+    kinds = {TopKPartial: _merge_topk, SketchPartial: _merge_sketch,
+             CountValuesPartial: _merge_count_values}
+    for kind, merge in kinds.items():
+        if not any(isinstance(r, kind) for r in results):
+            continue
+        norm = [r if isinstance(r, kind)
+                else _order_stat_map(_as_mview(r), op, params, by, without,
+                                     device)
+                for r in results]
+        if not all(isinstance(r, kind) for r in norm):
+            # normalization refused (a quantile sketch over the memory
+            # gate): partial state cannot be turned back into a matrix, so
+            # fail loudly rather than merge wrong
+            raise QueryError(f"{op} grouping too wide to merge across shards; "
+                             "narrow the by() clause")
+        return merge(norm)
+    return None
+
 
 def _as_mview(data) -> MatrixView:
     if isinstance(data, MatrixView):
@@ -449,16 +793,235 @@ def _as_mview(data) -> MatrixView:
     return MatrixView(m.out_ts, m.values, m.keys, None)
 
 
+def _align_groups(parts):
+    """Union group-key space across shard partials: (mapping, G)."""
+    all_groups: dict[RangeVectorKey, int] = {}
+    for p in parts:
+        for gk in p.group_keys:
+            all_groups.setdefault(gk, len(all_groups))
+    return all_groups, max(len(all_groups), 1)
+
+
+def _merge_sketch(parts: list[SketchPartial]) -> SketchPartial:
+    first = parts[0]
+    all_groups, G = _align_groups(parts)
+    counts = [to_numpy(p.counts) for p in parts]
+    W, T = counts[0].shape[1], counts[0].shape[2]
+    merged = np.zeros((G, W, T), np.float32)
+    for p, c in zip(parts, counts):
+        for gi, gk in enumerate(p.group_keys):
+            merged[all_groups[gk]] += c[gi]
+    return SketchPartial(first.q, first.out_ts, list(all_groups), merged)
+
+
+def _merge_count_values(parts: list[CountValuesPartial]) -> CountValuesPartial:
+    first = parts[0]
+    all_groups, _G = _align_groups(parts)
+    entries: dict = {}
+    for p in parts:
+        remap = [all_groups[gk] for gk in p.group_keys]
+        for (gi, vstr), row in p.entries.items():
+            key = (remap[gi] if remap else 0, vstr)
+            if key in entries:
+                entries[key] = entries[key] + row
+            else:
+                entries[key] = row
+    return CountValuesPartial(first.label, first.out_ts, list(all_groups),
+                              entries)
+
+
+def _merge_topk(parts: list[TopKPartial]) -> TopKPartial:
+    first = parts[0]
+    all_groups, G = _align_groups(parts)
+    T = len(first.out_ts)
+    k = first.k
+    key_table: list = []
+    cand_v = np.full((G, 0, T), np.nan)
+    cand_r = np.full((G, 0, T), -1, np.int64)
+    for p in parts:
+        off = len(key_table)
+        key_table.extend(p.key_table)
+        pv = np.full((G, p.values.shape[1], T), np.nan)
+        pr = np.full((G, p.values.shape[1], T), -1, np.int64)
+        for gi, gk in enumerate(p.group_keys):
+            gg = all_groups[gk]
+            pv[gg] = p.values[gi]
+            pr[gg] = np.where(p.key_ref[gi] >= 0, p.key_ref[gi] + off, -1)
+        cand_v = np.concatenate([cand_v, pv], axis=1)
+        cand_r = np.concatenate([cand_r, pr], axis=1)
+    # re-select the top k among the candidates per (group, step); real
+    # +/-Inf candidates clamp to +/-DBL_MAX in the sort domain so empty
+    # (fill) slots never displace them on ties
+    fill = np.inf if first.bottom else -np.inf
+    fmax = np.finfo(np.float64).max
+    sv = np.where(np.isnan(cand_v), fill, np.clip(cand_v, -fmax, fmax))
+    sv = sv if first.bottom else -sv                    # ascending sort picks
+    order = np.argsort(sv, axis=1, kind="stable")[:, :k, :]
+    out_v = np.take_along_axis(cand_v, order, axis=1)
+    out_r = np.take_along_axis(cand_r, order, axis=1)
+    return TopKPartial(k, first.bottom, first.out_ts, list(all_groups),
+                       out_v, out_r, key_table)
+
+
+def _present_topk(p: TopKPartial) -> ResultMatrix:
+    """Emit the union of selected source series, each with its value at
+    steps where it made the top k (Prometheus topk keeps original labels)."""
+    T = len(p.out_ts)
+    rows: dict[RangeVectorKey, int] = {}
+    out: list[np.ndarray] = []
+    G, k, _ = p.values.shape
+    for g in range(G):
+        for s in range(k):
+            for t in range(T):
+                ref = p.key_ref[g, s, t]
+                if ref < 0 or np.isnan(p.values[g, s, t]):
+                    continue
+                key = p.key_table[ref]
+                r = rows.get(key)
+                if r is None:
+                    r = rows[key] = len(out)
+                    out.append(np.full(T, np.nan))
+                out[r][t] = p.values[g, s, t]
+    if not out:
+        return ResultMatrix(p.out_ts, np.zeros((0, T)), [])
+    return ResultMatrix(p.out_ts, np.stack(out), list(rows))
+
+
 @dataclass
 class AggregatePresenter(Transformer):
     """Present phase (ref: AggregatePresenter in AggrOverRangeVectors.scala)."""
     operator: str
+    params: tuple = ()
+    by: tuple = ()
+    without: tuple = ()
 
     def apply(self, data, ctx):
-        if not isinstance(data, AggPartial):
-            raise QueryError(f"{self.operator} over a full matrix not yet ported")
-        vals = aggregators.present_partials(data.op, data.parts)[: data.num_groups]
-        return ResultMatrix(data.out_ts, vals, data.group_keys)
+        if isinstance(data, AggPartial):
+            vals = aggregators.present_partials(data.op, data.parts)[: data.num_groups]
+            return ResultMatrix(data.out_ts, vals, data.group_keys)
+        if isinstance(data, TopKPartial):
+            return _present_topk(data)
+        if isinstance(data, SketchPartial):
+            vals = aggregators.present_quantile_sketch(to_numpy(data.counts),
+                                                       data.q)
+            return ResultMatrix(data.out_ts, vals, data.group_keys)
+        if isinstance(data, CountValuesPartial):
+            T = len(data.out_ts)
+            keys, rows = [], []
+            for (gi, vstr), row in data.entries.items():
+                gk = (data.group_keys[gi] if data.group_keys
+                      else RangeVectorKey(()))
+                keys.append(RangeVectorKey(tuple(sorted(
+                    dict(gk.labels, **{data.label: vstr}).items()))))
+                rows.append(np.where(row > 0, row, np.nan))
+            if not keys:
+                return ResultMatrix(data.out_ts, np.zeros((0, T)), [])
+            return ResultMatrix(data.out_ts, np.stack(rows), keys)
+        # full-matrix aggregators (the map phase fell back past its caps)
+        m = _as_matrix(data)
+        gkeys = group_keys_of(m.keys, self.by, self.without)
+        uniq: dict[RangeVectorKey, int] = {}
+        gids = np.empty(len(gkeys), np.int32)
+        for i, gk in enumerate(gkeys):
+            gids[i] = uniq.setdefault(gk, len(uniq))
+        G = max(len(uniq), 1)
+        if self.operator in ("topk", "bottomk", "quantile"):
+            vals = _tensor(m.values, ctx.device)
+            gid_t = torch.from_numpy(gids).to(vals.device)
+        if self.operator in ("topk", "bottomk"):
+            mask = aggregators.topk_mask(vals, gid_t, _pow2(G),
+                                         int(self.params[0]),
+                                         bottom=self.operator == "bottomk")
+            return ResultMatrix(m.out_ts,
+                                torch.where(mask, vals, float("nan")), m.keys)
+        if self.operator == "quantile":
+            vals = aggregators.group_quantile(vals, gid_t, _pow2(G),
+                                              float(self.params[0]))
+            return ResultMatrix(m.out_ts, vals[:G], list(uniq))
+        if self.operator == "count_values":
+            return _count_values(m, gkeys, str(self.params[0]))
+        raise QueryError(f"unknown aggregator {self.operator}")
+
+
+def _count_values(m: ResultMatrix, gkeys, label: str) -> ResultMatrix:
+    """count_values over a full matrix (host: the output cardinality is
+    data-dependent)."""
+    vals = to_numpy(m.values)
+    T = len(m.out_ts)
+    out: dict[RangeVectorKey, np.ndarray] = {}
+    for p, gk in enumerate(gkeys):
+        for t in range(T):
+            v = vals[p, t]
+            if np.isnan(v):
+                continue
+            vstr = fmt_value(v)
+            key = RangeVectorKey(tuple(sorted(dict(gk.labels, **{label: vstr}).items())))
+            row = out.setdefault(key, np.full(T, np.nan))
+            row[t] = (0 if np.isnan(row[t]) else row[t]) + 1
+    if not out:
+        return ResultMatrix(m.out_ts, np.zeros((0, T)), [])
+    return ResultMatrix(m.out_ts, np.stack(list(out.values())), list(out))
+
+
+@dataclass
+class SortFunctionMapper(Transformer):
+    function: str                  # sort / sort_desc
+
+    def apply(self, data, ctx):
+        m = _as_matrix(data).to_host()
+        if not m.keys:
+            return m
+        with np.errstate(all="ignore"):
+            sortkey = np.nanmean(m.values, axis=1)
+        sortkey = np.where(np.isnan(sortkey), -np.inf, sortkey)
+        order = np.argsort(sortkey, kind="stable")
+        if self.function == "sort_desc":
+            order = order[::-1]
+        return ResultMatrix(m.out_ts, m.values[order], [m.keys[i] for i in order])
+
+
+@dataclass
+class MiscellaneousFunctionMapper(Transformer):
+    function: str
+    str_args: tuple = ()
+
+    def apply(self, data, ctx):
+        m = _as_matrix(data)
+        if self.function == "timestamp":
+            vals = to_numpy(m.values)
+            out = np.where(np.isnan(vals), np.nan,
+                           (m.out_ts[None, :] / 1000.0))
+            return ResultMatrix(m.out_ts, out,
+                                [k.without(("_metric_",)) for k in m.keys])
+        if self.function == "label_replace":
+            dst, repl, src, regex = self.str_args
+            pat = re.compile(regex)
+            keys = []
+            for k in m.keys:
+                d = k.as_dict()
+                mo = pat.fullmatch(d.get(src, ""))
+                if mo:
+                    newval = mo.expand(_go_to_py_template(repl))
+                    if newval:
+                        d[dst] = newval
+                    else:
+                        d.pop(dst, None)
+                keys.append(RangeVectorKey.of(d))
+            return ResultMatrix(m.out_ts, m.values, keys)
+        if self.function == "label_join":
+            dst, sep, *srcs = self.str_args
+            keys = []
+            for k in m.keys:
+                d = k.as_dict()
+                d[dst] = sep.join(d.get(s, "") for s in srcs)
+                keys.append(RangeVectorKey.of(d))
+            return ResultMatrix(m.out_ts, m.values, keys)
+        raise QueryError(f"unknown misc function {self.function}")
+
+
+def _go_to_py_template(s: str) -> str:
+    """Convert a Go regexp replacement ($1, ${name}) to Python (\\1, \\g<name>)."""
+    return re.sub(r"\$(\d+)", r"\\\1", re.sub(r"\$\{(\w+)\}", r"\\g<\1>", s))
 
 
 def _as_matrix(data) -> ResultMatrix:
@@ -468,7 +1031,8 @@ def _as_matrix(data) -> ResultMatrix:
         return data.materialize().compact()
     if isinstance(data, MatrixView):
         return data.compact()
-    if isinstance(data, AggPartial):
+    if isinstance(data, (AggPartial, TopKPartial, SketchPartial,
+                         CountValuesPartial)):
         raise QueryError("aggregate partial where matrix expected (missing presenter)")
     if isinstance(data, SeriesSelection):
         raise QueryError("raw series where matrix expected (missing periodic mapper)")
@@ -513,6 +1077,22 @@ def _shard_of_ctx(ctx, shard_num: int, column: str = ""):
     return sh
 
 
+def _store_prefix(transformers) -> int:
+    """How many leading transformers of a leaf read the store's tensors:
+    the periodic mapper, and a basic aggregation right after it (its fused
+    pass streams the store). They run under the shard lock; the rest work
+    on the fresh matrices those produce, after it — so their host copies
+    (order-statistic candidates, sort keys) never stall the shard."""
+    if not transformers or not isinstance(transformers[0],
+                                          PeriodicSamplesMapper):
+        return len(transformers)
+    if (len(transformers) > 1
+            and isinstance(transformers[1], AggregateMapReduce)
+            and transformers[1].operator in aggregators.BASIC_OPS):
+        return 2
+    return 1
+
+
 @dataclass
 class SelectRawPartitionsExec(ExecPlan):
     """The only data-reading leaf (ref: SelectRawPartitionsExec.scala)."""
@@ -525,15 +1105,26 @@ class SelectRawPartitionsExec(ExecPlan):
     def execute(self, ctx: QueryContext):
         with span(SPAN_QUERY_LEAF, shard=self.shard):
             shard = _shard_of_ctx(ctx, self.shard, self.column)
-            # hold the shard lock across tensor capture AND the transformer
-            # chain's kernel launches: a concurrent flush mutates the store
+            # step-varying scalar operands resolve BEFORE the lock: their
+            # subplans take other shards' locks (nested acquisition would
+            # ABBA-deadlock two concurrent mirror-image queries)
+            for t in self.transformers:
+                if isinstance(t, ScalarOperationMapper):
+                    t.prepare(ctx)
+            n_store = _store_prefix(self.transformers)
+            # hold the shard lock across tensor capture AND the launches
+            # that read the store: a concurrent flush mutates the store
             # tensors in place
             with shard.lock:
-                result = super().execute(ctx)
-                if isinstance(result, FusedWindowData):
+                data = self.do_execute(ctx)
+                for t in self.transformers[:n_store]:
+                    data = t.apply(data, ctx)
+                if isinstance(data, FusedWindowData):
                     # a lazy window view must not escape the lock
-                    result = result.materialize()
-            return result
+                    data = data.materialize()
+            for t in self.transformers[n_store:]:
+                data = t.apply(data, ctx)
+            return data
 
     def do_execute(self, ctx) -> SeriesSelection:
         shard = _shard_of_ctx(ctx, self.shard, self.column)
@@ -664,18 +1255,35 @@ class DistConcatExec(ExecPlan):
 @dataclass
 class ReduceAggregateExec(ExecPlan):
     """Cross-shard reduce (ref: ReduceAggregateExec): children yield
-    AggPartials; they merge group by group, then the presenter finishes."""
+    AggPartials (basic ops), order-statistic partials, or full matrices
+    where a shard's map phase fell back past its caps; partials merge
+    group by group, then the presenter finishes."""
     operator: str = "sum"
+    params: tuple = ()
+    by: tuple = ()
+    without: tuple = ()
     children: list = field(default_factory=list)
 
     def do_execute(self, ctx):
         results = [c.execute(ctx) for c in self.children]
         with span(SPAN_QUERY_REDUCE, op=self.operator,
                   children=len(self.children)), ctx.stats.stage("reduce"):
-            if not all(isinstance(r, AggPartial) for r in results):
-                raise QueryError(f"{self.operator} over full matrices not yet "
-                                 "ported")
-            return _merge_partials(self.operator, results)
+            # the per-shard group cap is data-dependent, so a sibling may
+            # have fallen back to a full matrix: normalization happens
+            # inside (the matrix has full information; the reverse is
+            # impossible)
+            merged = _merge_heterogeneous(results, self.operator, self.params,
+                                          self.by, self.without, ctx.device)
+            if merged is not None:
+                return merged
+            mats = [_as_matrix(r).to_host() for r in results]
+            mats = [m for m in mats if m.num_series]
+            if not mats:
+                return ResultMatrix(np.zeros(0, np.int64), np.zeros((0, 0)),
+                                    [])
+            vals = np.concatenate([m.values for m in mats], axis=0)
+            return ResultMatrix(mats[0].out_ts, vals,
+                                [k for m in mats for k in m.keys])
 
 
 def _merge_partials(op: str, partials: list[AggPartial]) -> AggPartial:
@@ -711,3 +1319,189 @@ def _merge_partials(op: str, partials: list[AggPartial]) -> AggPartial:
             else:
                 merged[name] = merged[name] + base
     return AggPartial(op, out_ts, merged, list(all_keys), G)
+
+
+# ---------------------------------------------------------------------------
+# Binary joins and set operators
+# ---------------------------------------------------------------------------
+
+def _join_key(k: RangeVectorKey, on, ignoring,
+              memo: dict | None = None) -> RangeVectorKey:
+    """Join key of a series under on/ignoring. ``memo`` is a per-execution
+    dict (both sides of a join share on/ignoring)."""
+    if memo is not None:
+        jk = memo.get(k)
+        if jk is not None:
+            return jk
+    out = k.without(("_metric_",))
+    if on:
+        out = out.only(on)
+    elif ignoring:
+        out = out.without(ignoring)
+    if memo is not None:
+        memo[k] = out
+    return out
+
+
+@dataclass
+class BinaryJoinExec(ExecPlan):
+    """Vector-vector binary operation (ref: BinaryJoinExec.scala: one-to-one
+    and many-to-one/one-to-many with on/ignoring + group_left/right
+    include). The children run one after the other, each under its own
+    shard lock only; the aligned element math runs on the query's device."""
+    lhs: ExecPlan = None
+    rhs: ExecPlan = None
+    operator: str = "+"
+    cardinality: str = "OneToOne"
+    on: tuple = ()
+    ignoring: tuple = ()
+    include: tuple = ()
+
+    def do_execute(self, ctx):
+        lm = _as_matrix(self.lhs.execute(ctx)).to_host()
+        rm = _as_matrix(self.rhs.execute(ctx)).to_host()
+        swap = self.cardinality == "OneToMany"   # ManyToOne with sides swapped
+        many, one = (rm, lm) if swap else (lm, rm)
+        memo: dict = {}           # per-query join-key cache (both sides)
+        one_by_key: dict[RangeVectorKey, int] = {}
+        for i, k in enumerate(one.keys):
+            jk = _join_key(k, self.on, self.ignoring, memo)
+            if jk in one_by_key:
+                raise QueryError(f"duplicate series on 'one' side of join for {jk}")
+            one_by_key[jk] = i
+        rows_many, rows_one, keys = [], [], []
+        is_filter = (self.operator.removesuffix("_bool") in binop.COMPARISON_OPS
+                     and not self.operator.endswith("_bool"))
+        seen: set[RangeVectorKey] = set()
+        for i, k in enumerate(many.keys):
+            jk = _join_key(k, self.on, self.ignoring, memo)
+            j = one_by_key.get(jk)
+            if j is None:
+                continue
+            if self.cardinality == "OneToOne":
+                if jk in seen:
+                    raise QueryError(f"duplicate series on 'many' side of join for {jk}")
+                seen.add(jk)
+            rows_many.append(i)
+            rows_one.append(j)
+            if is_filter:
+                keys.append(k)           # a comparison filter keeps labels
+            else:
+                out = k.without(("_metric_",))
+                if self.include:
+                    d = out.as_dict()
+                    od = one.keys[j].as_dict()
+                    for lbl in self.include:
+                        if od.get(lbl):
+                            d[lbl] = od[lbl]
+                        else:
+                            d.pop(lbl, None)
+                    out = RangeVectorKey.of(d)
+                elif self.on and self.cardinality == "OneToOne":
+                    out = _join_key(k, self.on, self.ignoring, memo)
+                keys.append(out)
+        if not rows_many:
+            return ResultMatrix(lm.out_ts, np.zeros((0, len(lm.out_ts))), [])
+        mv = _tensor(np.asarray(many.values)[rows_many], ctx.device)
+        ov = _tensor(np.asarray(one.values)[rows_one], ctx.device)
+        l_vals, r_vals = (ov, mv) if swap else (mv, ov)
+        vals = binop.apply_vector_op(self.operator, l_vals, r_vals)
+        return ResultMatrix(lm.out_ts, vals, keys)
+
+
+@dataclass
+class SetOperatorExec(ExecPlan):
+    """and/or/unless with per-step presence semantics (ref:
+    SetOperatorExec.scala); host numpy, as in the reference."""
+    lhs: ExecPlan = None
+    rhs: ExecPlan = None
+    operator: str = "and"
+    on: tuple = ()
+    ignoring: tuple = ()
+
+    def do_execute(self, ctx):
+        lm = _as_matrix(self.lhs.execute(ctx)).to_host()
+        rm = _as_matrix(self.rhs.execute(ctx)).to_host()
+        lvals, rvals = np.asarray(lm.values), np.asarray(rm.values)
+        memo: dict = {}           # per-query join-key cache (both sides)
+        T = len(lm.out_ts)
+
+        def presence(mat, keys):
+            """Presence of each join key at each step."""
+            pres: dict[RangeVectorKey, np.ndarray] = {}
+            for i, k in enumerate(keys):
+                jk = _join_key(k, self.on, self.ignoring, memo)
+                cur = pres.get(jk)
+                here = ~np.isnan(mat[i])
+                pres[jk] = here if cur is None else (cur | here)
+            return pres
+        if self.operator in ("and", "unless"):
+            rp = presence(rvals, rm.keys)
+            out = []
+            for i, k in enumerate(lm.keys):
+                jk = _join_key(k, self.on, self.ignoring, memo)
+                mask = rp.get(jk, np.zeros(T, bool))
+                if self.operator == "unless":
+                    mask = ~mask
+                out.append(np.where(mask, lvals[i], np.nan))
+            vals = np.stack(out) if out else np.zeros((0, T))
+            return ResultMatrix(lm.out_ts, vals, list(lm.keys))
+        if self.operator == "or":
+            lp = presence(lvals, lm.keys)
+            rows = [lvals[i] for i in range(len(lm.keys))]
+            keys = list(lm.keys)
+            for i, k in enumerate(rm.keys):
+                jk = _join_key(k, self.on, self.ignoring, memo)
+                lmask = lp.get(jk, np.zeros(T, bool))
+                rows.append(np.where(lmask, np.nan, rvals[i]))
+                keys.append(k)
+            vals = np.stack(rows) if rows else np.zeros((0, T))
+            return ResultMatrix(lm.out_ts, vals, keys)
+        raise QueryError(f"unknown set operator {self.operator}")
+
+
+def _steps(start_ms: int, step_ms: int, end_ms: int) -> np.ndarray:
+    return np.arange(start_ms, end_ms + 1, max(step_ms, 1), dtype=np.int64)
+
+
+@dataclass
+class ScalarExec(ExecPlan):
+    """Literal scalar evaluated at each step."""
+    value: float = 0.0
+    start_ms: int = 0
+    step_ms: int = 1
+    end_ms: int = 0
+
+    def do_execute(self, ctx):
+        out_ts = _steps(self.start_ms, self.step_ms, self.end_ms)
+        return ResultMatrix(out_ts, np.full((1, len(out_ts)), self.value),
+                            [RangeVectorKey(())])
+
+
+@dataclass
+class TimeScalarExec(ExecPlan):
+    """PromQL ``time()``: the evaluation timestamp in seconds per step."""
+    start_ms: int = 0
+    step_ms: int = 1
+    end_ms: int = 0
+
+    def do_execute(self, ctx):
+        out_ts = _steps(self.start_ms, self.step_ms, self.end_ms)
+        return ResultMatrix(out_ts, (out_ts / 1000.0)[None, :],
+                            [RangeVectorKey(())])
+
+
+@dataclass
+class ScalarOfVectorExec(ExecPlan):
+    """PromQL ``scalar(v)``: the single series' values, NaN at steps where
+    the vector doesn't have exactly one sample."""
+    child: ExecPlan = None
+
+    def do_execute(self, ctx):
+        m = _as_matrix(self.child.execute(ctx)).to_host()
+        T = len(m.out_ts)
+        vals = np.asarray(m.values, np.float64).reshape(-1, T)
+        present = (~np.isnan(vals)).sum(axis=0)
+        with np.errstate(invalid="ignore"):
+            col = np.where(present == 1, np.nansum(vals, axis=0), np.nan)
+        return ResultMatrix(m.out_ts, col[None, :], [RangeVectorKey(())])

@@ -3,7 +3,8 @@
 Port of the local half of ``filodb_tpu/query/planner.py`` (ref:
 coordinator/.../queryengine2/QueryEngine.scala:106-375): picks target shards
 from shard-key filters, pushes the map phase down to the shard leaves and
-wires the reduce on top. Plans this slice does not port raise
+wires scatter-gather, joins and the instant, sort, misc and scalar mappers
+on top. Subqueries, ``@`` and chunk-metadata plans raise
 ``QueryError(... not yet ported)``.
 """
 
@@ -12,13 +13,17 @@ from __future__ import annotations
 from ..core.filters import Equals
 from ..core.record import fnv1a64
 from ..core.schemas import DatasetOptions
-from ..ops.aggregators import BASIC_OPS
 from ..parallel.shardmapper import ShardMapper
 from . import logical as L
-from .exec import (AggregateMapReduce, AggregatePresenter, DistConcatExec,
-                   ExecPlan, PeriodicSamplesMapper, ReduceAggregateExec,
-                   SelectRawPartitionsExec)
+from .exec import (AggregateMapReduce, AggregatePresenter, BinaryJoinExec,
+                   DistConcatExec, ExecPlan, InstantVectorFunctionMapper,
+                   MiscellaneousFunctionMapper, PeriodicSamplesMapper,
+                   ReduceAggregateExec, ScalarExec, ScalarOfVectorExec,
+                   ScalarOperationMapper, SelectRawPartitionsExec,
+                   SetOperatorExec, SortFunctionMapper, TimeScalarExec)
 from .rangevector import QueryError
+
+_SET_OPS = {"and", "or", "unless"}
 
 
 class QueryPlanner:
@@ -62,32 +67,70 @@ class QueryPlanner:
             return self._fan_in(self._walk_shard_children(p))
         if isinstance(p, L.Aggregate):
             return self._materialize_aggregate(p)
+        if isinstance(p, L.BinaryJoin):
+            op = p.operator.removesuffix("_bool")
+            lhs = self._walk(p.lhs)
+            rhs = self._walk(p.rhs)
+            if op in _SET_OPS:
+                return SetOperatorExec(lhs=lhs, rhs=rhs, operator=op,
+                                       on=p.on, ignoring=p.ignoring)
+            return BinaryJoinExec(lhs=lhs, rhs=rhs, operator=p.operator,
+                                  cardinality=p.cardinality, on=p.on,
+                                  ignoring=p.ignoring, include=p.include)
+        if isinstance(p, L.ScalarVectorBinaryOperation):
+            scalar = p.scalar
+            if isinstance(scalar, L.LogicalPlan):
+                # step-varying scalar (time(), scalar(v)): materialize its
+                # plan; the mapper evaluates it to a [T] array at query time
+                scalar = self._walk(scalar)
+            return _wrap(self._walk(p.vector), ScalarOperationMapper(
+                p.operator, scalar, p.scalar_is_lhs))
+        if isinstance(p, L.ApplyInstantFunction):
+            return _wrap(self._walk(p.vectors), InstantVectorFunctionMapper(
+                p.function, p.function_args))
+        if isinstance(p, L.ApplyMiscellaneousFunction):
+            return _wrap(self._walk(p.vectors), MiscellaneousFunctionMapper(
+                p.function, p.string_args))
+        if isinstance(p, L.ApplySortFunction):
+            return _wrap(self._walk(p.vectors), SortFunctionMapper(p.function))
+        if isinstance(p, L.ScalarPlan):
+            return ScalarExec(value=p.value, start_ms=p.start_ms,
+                              step_ms=p.step_ms, end_ms=p.end_ms)
+        if isinstance(p, L.TimeScalarPlan):
+            return TimeScalarExec(start_ms=p.start_ms, step_ms=p.step_ms,
+                                  end_ms=p.end_ms)
+        if isinstance(p, L.ScalarOfVector):
+            return ScalarOfVectorExec(child=self._walk(p.vectors))
+        if isinstance(p, L.VectorOfScalar):
+            # a scalar plan already yields a one-series matrix
+            return self._walk(p.scalar)
+        # SubqueryWithWindowing, ApplyAtTimestamp, RawChunkMeta
         raise QueryError(f"{type(p).__name__} not yet ported")
 
     def _materialize_aggregate(self, p: L.Aggregate) -> ExecPlan:
-        if p.operator not in BASIC_OPS:
-            raise QueryError(f"aggregation {p.operator} not yet ported")
         inner = p.vectors
-        mr = AggregateMapReduce(p.operator, p.by, p.without)
-        presenter = AggregatePresenter(p.operator)
+        mr = AggregateMapReduce(p.operator, p.params, p.by, p.without)
+        presenter = AggregatePresenter(p.operator, p.params, p.by, p.without)
         if isinstance(inner, (L.PeriodicSeries, L.PeriodicSeriesWithWindowing)):
             # push the map phase down to each shard leaf (ref: QueryEngine
             # pushes AggregateMapReduce onto child plans)
-            children = self._walk_shard_children(inner)
-            for c in children:
-                c.transformers = c.transformers + [mr]
+            children = [_wrap(c, mr) for c in self._walk_shard_children(inner)]
         else:
             # complex inner plan: aggregate on top of the materialized child
-            child = self._walk(inner)
-            child.transformers = child.transformers + [mr]
-            children = [child]
-        return ReduceAggregateExec(transformers=[presenter],
-                                   operator=p.operator, children=children)
+            children = [_wrap(self._walk(inner), mr)]
+        return ReduceAggregateExec(
+            transformers=[presenter], operator=p.operator, params=p.params,
+            by=p.by, without=p.without, children=children)
 
     def _walk_shard_children(self, p) -> list[ExecPlan]:
         if isinstance(p, L.PeriodicSeries):
             psm = PeriodicSamplesMapper(p.start_ms, p.step_ms, p.end_ms, None, None)
             return self._leaves(p.raw_series, psm)
         psm = PeriodicSamplesMapper(p.start_ms, p.step_ms, p.end_ms,
-                                    p.window_ms, p.function)
+                                    p.window_ms, p.function, p.function_args)
         return self._leaves(p.series, psm)
+
+
+def _wrap(child: ExecPlan, transformer) -> ExecPlan:
+    child.transformers = child.transformers + [transformer]
+    return child

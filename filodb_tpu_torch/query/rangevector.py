@@ -8,6 +8,7 @@ NaN marks absent points; presenters drop them at the edge.
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from contextlib import contextmanager
@@ -16,6 +17,22 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+
+def fmt_value(v: float) -> str:
+    """Prometheus sample-value string: full float64 round-trip precision
+    (Go's strconv.FormatFloat with shortest round-trip digits — "%g" would
+    truncate to 6 significant digits and collide distinct count_values
+    labels). Integral values render without a decimal point; non-finite
+    values use Prometheus' spellings."""
+    v = float(v)
+    if math.isnan(v):
+        return "NaN"
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if v == int(v) and abs(v) < 1e17:
+        return str(int(v))
+    return repr(v)
 
 
 def to_numpy(values) -> np.ndarray:

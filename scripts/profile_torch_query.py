@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
-"""Where one ``sum(rate(m[5m]))`` query of the PyTorch/CUDA port spends its
-time, at bench.py's shape (2^20 series x 720 samples) on one card.
+"""Where one query of the PyTorch/CUDA port spends its time, at bench.py's
+shape (2^20 series x 720 samples) on one card: ``sum(rate(m[5m]))`` unless
+other queries are named.
 
     python3 scripts/profile_torch_query.py [--queries 5] [--out DIR]
                                            [--residency off|gauge]
+                                           [--query PROMQL ...]
+                                           [--instant PROMQL ...]
+
+``--query`` (repeatable) profiles a range query over the full 2 h range at
+bench.py's step, ``--instant`` (repeatable) an instant query at the store's
+last sample, each in turn on the one engine.
 
 Builds the same engine as chip_smoke.py's scale phase
 (``filodb_tpu_torch.bench.build_engine``) — with ``--residency gauge`` its
@@ -22,7 +29,9 @@ pool — warms it, then:
 Prints the card (name, power limit) first. Writes the profiler table and the
 cProfile listing to ``--out`` (default ``chiprun_out/``), in
 ``profile_torch_query.txt`` or, with ``--residency gauge``,
-``profile_torch_query_gauge.txt``. Needs a CUDA card.
+``profile_torch_query_gauge.txt``. Needs a CUDA card. Named queries write
+their timings, tables and listings, in turn, to
+``profile_torch_query_general.txt``.
 """
 
 import argparse
@@ -41,6 +50,8 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     ap.add_argument("--residency", choices=("off", "gauge"), default="off")
+    ap.add_argument("--query", action="append", default=[])
+    ap.add_argument("--instant", action="append", default=[])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -65,11 +76,33 @@ def main() -> int:
               flush=True)
     start = cs.BASE_TS + cs.WINDOW_MS
     end = cs.BASE_TS + cs.NUM_SAMPLES * cs.INTERVAL_MS
-    q = "sum(rate(m[5m]))"
+    t_last = int(shard.store.last_ts.max())
+    named = ([(q, False) for q in args.query]
+             + [(q, True) for q in args.instant])
+    report = [f"card: {card}"]
+    for q, instant in named or [("sum(rate(m[5m]))", False)]:
+        report += profile_query(args, torch, np, cs, fg, card, engine, q,
+                                instant, start, end, t_last)
+    os.makedirs(args.out, exist_ok=True)
+    name = ("profile_torch_query_general.txt" if named
+            else "profile_torch_query.txt" if args.residency == "off"
+            else f"profile_torch_query_{args.residency}.txt")
+    with open(os.path.join(args.out, name), "w") as f:
+        f.write("\n".join(report) + "\n")
+    return 0
 
+
+def profile_query(args, torch, np, cs, fg, card, engine, q, instant, start,
+                  end, t_last) -> list[str]:
+    """Steps 1-3 for one query; returns the table and listing to keep."""
     def run():
-        engine.query_range(q, start, end, cs.STEP_MS)
+        if instant:
+            engine.query_instant(q, t_last)
+        else:
+            engine.query_range(q, start, end, cs.STEP_MS)
 
+    what = f"{'instant ' if instant else ''}{q}"
+    print(f"query: {what}", flush=True)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -86,9 +119,9 @@ def main() -> int:
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         dev.append(a.elapsed_time(b))
-    print(f"[{card}] query host ms p50 {np.percentile(host, 50):.3f}; "
-          f"events around the query p50 {np.percentile(dev, 50):.3f} ms",
-          flush=True)
+    timed = (f"[{card}] query host ms p50 {np.percentile(host, 50):.3f}; "
+             f"events around the query p50 {np.percentile(dev, 50):.3f} ms")
+    print(timed, flush=True)
 
     # 2. torch.profiler: device time per query by kernel; the busy share is
     # that time over the unprofiled host p50 above (the profiled window's
@@ -107,10 +140,11 @@ def main() -> int:
                  and not e.is_user_annotation) / 1e3 / args.queries
     table = events.table(sort_by="self_device_time_total", row_limit=15)
     print(table, flush=True)
-    print(f"[{card}] device time per query {dev_ms:.3f} ms over "
-          f"{args.queries} profiled queries, busy share of the host p50 "
-          f"{dev_ms / np.percentile(host, 50):.3f}; K1 launches "
-          f"{fg.fused_grid_kernel.launches_by_kind}", flush=True)
+    busy = (f"[{card}] device time per query {dev_ms:.3f} ms over "
+            f"{args.queries} profiled queries, busy share of the host p50 "
+            f"{dev_ms / np.percentile(host, 50):.3f}; K1 launches "
+            f"{fg.fused_grid_kernel.launches_by_kind}")
+    print(busy, flush=True)
 
     # 3. cProfile: host functions by cumulative time
     pr = cProfile.Profile()
@@ -121,13 +155,7 @@ def main() -> int:
     buf = io.StringIO()
     pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(30)
     print(buf.getvalue(), flush=True)
-
-    os.makedirs(args.out, exist_ok=True)
-    name = ("profile_torch_query.txt" if args.residency == "off"
-            else f"profile_torch_query_{args.residency}.txt")
-    with open(os.path.join(args.out, name), "w") as f:
-        f.write(f"card: {card}\n{table}\n{buf.getvalue()}")
-    return 0
+    return [f"query: {what}", timed, busy, table, buf.getvalue()]
 
 
 if __name__ == "__main__":

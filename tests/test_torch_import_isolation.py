@@ -38,8 +38,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     mods = port_modules()
     for m in ("ops.fusedgrid", "ops.fusedresident", "ops.narrow",
               "ops.decodereg", "ops.gridfns", "ops.rangefns", "ops.kernels",
-              "core.chunkstore", "core.memstore", "query.exec",
-              "query.engine"):
+              "ops.windows", "ops.instantfns", "ops.binop",
+              "ops.aggregators", "core.chunkstore", "core.memstore",
+              "query.exec", "query.engine", "query.planner",
+              "query.rangevector"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
