@@ -136,16 +136,52 @@ Phases, in order; every check asserts and any failure exits non-zero:
                last values (rtol 1e-4: the engine sums f32 as the reference
                does). Prints each query's p50 over 3 runs and its K1
                launches.
+  9a. hist general small (run after phase 6) — phase 6's 1024 histograms
+               with their sum and count columns in five datasets: residency
+               "off" and "all" on one aligned shard, a churned "all" shard,
+               an off-grid "off" shard and an "all" dataset over two
+               shards; the general histogram mix (range functions and the
+               selector over [S, C, B], per-series histogram_quantile /
+               histogram_max_quantile, histogram_bucket, the bucket-wise
+               sum/count, quantiles of sums, the sum/count ratio of
+               __col__ legs; query_range and query_instant) on the card
+               against the CPU engine: keys, bucket tops, NaN placement,
+               values (integer-valued bit for bit, the rest rtol 1e-5, the
+               fused-hist routes' quantiles phase 6's 1e-3), route and
+               QueryStats; K2 launches exactly for the K2-route answers, K1
+               for the fused legs.
+  9b. hist general scale (run after phase 7, on its engine and store) —
+               H1 sum(rate(h[5m])) against K2's partials plus the pool
+               correction at the same query (rtol 1e-5 of the largest
+               sum); H2 histogram_quantile(0.9, rate(h[5m])) over every
+               series against a per-bucket Prometheus rate and quantile
+               written out in f64 over 64 sampled rows' cells as installed
+               (NaN placement equal, rtol 1e-4: the engine's histogram
+               grid path computes its rates in f32); H3 the ratio of the
+               sum and count columns' sum(rate) (K1 raw twice) against the
+               quotient of its legs, each leg against K1's plain twin.
+               Prints each query's p50 over 3 runs and its K1 launches.
+  10. subqueries and @ at scale (run after 8b, on phase 4's engine and
+               store, bench range variant 0) — Q1
+               max_over_time(sum(rate(m[5m]))[30m:1m]) (K1 once) exactly
+               against a windowed max over its inner query's 1m-grid
+               answer; Q2 sum(rate(m[5m] @ <end>)) bit for bit at every
+               step against the instant query at <end>, and within 1e-5
+               of K1's sum there; Q3
+               avg_over_time(rate(m{host=~"h1.*"}[5m])[10m:1m]) over
+               159,687 series against a windowed mean of its inner matrix
+               in torch (rtol 1e-9). Prints each query's p50 over 3 runs.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, it exits 2 and
 prints no result (1 where torch itself is missing).
 
-    python3 chip_smoke.py --profile-hist
+    python3 chip_smoke.py --profile-hist [--query PROMQL ...]
 
-instead builds phase 7's store and profiles its query (torch.profiler and
-cProfile, tables also written to chiprun_out/); it prints no result line.
+instead builds phase 7's store and profiles its query, or each query
+``--query`` names over phase 7's range (torch.profiler and cProfile,
+tables also written to chiprun_out/); it prints no result line.
 
     python3 chip_smoke.py --k2-parts OUT [--root DIR]
     python3 chip_smoke.py --k2-compare A B [...]
@@ -189,6 +225,9 @@ HIST_STEP_MS = 60_000
 HIST_QUERY = "histogram_quantile(0.9, sum(rate(req_latency[5m])))"
 HIST_BATCH = 1 << 13
 EXCLUDED_GID = 1 << 30
+# the rows phase 9b holds H2 against: every residue mod 16 (four of them
+# are cohort-pool rows, 15 mod 16)
+HIST_SAMPLE_ROWS = tuple(range(3, 64 * 2047, 2047))
 HIST_FNS = ("rate", "increase", "delta")
 
 # the flush's ladder, in order (core/chunkstore.py::_prepare_scalar)
@@ -618,14 +657,19 @@ def phase_quant16_scale(torch, np, narrow, dev):
         int(outs["cpu"][3].sum())
 
 
-def compare_result(np, q, g, r, exact: bool) -> None:
+def compare_result(np, q, g, r, exact: bool, rtol: float = 1e-5,
+                   route: str | None = "local") -> None:
     """One answer on the card against the CPU engine's: keys in order,
-    steps, shape, NaN and Inf placement, values (bit for bit where
-    ``exact``, else rtol 1e-5 of the largest finite magnitude) and the
-    QueryStats counters."""
+    steps, bucket tops, shape, NaN and Inf placement, values (bit for bit
+    where ``exact``, else ``rtol`` of the largest finite magnitude), the
+    QueryStats counters and the route (before its implementation bracket;
+    ``route`` None: any route, the same on both)."""
     assert [k.labels for k in g.matrix.keys] == \
         [k.labels for k in r.matrix.keys], q
     assert np.array_equal(g.matrix.out_ts, r.matrix.out_ts), q
+    gl, rl = g.matrix.bucket_les, r.matrix.bucket_les
+    assert (gl is None) == (rl is None) and (
+        gl is None or np.array_equal(gl, rl)), (q, "bucket tops")
     gv = np.asarray(g.matrix.values, np.float64)
     rv = np.asarray(r.matrix.values, np.float64)
     assert gv.shape == rv.shape, (q, gv.shape, rv.shape)
@@ -636,13 +680,14 @@ def compare_result(np, q, g, r, exact: bool) -> None:
     else:
         fin = np.isfinite(rv)
         scale = float(np.abs(rv[fin]).max(initial=0.0))
-        np.testing.assert_allclose(gv[fin], rv[fin], rtol=1e-5,
-                                   atol=1e-5 * scale, err_msg=q)
+        np.testing.assert_allclose(gv[fin], rv[fin], rtol=rtol,
+                                   atol=rtol * scale, err_msg=q)
         assert (gv[np.isinf(rv)] == rv[np.isinf(rv)]).all(), q
     for k in ("fused_kernels", "blocks_narrow", "blocks_raw",
-              "series_matched"):
+              "series_matched", "subquery_inner_cells"):
         assert getattr(g.stats, k) == getattr(r.stats, k), (q, k)
-    assert g.exec_path == r.exec_path == "local", (q, g.exec_path)
+    gp, rp = g.exec_path.split("[")[0], r.exec_path.split("[")[0]
+    assert gp == rp and route in (None, gp), (q, g.exec_path, r.exec_path)
 
 
 def compare_engines(np, got, ref_engine, queries, start, end, step):
@@ -1579,13 +1624,23 @@ def phase_hist_small(torch, np, fr, pkg, devs=("cuda", "cpu")):
 def build_hist_scale(torch, np, pkg, dev):
     """2^17 histogram series registered through the real ingest path, then
     their 300 samples x 32 buckets installed on the card from a seeded
-    torch.Generator (integer counts; one row in 16 scaled by 0.3), then the
-    shard's flush compresses the block through compress_prepare /
-    compress_commit, as after any ingest."""
+    torch.Generator (integer counts; one row in 16 scaled by 0.3), with
+    the schema's ``count`` column (the +Inf bucket) and ``sum`` column (each
+    bucket's new observations at its midpoint) derived from the same
+    counts; then the shard's flush compresses the bucket block through
+    compress_prepare / compress_commit, as after any ingest (the scalar
+    columns stay raw f32). Returns (engine, shard, registration s,
+    compression s, raw sample bytes, the HIST_SAMPLE_ROWS rows' cells as
+    installed). The engine's sample limit admits a per-series answer over
+    every series (phase 9b's H2)."""
     StoreConfig, TimeSeriesMemStore, RecordBuilder, PROM_HISTOGRAM, \
         QueryEngine = pkg
+    from filodb_tpu_torch.query.engine import QueryConfig
     S, B = HIST_SERIES, HIST_BUCKETS
     les = np.concatenate([2.0 ** np.arange(B - 1), [np.inf]])
+    mids = torch.tensor(np.concatenate([[0.5], 0.75 * les[1:-1],
+                                        [1.5 * les[-2]]]),
+                        dtype=torch.float32, device=dev)
     ms = TimeSeriesMemStore(device=dev)
     shard = ms.setup("bench", PROM_HISTOGRAM, 0, StoreConfig(
         max_series_per_shard=S, samples_per_series=HIST_CAPACITY,
@@ -1609,6 +1664,10 @@ def build_hist_scale(torch, np, pkg, dev):
             rows = torch.arange(r0, r0 + HIST_BATCH, device=dev)
             c = torch.where((rows % 16 == 15)[:, None, None], c * 0.3, c)
             st.val[r0:r0 + HIST_BATCH, :HIST_SAMPLES] = c
+            st.extra["count"][r0:r0 + HIST_BATCH, :HIST_SAMPLES] = c[..., -1]
+            st.extra["sum"][r0:r0 + HIST_BATCH, :HIST_SAMPLES] = (
+                torch.diff(c, dim=2, prepend=torch.zeros_like(c[..., :1]))
+                @ mids)
         row = BASE_TS + torch.arange(HIST_SAMPLES, device=dev) * INTERVAL_MS
         st.ts[:, :HIST_SAMPLES] = row
         st.n.fill_(HIST_SAMPLES)
@@ -1617,6 +1676,8 @@ def build_hist_scale(torch, np, pkg, dev):
         st.last_ts[:] = BASE_TS + (HIST_SAMPLES - 1) * INTERVAL_MS
         st.grid_base, st.grid_interval, st.grid_ok = BASE_TS, INTERVAL_MS, True
         st.stats.samples_appended += S * HIST_SAMPLES
+        sampled = st.val[torch.tensor(HIST_SAMPLE_ROWS, device=dev),
+                         :HIST_SAMPLES].cpu().numpy()
     raw_bytes = st.resident_sample_bytes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1627,8 +1688,9 @@ def build_hist_scale(torch, np, pkg, dev):
     dd, _first_d, ok = st.hist_operands()
     assert dd.dtype == torch.int8, dd.dtype
     assert int((~ok).sum()) == S // 16, int((~ok).sum())
-    return (QueryEngine(ms, "bench", device=dev), shard, reg_s, comp_s,
-            raw_bytes)
+    engine = QueryEngine(ms, "bench", device=dev,
+                         config=QueryConfig(sample_limit=S * 64))
+    return engine, shard, reg_s, comp_s, raw_bytes, sampled
 
 
 HIST_START = BASE_TS + 600_000
@@ -1685,7 +1747,7 @@ def hist_scale_operands(torch, np, fr, engine, shard):
 
 
 def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
-    engine, shard, reg_s, comp_s, raw_bytes = build_hist_scale(
+    engine, shard, reg_s, comp_s, raw_bytes, sampled = build_hist_scale(
         torch, np, pkg, dev)
     st = shard.store
     res_bytes = st.resident_sample_bytes()
@@ -1768,8 +1830,8 @@ def phase_hist_scale(torch, np, fr, card, pkg, dev="cuda"):
     log(f"hist scale [{card}]: library call: none (no single PyTorch call "
         f"computes this function); launches per query {launches / 11:.2f}; "
         f"K2 vs plain max |diff| {worst:.3g}")
-    return dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return (dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
+                 bound_ms=bound_ms, bound_by=bound_by), engine, shard, sampled)
 
 
 def k2_fold_ms(torch, fr, shape, B, Tp, G, ops, dev):
@@ -1787,69 +1849,77 @@ def k2_fold_ms(torch, fr, shape, B, Tp, G, ops, dev):
     return cuda_ms(fold, reps=50)
 
 
-def profile_hist(torch, np, fr, card, pkg, queries: int = 5) -> None:
-    """Where one scale-phase histogram query spends its time: host clock
-    and CUDA events per query, torch.profiler's device kernels by total
-    time (and the device's busy share of the host p50), cProfile's host
-    functions by cumulative time. Writes the two tables to chiprun_out/."""
+def profile_hist(torch, np, fr, fg, card, pkg, named=(),
+                 queries: int = 5) -> None:
+    """Where scale-phase histogram queries spend their time (phase 7's
+    query unless ``named`` lists others, each over phase 7's range): host
+    clock and CUDA events per query, torch.profiler's device kernels by
+    total time (and the device's busy share of the host p50), cProfile's
+    host functions by cumulative time. Writes the tables to chiprun_out/."""
     import cProfile
     import io
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
-    engine, _shard, _reg, _comp, _raw = build_hist_scale(torch, np, pkg,
-                                                          "cuda")
-    start = BASE_TS + 600_000
-    end = BASE_TS + (HIST_SAMPLES - 10) * INTERVAL_MS
+    engine, _shard, _reg, _comp, _raw, _cells = build_hist_scale(
+        torch, np, pkg, "cuda")
+    report = [f"card: {card}"]
+    for q in named or (HIST_QUERY,):
+        def run():
+            engine.query_range(q, HIST_START, HIST_END, HIST_STEP_MS)
 
-    def run():
-        engine.query_range(HIST_QUERY, start, end, HIST_STEP_MS)
-
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    host, dev = [], []
-    for _ in range(queries):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        a.record()
-        run()
-        b.record()
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3)
-        dev.append(a.elapsed_time(b))
-    p50 = float(np.percentile(host, 50))
-    log(f"[{card}] hist query host ms p50 {p50:.3f}; events around the "
-        f"query p50 {np.percentile(dev, 50):.3f} ms")
-    fr.fused_hist_kernel.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(queries):
+        log(f"query: {q}")
+        for _ in range(3):
             run()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    # device rows only: an aten op's row repeats its kernels' time
-    dev_ms = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.is_user_annotation) / 1e3 / queries
-    table = events.table(sort_by="self_device_time_total", row_limit=20)
-    log(table)
-    log(f"[{card}] device time per query {dev_ms:.3f} ms over {queries} "
-        f"profiled queries, busy share of the host p50 {dev_ms / p50:.3f}; "
-        f"K2 launches {fr.fused_hist_kernel.launches}")
-    pr = cProfile.Profile()
-    pr.enable()
-    for _ in range(queries):
-        run()
-    pr.disable()
-    buf = io.StringIO()
-    pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(30)
-    log(buf.getvalue())
+        host, dev = [], []
+        for _ in range(queries):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            run()
+            b.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(a.elapsed_time(b))
+        p50 = float(np.percentile(host, 50))
+        timed = (f"[{card}] hist query host ms p50 {p50:.3f}; events around "
+                 f"the query p50 {np.percentile(dev, 50):.3f} ms")
+        log(timed)
+        fr.fused_hist_kernel.launches = 0
+        reset_k1(fg)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(queries):
+                run()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # device rows only: an aten op's row repeats its kernels' time
+        dev_ms = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation) / 1e3 / queries
+        table = events.table(sort_by="self_device_time_total", row_limit=20)
+        log(table)
+        busy = (f"[{card}] device time per query {dev_ms:.3f} ms over "
+                f"{queries} profiled queries, busy share of the host p50 "
+                f"{dev_ms / p50:.3f}; K2 launches "
+                f"{fr.fused_hist_kernel.launches}, K1 launches "
+                f"{fg.fused_grid_kernel.launches}")
+        log(busy)
+        pr = cProfile.Profile()
+        pr.enable()
+        for _ in range(queries):
+            run()
+        pr.disable()
+        buf = io.StringIO()
+        pstats.Stats(pr, stream=buf).sort_stats("cumulative").print_stats(30)
+        log(buf.getvalue())
+        report += [f"query: {q}", timed, busy, table, buf.getvalue()]
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "profile_hist_query.txt"), "w") as f:
-        f.write(f"card: {card}\n{table}\n{buf.getvalue()}")
+        f.write("\n".join(report) + "\n")
 
 
 def k2_parts(torch, np, fr, card, pkg, out_path: str, dev="cuda") -> None:
@@ -1857,7 +1927,8 @@ def k2_parts(torch, np, fr, card, pkg, out_path: str, dev="cuda") -> None:
     single-query p50, K2's time by CUDA events (with the scratch zeroing
     and the fold, as a caller pays them), and K2's partials saved to
     ``out_path``."""
-    engine, shard, _reg, _comp, _raw = build_hist_scale(torch, np, pkg, dev)
+    engine, shard, _reg, _comp, _raw, _cells = build_hist_scale(torch, np,
+                                                                pkg, dev)
     p50, _r, lat, _launches = hist_scale_queries(torch, fr, engine)
     _data, dd, first_d, n, _g, gids_t, _corr, ops, _oe, _T = \
         hist_scale_operands(torch, np, fr, engine, shard)
@@ -2134,7 +2205,404 @@ def phase_general_scale(torch, np, fg, card, engine, shard):
         log(f"general scale [{card}]: {name} {q}: p50 {lat[name]:.3f} ms "
             f"over {SCALE_GENERAL_REPS} runs, K1 launches a query "
             f"{k1[name]:g}")
-    return lat, k1
+    return lat, int(sum(k1.values()) * SCALE_GENERAL_REPS)
+
+
+# ---- phase 9: the general histogram path ------------------------------------
+
+# phase 9a's mix: the range functions and the instant selector over
+# histograms, per-series quantiles and bucket picks, the bucket-wise
+# reduce, quantiles of sums (the fused-hist routes on one aligned shard,
+# the general path elsewhere) and the average-latency panel over the
+# schema's sum and count columns
+HIST_GENERAL_QUERIES = (
+    "rate(h[5m])", "increase(h[5m])", "delta(h[5m])", "sum_over_time(h[5m])",
+    "last_over_time(h[5m])", "h",
+    "histogram_quantile(0.9, rate(h[5m]))",
+    "histogram_max_quantile(0.99, increase(h[5m]))",
+    "histogram_bucket(64, rate(h[5m]))",
+    "sum by (host) (rate(h[5m]))", "sum(rate(h[5m]))",
+    "count(increase(h[5m]))",
+    "histogram_quantile(0.9, sum(rate(h[5m])))",
+    "histogram_quantile(0.5, sum by (host) (rate(h[5m])))",
+    'sum(rate(h{__col__="sum"}[5m])) / sum(rate(h{__col__="count"}[5m]))',
+)
+HIST_GENERAL_EXACT = {"h", "last_over_time(h[5m])", "count(increase(h[5m]))"}
+HIST_GENERAL_INSTANT = ("h", "histogram_quantile(0.9, rate(h[5m]))")
+# (residency, layout) of phase 9a's datasets
+HIST_GENERAL_SETS = (("off", "aligned"), ("all", "aligned"),
+                     ("all", "churned"), ("off", "offgrid"),
+                     ("all", "two_shard"))
+
+
+def ingest_hist_general(RecordBuilder, PROM_HISTOGRAM, stores, np, layout):
+    """Phase 6's 1024 histograms (B = 16, 100 samples; one series in 16
+    scaled by 0.3 and one with a counter reset: the cohort pool) with the
+    schema's sum and count columns, through the real ingest path into
+    every memstore of ``stores``. ``churned``: a sixteenth start 20 cells
+    late; ``offgrid``: every sample a few ms off its cell; ``two_shard``:
+    series alternate between shards 0 and 1."""
+    rng = np.random.default_rng(5)
+    B, n_samples, per = 16, 100, 256
+    les = np.concatenate([2.0 ** np.arange(B - 1), [np.inf]])
+    mids = np.concatenate([[0.5], 0.75 * les[1:-1], [1.5 * les[-2]]])
+    nsh = 2 if layout == "two_shard" else 1
+    for c0 in range(0, 1024, per):
+        bs = [RecordBuilder(PROM_HISTOGRAM, bucket_les=les)
+              for _ in range(nsh)]
+        for s in range(c0, c0 + per):
+            c = np.cumsum(np.cumsum(rng.poisson(0.3, (n_samples, B)), axis=0),
+                          axis=1).astype(np.float64)
+            if s % 16 == 7:
+                c = c * 0.3
+            elif s % 16 == 11:
+                c[60:] -= c[60]
+            late = 20 if layout == "churned" and s % 16 == 5 else 0
+            ts = BASE_TS + np.arange(late, n_samples,
+                                     dtype=np.int64) * INTERVAL_MS
+            if layout == "offgrid":
+                ts = ts + rng.integers(1, 900, len(ts))
+            c = c[late:]
+            bs[s % nsh].add_batch(
+                {"_metric_": "h", "host": f"h{s % 8}", "inst": f"i{s}"}, ts,
+                {"sum": np.diff(c, axis=1, prepend=0.0) @ mids,
+                 "count": c[:, -1], "h": c})
+        conts = [b.build() for b in bs]
+        for ms in stores:
+            for shard, cont in enumerate(conts):
+                ms.ingest("p", shard, cont)
+    for ms in stores:
+        ms.flush_all()
+
+
+def phase_hist_general_small(torch, np, fg, fr, pkg, devs=("cuda", "cpu")):
+    """Phase 9a: the general histogram mix on the card against the CPU
+    engine over five datasets; K2 launches only for K2-route answers and
+    K1 for the fused legs. Returns (queries, K1 launches, K2 launches)."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, PROM_HISTOGRAM, \
+        QueryEngine = pkg
+    start, end, step = BASE_TS + 300_000, BASE_TS + 990_000, 30_000
+    t_inst = BASE_TS + 700_000
+    n_q = k1_all = k2_all = 0
+    for mode, layout in HIST_GENERAL_SETS:
+        engines, stores = {}, []
+        for dev in devs:
+            ms = TimeSeriesMemStore(device=dev)
+            for shard in range(2 if layout == "two_shard" else 1):
+                ms.setup("p", PROM_HISTOGRAM, shard, StoreConfig(
+                    max_series_per_shard=1024, samples_per_series=128,
+                    flush_batch_size=10**9, compressed_residency=mode,
+                    device=dev))
+            stores.append(ms)
+            engines[dev] = QueryEngine(ms, "p", device=dev)
+        ingest_hist_general(RecordBuilder, PROM_HISTOGRAM, stores, np, layout)
+        st = stores[0].shard("p", 0).store
+        assert st.is_narrow_resident == (mode == "all"), (mode, layout)
+        card, cpu = engines[devs[0]], engines[devs[1]]
+        # the main path: counts from 0, read right after
+        reset_k1(fg)
+        fr.fused_hist_kernel.launches = 0
+        got = {q: card.query_range(q, start, end, step)
+               for q in HIST_GENERAL_QUERIES}
+        got_i = {q: card.query_instant(q, t_inst)
+                 for q in HIST_GENERAL_INSTANT}
+        k1, k2 = fg.fused_grid_kernel.launches, fr.fused_hist_kernel.launches
+        answers = list(got.values()) + list(got_i.values())
+        k2_route = sum(r.exec_path.startswith("fused-hist-narrow")
+                       for r in answers)
+        fused = sum(r.stats.fused_kernels for r in answers)
+        assert k2 == k2_route and k1 == fused - k2_route, \
+            (mode, layout, k1, k2, fused, k2_route)
+        aligned = layout == "aligned"
+        assert k2_route == (2 if aligned and mode == "all" else 0), \
+            (mode, layout, k2_route)
+        # two fused legs on every grid-aligned shard
+        legs = 0 if layout == "offgrid" else 2 * len(stores[0].shards_of("p"))
+        assert k1 == legs, (mode, layout, k1)
+        for q, g in list(got.items()) + [(f"instant {q}", r)
+                                         for q, r in got_i.items()]:
+            r = (cpu.query_instant(q[8:], t_inst) if q.startswith("instant")
+                 else cpu.query_range(q, start, end, step))
+            # the fused-hist routes keep phase 6's quantile bar: their
+            # partials agree to 1e-5 and the interpolation divides by one
+            # bucket's count difference
+            fused_hist = g.exec_path.startswith("fused-hist")
+            compare_result(np, f"{mode} {layout} {q}", g, r,
+                           q.removeprefix("instant ") in HIST_GENERAL_EXACT,
+                           rtol=1e-3 if fused_hist else 1e-5, route=None)
+            assert g.matrix.num_series > 0, (mode, layout, q)
+        n_q += len(answers)
+        k1_all += k1
+        k2_all += k2
+    return n_q, k1_all, k2_all
+
+
+# phase 9b's queries over phase 7's store (39 steps at 60 s)
+HIST_SCALE_GENERAL = {
+    "H1": "sum(rate(req_latency[5m]))",
+    "H2": "histogram_quantile(0.9, rate(req_latency[5m]))",
+    "H3": ('sum(rate(req_latency{__col__="sum"}[5m])) / '
+           'sum(rate(req_latency{__col__="count"}[5m]))'),
+}
+
+
+def prom_hist_rate(np, cells, t_out, window_ms):
+    """Per-bucket counter rate of one grid row's cumulative counts
+    ``cells`` [C, B] (sample i at BASE_TS + i * INTERVAL_MS, no resets) at
+    the steps ``t_out``, written out in f64 after Prometheus'
+    extrapolatedRate, over the repo's windows [t - w, t]: [T, B], NaN
+    below two samples."""
+    C, B = cells.shape
+    ts = BASE_TS + np.arange(C, dtype=np.int64) * INTERVAL_MS
+    out = np.full((len(t_out), B), np.nan)
+    for k, t in enumerate(t_out):
+        idx = np.nonzero((ts >= t - window_ms) & (ts <= t))[0]
+        if len(idx) < 2:
+            continue
+        first, last = cells[idx[0]], cells[idx[-1]]
+        delta = last - first
+        sampled = (ts[idx[-1]] - ts[idx[0]]) / 1000.0
+        avg = sampled / (len(idx) - 1)
+        dur_start = (ts[idx[0]] - (t - window_ms)) / 1000.0
+        dur_end = (t - ts[idx[-1]]) / 1000.0
+        for b in range(B):
+            ds = dur_start
+            if delta[b] > 0 and first[b] >= 0:
+                ds = min(ds, sampled * first[b] / delta[b])
+            ext = (sampled + (ds if ds < avg * 1.1 else avg / 2)
+                   + (dur_end if dur_end < avg * 1.1 else avg / 2))
+            out[k, b] = delta[b] * ext / sampled / (window_ms / 1000.0)
+    return out
+
+
+def prom_bucket_quantile(np, q, les, counts):
+    """Prometheus' bucketQuantile over cumulative bucket counts [B] in
+    f64: NaN for an empty histogram, the highest finite bound when the
+    rank falls in the +Inf bucket, else linear within the bucket."""
+    total = counts[-1]
+    if not total > 0:
+        return np.nan
+    rank = q * total
+    b = int(np.argmax(counts >= rank))
+    if b == len(les) - 1:
+        return les[-2]
+    lo_le, lo_cnt = (0.0, 0.0) if b == 0 else (les[b - 1], counts[b - 1])
+    return lo_le + (les[b] - lo_le) * (rank - lo_cnt) / (counts[b] - lo_cnt)
+
+
+def phase_hist_general_scale(torch, np, fg, fr, card, engine, shard,
+                             sampled):
+    """Phase 9b: H1-H3 through phase 7's engine on its store, each held
+    against an independent computation; returns ({name: p50 ms}, K1
+    launches)."""
+    st = shard.store
+    S, B = HIST_SERIES, HIST_BUCKETS
+    out_ts = np.arange(HIST_START, HIST_END + 1, HIST_STEP_MS,
+                       dtype=np.int64)
+    T = len(out_ts)
+
+    def run(name):
+        return engine.query_range(HIST_SCALE_GENERAL[name], HIST_START,
+                                  HIST_END, HIST_STEP_MS)
+
+    for name in HIST_SCALE_GENERAL:            # first calls: load + warm
+        run(name)
+    # the main path: counts from 0, read right after
+    reset_k1(fg)
+    fr.fused_hist_kernel.launches = 0
+    res, lat, k1 = {}, {}, {}
+    for name in HIST_SCALE_GENERAL:
+        before = fg.fused_grid_kernel.launches
+        times = []
+        for _ in range(SCALE_GENERAL_REPS):
+            t0 = time.perf_counter()
+            res[name] = run(name)
+            times.append((time.perf_counter() - t0) * 1000)
+        lat[name] = float(np.percentile(times, 50))
+        k1[name] = (fg.fused_grid_kernel.launches - before) / SCALE_GENERAL_REPS
+        assert k1[name] == res[name].stats.fused_kernels, (name, k1[name])
+        assert res[name].exec_path == "local", (name, res[name].exec_path)
+    assert fr.fused_hist_kernel.launches == 0, fr.fused_hist_kernel.launches
+    assert k1 == {"H1": 0, "H2": 0, "H3": 2}, k1
+    launches = fg.fused_grid_kernel.launches
+
+    # H1 against K2's partials plus the pool correction at the same query
+    data, dd, first_d, n, gids, gids_t, corr, ops, out_eval, _T = \
+        hist_scale_operands(torch, np, fr, engine, shard)
+    ps, _pc = fr.fused_hist_kernel("rate", WINDOW_MS, INTERVAL_MS, dd,
+                                   first_d, n, gids_t, ops, 8)
+    want1 = (ps[0].reshape(-1, B)[:T].double()
+             + corr[0][0].reshape(-1, B)[:T].double()).cpu().numpy()
+    v1 = np.asarray(res["H1"].matrix.values, np.float64)
+    assert v1.shape == (1, T, B) and np.isfinite(v1).all(), v1.shape
+    np.testing.assert_array_equal(res["H1"].matrix.bucket_les,
+                                  data.bucket_les)
+    scale1 = float(np.abs(want1).max())
+    np.testing.assert_allclose(v1[0], want1, rtol=1e-5, atol=1e-5 * scale1,
+                               err_msg="H1")
+    err1 = float(np.abs(v1[0] - want1).max() / scale1)
+
+    # H2 against a per-bucket Prometheus rate and quantile over the sampled
+    # rows' cells as installed. The engine's histogram grid path computes
+    # the rates in f32, as the JAX package does on an f32 store, and the
+    # interpolation divides their error by one bucket's count difference:
+    # rtol 1e-4, a tenth of phase 7's quantile bar
+    les = np.asarray(data.bucket_les, np.float64)
+    v2 = np.asarray(res["H2"].matrix.values, np.float64)
+    assert v2.shape == (S, T), v2.shape
+    keys = res["H2"].matrix.keys
+    want2 = np.empty((len(HIST_SAMPLE_ROWS), T))
+    for i, row in enumerate(HIST_SAMPLE_ROWS):
+        assert keys[row].as_dict()["host"] == f"h{row}", (row, keys[row])
+        rates = prom_hist_rate(np, sampled[i].astype(np.float64), out_ts,
+                               WINDOW_MS)
+        want2[i] = [prom_bucket_quantile(np, 0.9, les, r) for r in rates]
+    got2 = v2[list(HIST_SAMPLE_ROWS)]
+    np.testing.assert_array_equal(np.isnan(got2), np.isnan(want2))
+    np.testing.assert_allclose(got2, want2, rtol=1e-4, equal_nan=True,
+                               err_msg="H2")
+    fin = np.isfinite(want2)
+    err2 = float(np.abs(got2[fin] / want2[fin] - 1).max())
+
+    # H3 against the quotient of its legs (the join divides their f32
+    # sums), each leg against K1's plain twin on the column
+    legs = {}
+    for col in ("sum", "count"):
+        q = f'sum(rate(req_latency{{__col__="{col}"}}[5m]))'
+        legs[col] = np.asarray(engine.query_range(
+            q, HIST_START, HIST_END, HIST_STEP_MS).matrix.values)
+        Tp = -(-T // 128) * 128
+        band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
+            HIST_CAPACITY, Tp, out_ts.tobytes(), WINDOW_MS, BASE_TS,
+            INTERVAL_MS, "rate", False, st.n.device)
+        plain = fg.PaddedPartials(fg.fused_grid_aggregate_plain(
+            "rate", False, WINDOW_MS, INTERVAL_MS, st.extra[col], st.n,
+            fg.zero_gids(st.S, st.n.device), band, ohlo, lo, hi, rel, 8, c0,
+            Ca), "sum", 8, T).resolve()
+        ref = np.asarray(plain["sum"][:1], np.float64)
+        np.testing.assert_allclose(legs[col], ref, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(ref).max()),
+                                   err_msg=f"H3 {col} leg")
+    want3 = (legs["sum"] / legs["count"]).astype(np.float64)
+    v3 = np.asarray(res["H3"].matrix.values, np.float64)
+    assert v3.shape == (1, T) and np.isfinite(v3).all(), v3.shape
+    np.testing.assert_allclose(v3, want3, rtol=float(np.finfo(np.float32).eps),
+                               err_msg="H3")
+    log(f"hist general scale [{card}]: {S} histograms x {T} steps x {B} "
+        f"buckets; H1 max diff to K2 + pool correction {err1:.3g} of the "
+        f"largest sum; H2 max rel diff to the written-out quantile "
+        f"{err2:.3g} over {len(HIST_SAMPLE_ROWS)} rows; H3 max rel diff to "
+        f"its legs {float(np.abs(v3 / want3 - 1).max()):.3g}")
+    for name, q in HIST_SCALE_GENERAL.items():
+        log(f"hist general scale [{card}]: {name} {q}: p50 {lat[name]:.3f} "
+            f"ms over {SCALE_GENERAL_REPS} runs, K1 launches a query "
+            f"{k1[name]:g}")
+    return lat, launches
+
+
+# ---- phase 10: subqueries and @ ---------------------------------------------
+
+def phase_subquery_scale(torch, np, fg, card, engine, shard):
+    """Phase 10: Q1-Q3 through phase 4's engine on its store (bench range
+    variant 0), each held against an independent computation over its
+    inner query's own answer; returns ({name: p50 ms}, K1 launches)."""
+    S = shard.num_series
+    s, e = range_variants(shard)[0]
+    assert e % 1000 == 0, e
+    out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
+    T = len(out_ts)
+    queries = {
+        "Q1": "max_over_time(sum(rate(m[5m]))[30m:1m])",
+        "Q2": f"sum(rate(m[5m] @ {e // 1000}))",
+        "Q3": 'avg_over_time(rate(m{host=~"h1.*"}[5m])[10m:1m])',
+    }
+    # a per-series answer over 159,687 series x 47 steps
+    engine.config.sample_limit = max(engine.config.sample_limit, S * 64)
+
+    def run(name):
+        return engine.query_range(queries[name], s, e, STEP_MS)
+
+    for name in queries:                        # first calls: load + warm
+        run(name)
+    # the main path: counts from 0, read right after
+    reset_k1(fg)
+    res, lat, k1 = {}, {}, {}
+    for name in queries:
+        before = fg.fused_grid_kernel.launches
+        times = []
+        for _ in range(SCALE_GENERAL_REPS):
+            t0 = time.perf_counter()
+            res[name] = run(name)
+            times.append((time.perf_counter() - t0) * 1000)
+        lat[name] = float(np.percentile(times, 50))
+        k1[name] = (fg.fused_grid_kernel.launches - before) / SCALE_GENERAL_REPS
+        assert k1[name] == res[name].stats.fused_kernels, (name, k1[name])
+        assert res[name].exec_path == "local", (name, res[name].exec_path)
+    assert k1 == {"Q1": 1, "Q2": 0, "Q3": 0}, k1
+    launches = fg.fused_grid_kernel.launches
+
+    def inner_grid(rng):
+        sub = 60_000
+        return ((s - rng) // sub + 1) * sub, (e // sub) * sub, sub
+
+    def windows(sub_ts, rng):
+        """Each outer step's inner cells, the repo's windows [t - w, t]."""
+        return [(sub_ts >= t - rng) & (sub_ts <= t) for t in out_ts]
+
+    # Q1: a windowed max written out over the inner query's 1m-grid answer
+    inner1 = engine.query_range("sum(rate(m[5m]))", *inner_grid(1_800_000))
+    iv = np.asarray(inner1.matrix.values, np.float64)[0]
+    want1 = np.array([iv[w][np.isfinite(iv[w])].max()
+                      for w in windows(inner1.matrix.out_ts, 1_800_000)])
+    v1 = np.asarray(res["Q1"].matrix.values, np.float64)
+    assert v1.shape == (1, T), v1.shape
+    assert np.array_equal(v1[0], want1), ("Q1", v1[0, :4], want1[:4])
+    # Q2: every step bit for bit the instant query at the pinned time, and
+    # within K1's bar of the fused sum at that time
+    v2 = np.asarray(res["Q2"].matrix.values, np.float64)
+    pinned = np.asarray(engine.query_instant(queries["Q2"], e).matrix.values,
+                        np.float64)
+    assert v2.shape == (1, T) and pinned.shape == (1, 1), (v2.shape,
+                                                           pinned.shape)
+    assert np.array_equal(v2[0], np.repeat(pinned[0], T)), ("Q2", v2[0, :4],
+                                                            pinned)
+    fused = np.asarray(engine.query_instant("sum(rate(m[5m]))", e)
+                       .matrix.values, np.float64)
+    np.testing.assert_allclose(v2[0, 0], fused[0, 0], rtol=1e-5,
+                               err_msg="Q2")
+    # Q3: a windowed mean of the inner matrix, in torch on the card
+    inner3 = engine.query_range('rate(m{host=~"h1.*"}[5m])',
+                                *inner_grid(600_000))
+    iv3 = torch.from_numpy(np.asarray(inner3.matrix.values,
+                                      np.float64)).cuda()
+    want3 = torch.empty((iv3.shape[0], T), dtype=torch.float64,
+                        device=iv3.device)
+    for k, w in enumerate(windows(inner3.matrix.out_ts, 600_000)):
+        x = iv3[:, torch.from_numpy(w).cuda()]
+        ok = torch.isfinite(x)
+        want3[:, k] = (torch.where(ok, x, 0.0).sum(1)
+                       / ok.sum(1).double())    # 0/0: NaN, an empty window
+    want3 = want3.cpu().numpy()
+    v3 = np.asarray(res["Q3"].matrix.values, np.float64)
+    n3 = res["Q3"].matrix.num_series
+    # the hosts h0 .. h{S-1} whose name starts "h1": 159,687 of 2^20
+    assert v3.shape == want3.shape == (n3, T) and n3 == sum(
+        str(i).startswith("1") for i in range(S)), (v3.shape, want3.shape)
+    assert res["Q3"].stats.subquery_inner_cells == n3 * len(
+        inner3.matrix.out_ts), res["Q3"].stats.subquery_inner_cells
+    np.testing.assert_array_equal(np.isnan(v3), np.isnan(want3))
+    np.testing.assert_allclose(v3, want3, rtol=1e-9, equal_nan=True,
+                               err_msg="Q3")
+    fin = np.isfinite(want3)
+    log(f"subquery scale [{card}]: {S} series x {T} steps; Q1 exact; Q2 "
+        f"{float(v2[0, 0])!r} at every step, rel diff to K1's sum "
+        f"{abs(v2[0, 0] / fused[0, 0] - 1):.3g}; Q3 {n3} series, max rel "
+        f"diff {float(np.abs(v3[fin] / want3[fin] - 1).max()):.3g}")
+    for name, q in queries.items():
+        log(f"subquery scale [{card}]: {name} {q}: p50 {lat[name]:.3f} ms "
+            f"over {SCALE_GENERAL_REPS} runs, K1 launches a query "
+            f"{k1[name]:g}")
+    return lat, launches
 
 
 def main() -> int:
@@ -2163,7 +2631,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--profile-hist"]:
         # not part of the smoke run: the profile behind PERF.md section 5
         kernels.build()
-        profile_hist(torch, np, fr, card, hpkg)
+        named = [sys.argv[i + 1] for i, a in enumerate(sys.argv[:-1])
+                 if a == "--query"]
+        profile_hist(torch, np, fr, fg, card, hpkg, named)
         return 0
     if sys.argv[1:2] == ["--k2-parts"]:
         kernels.build(("fusedhist",))
@@ -2244,9 +2714,12 @@ def main() -> int:
     trace_concurrent_round(torch, bench, card, engine, shard)
     log(f"bench: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_general_scale(torch, np, fg, card, engine, shard)
-    del engine, shard
+    _lat8b, k1_8b = phase_general_scale(torch, np, fg, card, engine, shard)
     log(f"general scale: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _lat10, k1_10 = phase_subquery_scale(torch, np, fg, card, engine, shard)
+    del engine, shard
+    log(f"subquery scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2280,13 +2753,25 @@ def main() -> int:
     log(f"hist small: {len(HIST_SMALL_QUERIES)} queries x 2 residencies on "
         f"1024 histograms match the CPU engine; K2 launches {small} "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n_q, k1_9a, k2_9a = phase_hist_general_small(torch, np, fg, fr, hpkg)
+    log(f"hist general small: {n_q} answers of the general histogram mix "
+        f"over {len(HIST_GENERAL_SETS)} datasets of 1024 histograms match "
+        f"the CPU engine; K1 launches {k1_9a}, K2 launches {k2_9a} (the "
+        f"fused legs and K2-route answers) "
+        f"({time.perf_counter() - t0:.1f} s)")
     gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    k2 = phase_hist_scale(torch, np, fr, card, hpkg)
-    log(f"hist scale: done in {time.perf_counter() - t0:.1f} s; total "
-        f"{time.perf_counter() - t_all:.1f} s")
+    k2, engine, shard, sampled = phase_hist_scale(torch, np, fr, card, hpkg)
+    log(f"hist scale: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _lat9b, k1_9b = phase_hist_general_scale(torch, np, fg, fr, card, engine,
+                                             shard, sampled)
+    del engine, shard
+    log(f"hist general scale: done in {time.perf_counter() - t0:.1f} s; "
+        f"total {time.perf_counter() - t_all:.1f} s")
 
     k1_rows = [{
         "name": "fusedgrid_k1" if kind == "raw" else f"fusedgrid_k1_{kind}",
@@ -2297,6 +2782,11 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None} for kind, r in [("raw", k1), *k1n.items()]]
+    # K1 raw's main paths: phase 4's bench query, then the fused legs of
+    # phases 8b (S1), 9b (H3) and 10 (Q1), each counted from 0
+    k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10
+    log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
+        f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}")
     table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",

@@ -455,10 +455,11 @@ class TimeSeriesShard:
         return k
 
     def part_ids_from_filters(self, filters: list[Filter], start: int,
-                              end: int) -> np.ndarray:
+                              end: int, limit: int | None = None) -> np.ndarray:
         self.flush()
         with self.lock:
-            return self.index.part_ids_from_filters(filters, start, end)
+            return self.index.part_ids_from_filters(filters, start, end,
+                                                    limit)
 
     @property
     def num_series(self) -> int:

@@ -29,7 +29,8 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
     Small group counts ride a one-hot [G, S] product; ``stable=True`` (and
     large G) folds rows with ``index_add_`` instead — the reference's
     segment_sum, which the composed two-step path uses so its result does
-    not depend on the padded step bucket."""
+    not depend on the padded step bucket. That fold sums in f64 and rounds
+    once to the values' dtype: on the card it has no fixed row order."""
     present = ~torch.isnan(values)
     zeroed = torch.where(present, values, 0.0)
     acc = (values.dtype if values.dtype in (torch.float32, torch.float64)
@@ -45,13 +46,19 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
         onehot = (gids[None, :] == torch.arange(
             num_groups, device=values.device)[:, None]).to(acc)   # [G, S]
 
-        def gsum(x):
+        def gsum(x, wide=True):
             return onehot @ x.to(acc)
     else:
-        def gsum(x):
+        # index_add_ folds the rows in no fixed order on the card: value
+        # sums run in f64 and round once to ``acc``, so an f32 group of
+        # 10^5 rows keeps f32's precision whatever the order (an f32 fold
+        # of 2^17 rates is off by ~1e-4 of the sum); counts are integers,
+        # exact in ``acc``
+        def gsum(x, wide=True):
+            dt = torch.float64 if wide else acc
             out = torch.zeros((num_groups + 1,) + tuple(x.shape[1:]),
-                              dtype=acc, device=x.device)
-            return out.index_add_(0, gids_in, x.to(acc))[:num_groups]
+                              dtype=dt, device=x.device)
+            return out.index_add_(0, gids_in, x.to(dt))[:num_groups].to(acc)
 
     def gext(x, fill, reduce):
         idx = gids_in[:, None].expand_as(x)
@@ -60,7 +67,7 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
         return out.scatter_reduce_(0, idx, x.to(acc), reduce=reduce,
                                    include_self=True)[:num_groups]
 
-    cnt = gsum(present.to(acc))
+    cnt = gsum(present.to(acc), wide=False)
     if op in ("count", "group"):
         return {"count": cnt}
     if op in ("sum", "avg"):

@@ -8,9 +8,11 @@ functions, rate/increase/delta, sum/avg/count_over_time, last_over_time
 and the instant selector's last_sample; ``periodic_samples_grid`` is what
 an un-aggregated ``rate(m[5m])``, an instant selector ``m`` (or a group
 count above the fused cap) materializes through. Histogram stores:
-the one-program ``histogram_quantile(q, sum(fn(h[w])))`` routes over the
-raw [S, C, B] block and over the i8/i16 2D-delta block, and
-``histogram_quantile`` itself in f64. The products run through
+the per-bucket range functions (``periodic_samples_grid_hist[_narrow]``,
+[S, T, B] in row chunks), the one-program
+``histogram_quantile(q, sum(fn(h[w])))`` routes over the raw [S, C, B]
+block and over the i8/i16 2D-delta block, and ``histogram_quantile``
+itself in f64. The products run through
 ``torch.matmul`` in full f32, as the JAX package left them to XLA.
 
 Reference behaviour: query/.../exec/rangefn/ + RateFunctions.scala.
@@ -22,6 +24,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import rangefns
 
 GRID_FNS = {"rate", "increase", "delta", "sum_over_time", "count_over_time",
             "avg_over_time", "last_sample", "last_over_time"}
@@ -353,7 +357,15 @@ def _grid_hist_kernel_narrow(fn, dd, first_d, n, ops, stale_ms: int):
     lo, hi, rel_out = ops["lo"], ops["hi"], ops["rel_out"]
     window_ms, interval_ms = ops["window_ms"], ops["interval_ms"]
     cnt_static = ops["cnt_static"]
-    ddf = dd.to(f32)
+    # bucket-major [S, B, C]: each product lands as [S, B, T], so the
+    # bucket cumsum walks an outer dimension (a scan over a 32-long
+    # innermost dimension of a permuted product costs ~10x more on the
+    # card); every term is an integer, so the sums are exact in any order
+    ddt = dd.transpose(1, 2).contiguous().to(f32)
+
+    def bucket_cumsum(band):
+        """cumsum_b(dd @ band) as an [S, T, B] view."""
+        return torch.cumsum(ddt @ band, dim=1).transpose(1, 2)
     F = torch.cumsum(first_d, dim=1)                              # [S, B]
     n = n.to(torch.int32)
     last_cell = n[:, None] - 1
@@ -364,19 +376,17 @@ def _grid_hist_kernel_narrow(fn, dd, first_d, n, ops, stale_ms: int):
     nan = float("nan")
 
     if fn == "sum_over_time":
-        ext = torch.cumsum(torch.einsum("scb,ct->stb", ddf, ops["wband"]),
-                           dim=2) \
+        ext = bucket_cumsum(ops["wband"]) \
             + cnt_static[None, :, None].to(f32) * F[:, None, :]
         # v_ext extends the last frame past each row's valid count: subtract
         # the overhang cells' worth of it to match the raw masked sum
-        v_last = F + torch.cumsum(torch.sum(ddf, dim=1), dim=1)  # [S, B]
+        v_last = F + torch.cumsum(torch.sum(ddt, dim=2), dim=1)  # [S, B]
         over = (cnt_static[None, :] - cnt).to(f32)
         s = ext - over[:, :, None] * v_last[:, None, :]
         return torch.where((cnt >= 1)[:, :, None], s, nan)
 
     if fn in ("last_sample", "last_over_time"):
-        l_v = F[:, None, :] + torch.cumsum(
-            torch.einsum("scb,ct->stb", ddf, ops["prefix_hi"]), dim=2)
+        l_v = F[:, None, :] + bucket_cumsum(ops["prefix_hi"])
         # v_ext at cell clip(hi): v[hi] when hi is valid, the row's last
         # frame beyond it — exactly the raw kernel's static/row_last select
         ok = cnt >= 1
@@ -387,10 +397,8 @@ def _grid_hist_kernel_narrow(fn, dd, first_d, n, ops, stale_ms: int):
 
     if fn in ("rate", "increase", "delta"):
         is_counter = fn != "delta"
-        delta = torch.cumsum(torch.einsum("scb,ct->stb", ddf,
-                                          ops["band_open"]), dim=2)
-        f_v = F[:, None, :] + torch.cumsum(
-            torch.einsum("scb,ct->stb", ddf, ops["prefix_lo"]), dim=2)
+        delta = bucket_cumsum(ops["band_open"])
+        f_v = F[:, None, :] + bucket_cumsum(ops["prefix_lo"])
         f_rel = f_idx * interval_ms
         l_rel = l_idx * interval_ms
         win_end = rel_out[None, :]
@@ -413,6 +421,65 @@ def _grid_hist_kernel_narrow(fn, dd, first_d, n, ops, stale_ms: int):
         return torch.where((cnt >= 2)[:, :, None], scaled, nan)
 
     raise ValueError(f"range function {fn} is not on the histogram grid path")
+
+
+def _hist_row_chunk(C: int, T: int, B: int, in_bytes: int) -> int:
+    """Rows a chunk of the histogram grid path may hold within
+    ``rangefns.CHUNK_BYTES`` of transients: the row's block in its stored
+    and f32 form, and about 24 [T, B] f32 copies (window deltas, first
+    samples, their bucket cumsums, the clamp factor's terms, the output)."""
+    per_row = B * (C * (in_bytes + 4) + 24 * T * 4)
+    return max(1, rangefns.CHUNK_BYTES // per_row)
+
+
+def _by_row_chunks(kernel, S: int, T: int, B: int, chunk: int, dtype,
+                   device):
+    """``kernel(rows)`` over row slices of at most ``chunk`` rows into one
+    [S, T, B] output. Every grid function is row-wise, and its products
+    only ever sum integer-valued terms for the stored integer counts, so
+    the chunks give one chunk's bits."""
+    if S <= chunk:
+        return kernel(slice(None))
+    out = torch.empty((S, T, B), dtype=dtype, device=device)
+    for r0 in range(0, S, chunk):
+        out[r0:r0 + chunk] = kernel(slice(r0, r0 + chunk))
+    return out
+
+
+def periodic_samples_grid_hist(val, n, out_ts: np.ndarray, window_ms: int,
+                               fn: str, base_ts: int, interval_ms: int,
+                               stale_ms: int = 300_000):
+    """Histogram grid path over a raw [S, C, B] block: [S, T, B] output in
+    the block's dtype, NaN where the function is undefined; rows in chunks
+    of at most ``rangefns.CHUNK_BYTES`` of transients."""
+    S, C, B = val.shape
+    ops = grid_operands(C, out_ts, window_ms, base_ts, interval_ms,
+                        val.dtype, val.device)
+    stale = min(stale_ms, 2**31 - 1)
+    T = len(out_ts)
+    return _by_row_chunks(
+        lambda sl: _grid_hist_kernel(fn, val[sl], n[sl], ops, stale),
+        S, T, B, _hist_row_chunk(C, T, B, val.element_size()), val.dtype,
+        val.device)
+
+
+def periodic_samples_grid_hist_narrow(dd, first_d, n, out_ts: np.ndarray,
+                                      window_ms: int, fn: str, base_ts: int,
+                                      interval_ms: int,
+                                      stale_ms: int = 300_000):
+    """Narrow hist grid path: [S, T, B] f32 streamed off the i8/i16 dd
+    block (the whole-store f32 block never exists); rows in chunks of at
+    most ``rangefns.CHUNK_BYTES`` of transients."""
+    S, C, B = dd.shape
+    ops = grid_operands_hist_narrow(C, out_ts, window_ms, base_ts,
+                                    interval_ms, dd.device)
+    stale = min(stale_ms, 2**31 - 1)
+    T = len(out_ts)
+    return _by_row_chunks(
+        lambda sl: _grid_hist_kernel_narrow(fn, dd[sl], first_d[sl], n[sl],
+                                            ops, stale),
+        S, T, B, _hist_row_chunk(C, T, B, dd.element_size()), torch.float32,
+        dd.device)
 
 
 def _quantile_of_groups(q, les, psum, pcnt, num_groups: int, T: int, B: int):

@@ -6,8 +6,9 @@ parse, plan, execute on this node's shards, present. One root span per
 query and the end-to-end latency histogram, as in the reference. Before the
 planner, ``histogram_quantile(q, sum by (...) (rate|increase|delta|...(h[w])))``
 on a single grid-aligned histogram shard takes the fused-hist route, as in
-the reference. The result, fragment and negative caches, retention
-routing, admission, the device mesh and remote legs come with later slices.
+the reference; every other histogram query takes the general ExecPlan
+path. The result, fragment and negative caches, retention routing,
+admission, the device mesh and remote legs come with later slices.
 """
 
 from __future__ import annotations
@@ -28,12 +29,11 @@ from ..utils.metrics import FILODB_QUERY_LATENCY_MS, registry
 from ..utils.tracing import (SPAN_QUERY, SPAN_QUERY_EXECUTE, SPAN_QUERY_PARSE,
                              SPAN_QUERY_PLAN, span, tracer)
 from . import logical as L
-from .exec import (HIST_GENERAL_PATH, QueryContext, SelectRawPartitionsExec,
-                   _gather_rows_padded, _group_ids_for, _pad_steps, _pow2,
-                   _segment_partial, check_sample_limit)
+from .exec import (QueryContext, SelectRawPartitionsExec, _gather_rows_padded,
+                   _group_ids_for, _pad_steps, _pow2, _segment_partial,
+                   check_sample_limit)
 from .planner import QueryPlanner
-from .rangevector import (NotYetPorted, QueryResult, QueryStats,
-                          ResultMatrix)
+from .rangevector import QueryResult, QueryStats, ResultMatrix
 
 # rows outside the selection: a group id no kernel's one-hot or scatter
 # ever matches (scatters drop it; one-hot comparisons never equal it)
@@ -157,55 +157,46 @@ class QueryEngine:
         hist-resident one streams its 2D-delta block — through K2 for the
         rate family inside the shape gate ("fused-hist-narrow[cuda]" on the
         card, "[plain]" through the twin on the CPU), else through
-        ``gridfns.fused_hist_quantile_grid_narrow``. Plans that are not
-        histogram quantiles over a histogram dataset return None; the
-        off-pattern ones the reference sends down its general hist ExecPlan
-        path raise NotYetPorted."""
+        ``gridfns.fused_hist_quantile_grid_narrow``. Everything off that
+        pattern returns None and takes the general ExecPlan path, exactly
+        where the reference's route does: another aggregation or a
+        parametrized one, an inner that is not a windowed range function
+        over raw series, ``__col__`` columns, several shards, an off-grid
+        store, churned or empty selections. The leaf's stats commit only
+        when this route answers (the probe re-runs on the general path)."""
         if not (isinstance(plan, L.ApplyInstantFunction)
-                and plan.function == "histogram_quantile"):
-            return None
-        schema = self.memstore._dataset_schema.get(self.dataset)
-        if schema is None or not schema.is_histogram:
+                and plan.function == "histogram_quantile"
+                and isinstance(plan.vectors, L.Aggregate)):
             return None
         agg = plan.vectors
-        inner = getattr(agg, "vectors", None)
-        if not (isinstance(agg, L.Aggregate) and agg.operator == "sum"
-                and not agg.params
-                and isinstance(inner, L.PeriodicSeriesWithWindowing)
-                and inner.function in gridfns.HIST_GRID_FNS
-                and not inner.series.columns):
-            raise NotYetPorted(HIST_GENERAL_PATH)
+        if agg.operator != "sum" or agg.params:
+            return None
+        inner = agg.vectors
+        if not isinstance(inner, L.PeriodicSeriesWithWindowing):
+            return None
+        fn, raw = inner.function, inner.series
+        if fn not in gridfns.HIST_GRID_FNS or raw.columns:
+            return None
         shards = self.memstore.shards_of(self.dataset)
         if len(shards) != 1:
-            raise NotYetPorted(
-                "histogram quantiles over several shards take the general "
-                "hist ExecPlan path or the mesh route, not yet ported: "
-                "ROADMAP queue 1 item 9 (what it left) and item 12")
+            return None
         sh = shards[0]
-        fn, raw = inner.function, inner.series
+        if sh.store is None or sh.bucket_les is None:
+            return None
+        if sh.store.grid_info() is None:
+            return None              # off-grid store: general path outright
         out_ts = np.arange(inner.start_ms, inner.end_ms + 1,
                            max(inner.step_ms, 1), dtype=np.int64)
-        if sh.store is None or len(out_ts) == 0:
-            ctx.exec_path = "local"        # nothing stored, or no step
-            return QueryResult(ResultMatrix(
-                out_ts, np.zeros((0, len(out_ts))), []))
-        if sh.store.grid_info() is None:
-            raise NotYetPorted(HIST_GENERAL_PATH)      # off-grid store
+        if len(out_ts) == 0:
+            return None
         q = float(plan.function_args[0])
         leaf = SelectRawPartitionsExec(
             shard=sh.shard_num, filters=tuple(raw.filters),
             start_ms=raw.range_selector.from_ms,
             end_ms=raw.range_selector.to_ms)
-        # the leaf's stats commit only when this route answers (the
-        # reference's probe rule: an off-pattern outcome re-runs the leaf)
         pctx = dataclasses.replace(ctx, stats=QueryStats())
         with sh.lock:
             data = leaf.do_execute(pctx)
-            if not len(data.keys):
-                ctx.exec_path = "local"
-                ctx.stats.merge(pctx.stats)
-                return QueryResult(ResultMatrix(
-                    out_ts, np.zeros((0, len(out_ts))), []))
             window = inner.window_ms
             if (data.grid is None or data.bucket_les is None
                     or (data.grid_minority is not None
@@ -213,7 +204,7 @@ class QueryEngine:
                     or max(abs(int(out_ts[0]) - data.grid[0]),
                            abs(int(out_ts[-1]) - data.grid[0]))
                     + window >= 2**31):
-                raise NotYetPorted(HIST_GENERAL_PATH)  # churned or cold
+                return None          # cold, empty or churned: general path
             out_eval, T = _pad_steps(out_ts)
             R = data.n.shape[0]
             gids, uniq, G = _group_ids_for(data.keys, data.rows, R,

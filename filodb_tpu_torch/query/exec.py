@@ -22,15 +22,18 @@ the order statistics (topk/bottomk, quantile, count_values) map to
 per-shard partial state (candidates, a log-bucket sketch, value counts)
 that merges at the reduce. Joins, set operators and the presenters work on
 the children's host matrices, their element math on the query's device.
-Histogram shards answer ``histogram_quantile(q, sum(fn(h[w])))`` through
-the engine's fused-hist route (query/engine.py), which reads the leaf's
-histogram fields (``bucket_les``, ``hist_narrow``) directly.
+Histogram selections run the per-bucket range functions into [R, T, B]
+matrices that carry their bucket tops (``bucket_les``) through the
+bucket-wise sum/count/group reduce, ``histogram_quantile`` /
+``histogram_max_quantile`` / ``histogram_bucket`` and the shard fan-in;
+``histogram_quantile(q, sum(fn(h[w])))`` on one grid-aligned histogram
+shard takes the engine's fused-hist route (query/engine.py) before the
+planner. Subqueries, ``@`` and chunk-metadata plans are host reshapes
+around the same kernels.
 
-Routes the port does not have yet (subqueries, ``@``, __col__ selectors,
-chunk-metadata plans, on-demand paging, remote legs) raise
-``QueryError(... not yet ported)``; range functions over histogram blocks
-(the general hist ExecPlan path) raise ``NotYetPorted`` — never another
-path.
+A ``__col__`` over a downsample family raises ``QueryError(... not yet
+ported)`` — never another path; on-demand paging and remote legs come with
+the durable sink and the cluster layers.
 """
 
 from __future__ import annotations
@@ -42,18 +45,12 @@ import numpy as np
 import torch
 
 from ..core.chunkstore import COHORT_GATE, TS_PAD, _Deferred
+from ..core.schemas import ColumnType
 from ..ops import (aggregators, binop, fusedgrid, fusedresident, gridfns,
                    instantfns, rangefns)
 from ..utils.tracing import SPAN_QUERY_LEAF, SPAN_QUERY_REDUCE, span
-from .rangevector import (NotYetPorted, QueryError, QueryResult, QueryStats,
+from .rangevector import (QueryError, QueryResult, QueryStats,
                           RangeVectorKey, ResultMatrix, fmt_value, to_numpy)
-
-# what a histogram query off the fused-hist pattern needs, and where the
-# ROADMAP lists it
-HIST_GENERAL_PATH = ("the general histogram ExecPlan path (range functions "
-                     "over [S, T, B], histogram_bucket, churned or off-grid "
-                     "histogram shards) is not yet ported: ROADMAP queue 1 "
-                     "item 9, what it left")
 
 DEFAULT_SAMPLE_LIMIT = 1_000_000
 GATHER_THRESHOLD = 8192      # selections narrower than this gather rows up front
@@ -108,16 +105,17 @@ class SeriesSelection:
 class MatrixView:
     """Post-kernel matrix that may still be un-compacted (R >= P rows)."""
     out_ts: np.ndarray
-    values: torch.Tensor      # [R, T]
+    values: torch.Tensor      # [R, T] (or [R, T, B] for histogram results)
     keys: list
     rows: np.ndarray | None
+    bucket_les: np.ndarray | None = None
 
     def compact(self) -> ResultMatrix:
         vals = self.values
         if self.rows is not None:
             rid = torch.from_numpy(np.asarray(self.rows, np.int64))
             vals = vals[rid.to(vals.device)]
-        return ResultMatrix(self.out_ts, vals, self.keys)
+        return ResultMatrix(self.out_ts, vals, self.keys, self.bucket_les)
 
 
 def _pow2(n: int, floor: int = 8) -> int:
@@ -201,17 +199,23 @@ class FusedWindowData:
         return MatrixView(self.out_ts, vals, self.sel.keys, self.sel.rows)
 
 
-def _correct_minority_cohort(data, vals, out_ts, window, fn, a0, a1):
+def _correct_minority_cohort(data, vals, out_ts, window, fn, a0, a1,
+                             hist: bool = False, rows=None):
     """Patch grid-kernel output for churned rows: series whose start cell
     differs from the majority cohort are recomputed through the general
     kernels (an [M, C] row gather) and written back into the [R, T]
-    result."""
-    rows = np.asarray(data.grid_minority, np.int64)
+    ([R, T, B]) result. ``rows`` overrides the row set (the churned
+    minority merged with a hist-resident store's cohort-pool rows)."""
+    rows = np.asarray(data.grid_minority if rows is None else rows, np.int64)
     M = len(rows)
     sub_ts, sub_val, sub_n, _ = _gather_rows_padded(data.ts, data.val,
                                                     data.n, rows)
-    corr = rangefns.periodic_samples(sub_ts, sub_val, sub_n, out_ts, window,
-                                     fn, a0, a1)
+    if hist:
+        corr = rangefns.periodic_samples_hist(sub_ts, sub_val, sub_n, out_ts,
+                                              window, fn, a0)
+    else:
+        corr = rangefns.periodic_samples(sub_ts, sub_val, sub_n, out_ts,
+                                         window, fn, a0, a1)
     vals[torch.from_numpy(rows).to(vals.device)] = corr[:M].to(vals.dtype)
     return vals
 
@@ -249,18 +253,10 @@ class PeriodicSamplesMapper(Transformer):
 
     def apply(self, data, ctx: QueryContext):
         assert isinstance(data, SeriesSelection), "PSM must sit directly on a leaf"
-        if data.bucket_les is not None or data.val.dim() == 3:
-            if len(data.keys):
-                raise NotYetPorted(HIST_GENERAL_PATH)
-            # nothing selected: the answer is empty whatever the function
-            out_ts = self.out_ts()
-            return MatrixView(out_ts, torch.full(
-                (0, len(out_ts)), float("nan"), dtype=torch.float64,
-                device=data.n.device), [], None)
         out_ts = self.out_ts()
         if len(out_ts) == 0:
             return MatrixView(out_ts, torch.zeros((len(data.keys), 0)),
-                              data.keys, data.rows)
+                              data.keys, data.rows, data.bucket_les)
         out_eval, T = _pad_steps(out_ts)
         fn = self.function or "last_sample"
         if fn == "last_sample":
@@ -278,6 +274,13 @@ class PeriodicSamplesMapper(Transformer):
             and max(abs(int(out_ts[0]) - data.grid[0]),
                     abs(int(out_ts[-1]) - data.grid[0])) + window < 2**31)
         minority = data.grid_minority
+        if data.bucket_les is not None:
+            vals = self._apply_hist(data, ctx, out_eval, window, fn, a0,
+                                    grid_usable)
+            if len(out_eval) != T:
+                vals = vals[:, :T]
+            return MatrixView(out_ts, vals, data.keys, data.rows,
+                              data.bucket_les)
         if grid_usable and fn in gridfns.GRID_FNS:
             S, C = data.val.shape
             if (fusedresident.scalar_shape_of(fn) is not None
@@ -302,6 +305,39 @@ class PeriodicSamplesMapper(Transformer):
             vals = vals[:, :T]
         return MatrixView(out_ts, vals, data.keys, data.rows)
 
+    @staticmethod
+    def _apply_hist(data, ctx, out_eval, window, fn, a0, grid_usable):
+        """Per-bucket range function over a histogram selection: [R, T', B]
+        (ref: PeriodicSamplesMapper's histogram branch). A grid-aligned
+        store takes the grid kernels — off the i8/i16 2D-delta block on a
+        hist-resident store, whose cohort-pool rows join the churned
+        minority and recompute through the general kernels from a row-wise
+        decode; an off-grid store takes the general kernels."""
+        if fn not in rangefns.HIST_FNS:
+            raise QueryError(f"function {fn} not supported on histogram series")
+        if not (grid_usable and fn in gridfns.HIST_GRID_FNS):
+            return rangefns.periodic_samples_hist(
+                _dval(data.ts), _dval(data.val), data.n, out_eval, window,
+                fn, a0)
+        base_ts, interval_ms = data.grid
+        minority = data.grid_minority
+        if data.hist_narrow is not None:
+            dd, first_d, bad = data.hist_narrow
+            if len(bad):
+                minority = (bad if minority is None or not len(minority)
+                            else np.union1d(np.asarray(minority), bad))
+            vals = gridfns.periodic_samples_grid_hist_narrow(
+                dd, first_d, data.n, out_eval, window, fn, base_ts,
+                interval_ms, stale_ms=ctx.stale_ms)
+        else:
+            vals = gridfns.periodic_samples_grid_hist(
+                _dval(data.val), data.n, out_eval, window, fn, base_ts,
+                interval_ms, stale_ms=ctx.stale_ms)
+        if minority is not None and len(minority):
+            vals = _correct_minority_cohort(data, vals, out_eval, window, fn,
+                                            a0, 0.0, hist=True, rows=minority)
+        return vals
+
 
 @dataclass
 class InstantVectorFunctionMapper(Transformer):
@@ -312,13 +348,27 @@ class InstantVectorFunctionMapper(Transformer):
         m = _as_matrix(data)
         if self.function in ("histogram_quantile", "histogram_bucket",
                              "histogram_max_quantile"):
-            if self.function == "histogram_quantile":
-                # classic le-labeled bucket series (what remote-write and
-                # the Influx gateway ingest): group by labels minus le,
-                # sort buckets, fix monotonicity, the same quantile algebra
-                # (ref: HistogramQuantileMapper.scala:23-90)
-                return _classic_le_quantile(m, float(self.args[0]))
-            raise QueryError(f"{self.function} requires native histogram series")
+            if m.bucket_les is None:
+                if self.function == "histogram_quantile":
+                    # classic le-labeled bucket series (what remote-write
+                    # and the Influx gateway ingest): group by labels minus
+                    # le, sort buckets, fix monotonicity, the same quantile
+                    # algebra (ref: HistogramQuantileMapper.scala:23-90)
+                    return _classic_le_quantile(m, float(self.args[0]))
+                raise QueryError(
+                    f"{self.function} requires native histogram series")
+            les = np.asarray(m.bucket_les, np.float64)
+            if self.function == "histogram_bucket":
+                # the bucket whose top is nearest the argument (+Inf picks
+                # the +Inf bucket: numpy's argmin stops at the NaN there)
+                b = int(np.argmin(np.abs(les - self.args[0])))
+                return ResultMatrix(m.out_ts, m.values[:, :, b], m.keys)
+            vals = gridfns.histogram_quantile(float(self.args[0]), les,
+                                              _tensor(m.values, ctx.device))
+            return ResultMatrix(m.out_ts, vals, m.keys)
+        if m.bucket_les is not None:
+            raise QueryError(
+                f"{self.function} not supported on histogram series")
         if self.function == "absent":
             vals = to_numpy(m.values)
             empty = (np.isnan(vals).all(axis=0) if len(m.keys)
@@ -500,9 +550,11 @@ def group_keys_of(keys, by, without):
 class AggPartial:
     op: str
     out_ts: np.ndarray
-    parts: object                   # dict name -> [Gpad, T], or PaddedPartials
+    parts: object                   # dict name -> [Gpad, T] ([Gpad, T*B]
+                                    # for histograms), or PaddedPartials
     group_keys: list
     num_groups: int
+    bucket_les: np.ndarray | None = None
 
 
 def _segment_partial(op, values, gids, num_groups):
@@ -537,9 +589,16 @@ class AggregateMapReduce(Transformer):
         gids, uniq, G = _group_ids_for(m.keys, m.rows, m.values.shape[0],
                                        self.by, self.without)
         vals = _tensor(m.values, ctx.device)
+        les = m.bucket_les
+        if les is not None:
+            if self.operator not in ("sum", "count", "group"):
+                raise QueryError(
+                    f"{self.operator} not supported on histograms")
+            R, T, B = vals.shape
+            vals = vals.reshape(R, T * B)      # bucket-wise reduce (hSum)
         gid_t = torch.from_numpy(gids).to(vals.device)
         parts = _segment_partial(self.operator, vals, gid_t, _pow2(G))
-        return AggPartial(self.operator, m.out_ts, parts, list(uniq), G)
+        return AggPartial(self.operator, m.out_ts, parts, list(uniq), G, les)
 
     def _apply_fused(self, data: FusedWindowData, ctx) -> AggPartial | None:
         """Single-pass window + aggregation (ops/fusedgrid.py): partial
@@ -623,6 +682,8 @@ def _order_stat_map(m: MatrixView, op, params, by, without, device,
     sketches) fall back to the exact full matrix. The reduce calls this
     WITHOUT a cap to normalize a fallen-back shard into partial form when
     its siblings produced partials."""
+    if m.bucket_les is not None:
+        raise QueryError(f"{op} not supported on histograms")
     R = m.values.shape[0]
     gids, uniq, G = _group_ids_for(m.keys, m.rows, R, by, without)
     T = len(m.out_ts)
@@ -790,7 +851,7 @@ def _as_mview(data) -> MatrixView:
     if isinstance(data, MatrixView):
         return data
     m = _as_matrix(data)
-    return MatrixView(m.out_ts, m.values, m.keys, None)
+    return MatrixView(m.out_ts, m.values, m.keys, None, m.bucket_les)
 
 
 def _align_groups(parts):
@@ -898,7 +959,10 @@ class AggregatePresenter(Transformer):
     def apply(self, data, ctx):
         if isinstance(data, AggPartial):
             vals = aggregators.present_partials(data.op, data.parts)[: data.num_groups]
-            return ResultMatrix(data.out_ts, vals, data.group_keys)
+            if data.bucket_les is not None:
+                vals = vals.reshape(vals.shape[0], -1, len(data.bucket_les))
+            return ResultMatrix(data.out_ts, vals, data.group_keys,
+                                data.bucket_les)
         if isinstance(data, TopKPartial):
             return _present_topk(data)
         if isinstance(data, SketchPartial):
@@ -1063,18 +1127,29 @@ class ExecPlan:
 
 
 def _shard_of_ctx(ctx, shard_num: int, column: str = ""):
-    """The shard serving ``shard_num`` of the query's dataset, on the
-    engine's device."""
-    if column:
-        raise QueryError("__col__ value-column selectors not yet ported")
+    """(shard, store column) serving ``shard_num`` of the query's dataset,
+    on the engine's device. A ``__col__`` naming a column of the dataset's
+    own schema selects that column of its store (ref: ``_shard_of_ctx``'s
+    first branch — ``{__col__="sum"}`` on prom-histogram); naming the one
+    value column of a single-column schema is the default selection
+    (None). Any other column targets a downsample family's dataset."""
     try:
         sh = ctx.memstore.shard(ctx.dataset, shard_num)
     except KeyError:
         raise QueryError(f"unknown dataset {ctx.dataset}") from None
+    col = None
+    if column:
+        if sh.schema.column_named(column) is None:
+            raise QueryError(
+                f"__col__={column!r} is no column of the {sh.schema.name} "
+                "schema: a downsample family's columns are "
+                "not yet ported (ROADMAP queue 1 item 6, item 11)")
+        if sh.schema.is_multi_column:
+            col = column
     if sh.device != ctx.device:
         raise QueryError(f"shard {shard_num} of {ctx.dataset} lives on "
                          f"{sh.device}, the engine on {ctx.device}")
-    return sh
+    return sh, col
 
 
 def _store_prefix(transformers) -> int:
@@ -1104,7 +1179,7 @@ class SelectRawPartitionsExec(ExecPlan):
 
     def execute(self, ctx: QueryContext):
         with span(SPAN_QUERY_LEAF, shard=self.shard):
-            shard = _shard_of_ctx(ctx, self.shard, self.column)
+            shard, _col = _shard_of_ctx(ctx, self.shard, self.column)
             # step-varying scalar operands resolve BEFORE the lock: their
             # subplans take other shards' locks (nested acquisition would
             # ABBA-deadlock two concurrent mirror-image queries)
@@ -1127,22 +1202,26 @@ class SelectRawPartitionsExec(ExecPlan):
             return data
 
     def do_execute(self, ctx) -> SeriesSelection:
-        shard = _shard_of_ctx(ctx, self.shard, self.column)
+        shard, col = _shard_of_ctx(ctx, self.shard, self.column)
         if shard.store is None:     # histogram shard with no data yet
             return _pad_selection(shard.device, torch.float32, None)
         pids = shard.part_ids_from_filters(list(self.filters), self.start_ms,
                                            self.end_ms)
         ctx.stats.add("series_matched", len(pids))
         store = shard.store
-        # bucket boundaries ride along for the histogram column
+        # bucket boundaries ride only when the SELECTED column is the
+        # histogram one (``{__col__="sum"}`` on prom-histogram is scalar)
         les = shard.bucket_les
+        if (col is not None
+                and shard.schema.column_named(col).ctype != ColumnType.HISTOGRAM):
+            les = None
         if len(pids) > GATHER_THRESHOLD:
             # wide selection: defer key materialization (global aggregates
             # never read them)
             keys = LazyKeys(shard, pids)
         else:
             keys = [shard.rv_key_of(int(p)) for p in pids]
-        ts, val, n = store.arrays()
+        ts, val, n = store.arrays(col)
         total = len(shard.index)
         grid = store.grid_info()
         if len(pids) == 0:
@@ -1198,7 +1277,7 @@ class SelectRawPartitionsExec(ExecPlan):
         g_min = (pids[minority_sel].astype(np.int32)
                  if minority_sel is not None else None)
         narrow = None
-        if grid is not None and les is None and val.dim() == 2:
+        if grid is not None and col is None and les is None and val.dim() == 2:
             # scalar narrow-resident store: ship the narrow operands so the
             # fused pass streams them, unless the selection's pool rows pass
             # the cohort gate (correcting that many costs more than the
@@ -1249,7 +1328,84 @@ class DistConcatExec(ExecPlan):
             return all_mats[0]
         vals = np.concatenate([m.values for m in mats], axis=0)
         return ResultMatrix(mats[0].out_ts, vals,
-                            [k for m in mats for k in m.keys])
+                            [k for m in mats for k in m.keys],
+                            mats[0].bucket_les)
+
+
+@dataclass
+class SubqueryWindowExec(ExecPlan):
+    """Range function over a subquery's synthetic sample stream
+    (``fn(expr[window:sub_step])``, ref: SubqueryWindowExec): the child
+    evaluates the inner expression on the absolute sub-step grid, each
+    series' finite steps become its (ts, val) sample row, and the general
+    range functions slide over the rows. The reference builds the rows in
+    a loop over series; here one stable sort of the rows' finiteness masks
+    puts each row's samples first, in step order — the same rows, built in
+    one pass on the query's device (an inner selection can hold 10^5
+    series)."""
+    child: ExecPlan | None = None
+    start_ms: int = 0
+    step_ms: int = 1
+    end_ms: int = 0
+    window_ms: int = 0
+    function: str = "last_over_time"
+    args: tuple = ()
+
+    def do_execute(self, ctx):
+        inner = _as_matrix(self.child.execute(ctx))
+        out_ts = _steps(self.start_ms, self.step_ms, self.end_ms)
+        S = inner.num_series
+        if len(out_ts) == 0 or S == 0:
+            return ResultMatrix(out_ts, np.zeros((S, len(out_ts))),
+                                inner.keys)
+        if inner.bucket_les is not None:
+            raise QueryError("subqueries over histogram series are not "
+                             "supported")
+        vals = _tensor(inner.values, ctx.device).to(torch.float64)
+        dev = vals.device
+        sub_ts = torch.from_numpy(np.asarray(inner.out_ts, np.int64)).to(dev)
+        if vals.shape[1] == 0:          # an inner grid with no step
+            vals = torch.full((S, 1), float("nan"), dtype=torch.float64,
+                              device=dev)
+            sub_ts = torch.full((1,), int(TS_PAD), device=dev)
+        finite = torch.isfinite(vals)
+        n = finite.sum(dim=1, dtype=torch.int32)
+        C = max(int(n.max()), 1)
+        order = torch.sort((~finite).to(torch.int8), dim=1,
+                           stable=True).indices[:, :C]
+        live = torch.arange(C, device=dev)[None, :] < n[:, None]
+        ts2d = torch.where(live, sub_ts[order], int(TS_PAD))
+        val2d = torch.where(live, torch.gather(vals, 1, order), 0.0)
+        ctx.stats.add("subquery_inner_cells", S * len(inner.out_ts))
+        out_eval, T = _pad_steps(out_ts)
+        a0 = float(self.args[0]) if len(self.args) > 0 else 0.0
+        a1 = float(self.args[1]) if len(self.args) > 1 else 0.0
+        out = rangefns.periodic_samples(ts2d, val2d, n, out_eval,
+                                        self.window_ms, self.function, a0, a1)
+        return ResultMatrix(out_ts, out[:, :T], inner.keys)
+
+
+@dataclass
+class RepeatAtExec(ExecPlan):
+    """Broadcast an ``@``-pinned evaluation across the query grid (ref:
+    RepeatAtExec): the child runs on its own single-step grid at the
+    pinned instant; its step-invariant result tiles to [start, end]."""
+    child: ExecPlan | None = None
+    start_ms: int = 0
+    step_ms: int = 1
+    end_ms: int = 0
+
+    def do_execute(self, ctx):
+        inner = _as_matrix(self.child.execute(ctx))
+        out_ts = _steps(self.start_ms, self.step_ms, self.end_ms)
+        T = len(out_ts)
+        if inner.values.shape[1] == 0:
+            out = np.full((inner.num_series, T), np.nan)
+        else:
+            vals = _tensor(inner.values, ctx.device).to(torch.float64)
+            out = vals[:, -1:].expand(vals.shape[0], T,
+                                      *vals.shape[2:]).contiguous()
+        return ResultMatrix(out_ts, out, inner.keys, inner.bucket_les)
 
 
 @dataclass
@@ -1299,7 +1455,8 @@ def _merge_partials(op: str, partials: list[AggPartial]) -> AggPartial:
     G = max(len(all_keys), 1)
     Gpad = _pow2(G)
     out_ts = partials[0].out_ts
-    T = len(out_ts)
+    les = partials[0].bucket_les
+    T = len(out_ts) * (len(les) if les is not None else 1)
     merged: dict[str, np.ndarray] = {}
     for p in partials:
         idx = np.array([all_keys[k] for k in p.group_keys], np.int32)
@@ -1318,7 +1475,7 @@ def _merge_partials(op: str, partials: list[AggPartial]) -> AggPartial:
                 merged[name] = np.maximum(merged[name], base)
             else:
                 merged[name] = merged[name] + base
-    return AggPartial(op, out_ts, merged, list(all_keys), G)
+    return AggPartial(op, out_ts, merged, list(all_keys), G, les)
 
 
 # ---------------------------------------------------------------------------
@@ -1489,6 +1646,53 @@ class TimeScalarExec(ExecPlan):
         out_ts = _steps(self.start_ms, self.step_ms, self.end_ms)
         return ResultMatrix(out_ts, (out_ts / 1000.0)[None, :],
                             [RangeVectorKey(())])
+
+
+@dataclass
+class SelectChunkInfosExec(ExecPlan):
+    """Chunk-metadata debug leaf (ref: SelectChunkInfosExec.scala — id,
+    numRows, startTime, endTime, numBytes, readerKlazz per chunk). The
+    store keeps ONE resident row per series (no chunk lists), so each row's
+    stats come back as labels on a synthetic series. ``_sinkChunks_``
+    counts a durable sink's persisted frames; the port has no sink yet, so
+    it is "0", as in the reference without one."""
+    shard: int = 0
+    filters: tuple = ()
+    start_ms: int = 0
+    end_ms: int = 0
+    column: str = ""
+
+    MAX_PARTS = 1000    # debug surface: bound the output
+
+    def do_execute(self, ctx):
+        shard, _col = _shard_of_ctx(ctx, self.shard, self.column)
+        out_ts = np.array([self.end_ms], np.int64)
+        if shard.store is None:
+            return ResultMatrix(out_ts, np.zeros((0, 1)), [])
+        pids = shard.part_ids_from_filters(list(self.filters), self.start_ms,
+                                           self.end_ms, limit=self.MAX_PARTS)
+        st = shard.store
+        keys, vals = [], []
+        per_sample = 8 + st.column_array().dtype.itemsize * max(st.nbuckets, 1)
+        with shard.lock:
+            for p in pids:
+                p = int(p)
+                labels = dict(shard.index.labels_of(p))
+                n = int(st.n_host[p])
+                labels.update({
+                    "_id_": str(p),
+                    "_numRows_": str(n),
+                    "_startTime_": str(int(st.first_ts[p])),
+                    "_endTime_": str(int(st.last_ts[p])) if n else "-1",
+                    "_numBytes_": str(n * per_sample),
+                    "_readerKlazz_": "SeriesStoreRow",
+                    "_sinkChunks_": "0",
+                })
+                keys.append(RangeVectorKey.of(labels))
+                vals.append([float(n)])
+        if not keys:
+            return ResultMatrix(out_ts, np.zeros((0, 1)), [])
+        return ResultMatrix(out_ts, np.asarray(vals), keys)
 
 
 @dataclass

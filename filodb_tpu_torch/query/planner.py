@@ -3,9 +3,8 @@
 Port of the local half of ``filodb_tpu/query/planner.py`` (ref:
 coordinator/.../queryengine2/QueryEngine.scala:106-375): picks target shards
 from shard-key filters, pushes the map phase down to the shard leaves and
-wires scatter-gather, joins and the instant, sort, misc and scalar mappers
-on top. Subqueries, ``@`` and chunk-metadata plans raise
-``QueryError(... not yet ported)``.
+wires scatter-gather, joins, subqueries, ``@``, chunk-metadata leaves and
+the instant, sort, misc and scalar mappers on top.
 """
 
 from __future__ import annotations
@@ -18,9 +17,11 @@ from . import logical as L
 from .exec import (AggregateMapReduce, AggregatePresenter, BinaryJoinExec,
                    DistConcatExec, ExecPlan, InstantVectorFunctionMapper,
                    MiscellaneousFunctionMapper, PeriodicSamplesMapper,
-                   ReduceAggregateExec, ScalarExec, ScalarOfVectorExec,
-                   ScalarOperationMapper, SelectRawPartitionsExec,
-                   SetOperatorExec, SortFunctionMapper, TimeScalarExec)
+                   ReduceAggregateExec, RepeatAtExec, ScalarExec,
+                   ScalarOfVectorExec, ScalarOperationMapper,
+                   SelectChunkInfosExec, SelectRawPartitionsExec,
+                   SetOperatorExec, SortFunctionMapper, SubqueryWindowExec,
+                   TimeScalarExec)
 from .rangevector import QueryError
 
 _SET_OPS = {"and", "or", "unless"}
@@ -104,8 +105,23 @@ class QueryPlanner:
         if isinstance(p, L.VectorOfScalar):
             # a scalar plan already yields a one-series matrix
             return self._walk(p.scalar)
-        # SubqueryWithWindowing, ApplyAtTimestamp, RawChunkMeta
-        raise QueryError(f"{type(p).__name__} not yet ported")
+        if isinstance(p, L.SubqueryWithWindowing):
+            return SubqueryWindowExec(
+                child=self._walk(p.inner), start_ms=p.start_ms,
+                step_ms=p.step_ms, end_ms=p.end_ms, window_ms=p.window_ms,
+                function=p.function, args=p.function_args)
+        if isinstance(p, L.ApplyAtTimestamp):
+            return RepeatAtExec(child=self._walk(p.vectors),
+                                start_ms=p.start_ms, step_ms=p.step_ms,
+                                end_ms=p.end_ms)
+        if isinstance(p, L.RawChunkMeta):
+            return self._fan_in([
+                SelectChunkInfosExec(
+                    shard=s, filters=tuple(p.filters),
+                    start_ms=p.range_selector.from_ms,
+                    end_ms=p.range_selector.to_ms, column=p.column)
+                for s in self.shards_for_filters(list(p.filters))])
+        raise QueryError(f"cannot materialize {type(p).__name__}")
 
     def _materialize_aggregate(self, p: L.Aggregate) -> ExecPlan:
         inner = p.vectors

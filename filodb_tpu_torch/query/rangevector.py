@@ -2,7 +2,8 @@
 
 Host copy of ``filodb_tpu/query/rangevector.py`` (ref: core/.../query/
 RangeVector.scala). One ResultMatrix carries *all* series of a plan node:
-``values[P, T]`` as a device tensor or a host array, label keys on the host.
+``values[P, T]`` as a device tensor or a host array, label keys on the host;
+a histogram-valued matrix carries ``values[P, T, B]`` and its bucket tops.
 NaN marks absent points; presenters drop them at the edge.
 """
 
@@ -65,22 +66,46 @@ class RangeVectorKey:
 
 @dataclass
 class ResultMatrix:
-    """out_ts int64 [T]; values float [P, T] (device or host); keys len P."""
+    """out_ts int64 [T]; values float [P, T] (device or host); keys len P.
+    Histogram-valued matrices carry [P, T, B] values + bucket_les [B]."""
     out_ts: np.ndarray
-    values: object                      # torch tensor or numpy array [P, T]
+    values: object                      # torch tensor or numpy array
     keys: list[RangeVectorKey]
+    bucket_les: np.ndarray | None = None
 
     @property
     def num_series(self) -> int:
         return len(self.keys)
 
+    @property
+    def is_histogram(self) -> bool:
+        return self.bucket_les is not None
+
     def to_host(self) -> "ResultMatrix":
-        return ResultMatrix(self.out_ts, to_numpy(self.values), self.keys)
+        return ResultMatrix(self.out_ts, to_numpy(self.values), self.keys,
+                            self.bucket_les)
 
     def iter_series(self) -> Iterator[tuple[RangeVectorKey, np.ndarray, np.ndarray]]:
         """Yield (key, ts, values) per series with NaN points dropped; series
-        with no points are skipped (Prometheus empty-series semantics)."""
+        with no points are skipped (Prometheus empty-series semantics).
+
+        Histogram-valued matrices expand into the classic Prometheus form:
+        one ``le``-labelled series per bucket (cumulative counts), so a raw
+        histogram result (``rate(h[5m])``) reads like a scraped classic
+        histogram."""
         vals = to_numpy(self.values)
+        if self.bucket_les is not None and vals.ndim == 3:
+            for p, key in enumerate(self.keys):
+                base = key.as_dict()
+                for b, le in enumerate(self.bucket_les):
+                    col = vals[p, :, b]
+                    present = ~np.isnan(col)
+                    if present.any():
+                        # full round-trip precision: "%g" would collide
+                        # near-equal custom bounds into duplicate le labels
+                        bkey = RangeVectorKey.of(dict(base, le=fmt_value(le)))
+                        yield bkey, self.out_ts[present], col[present]
+            return
         for p, key in enumerate(self.keys):
             present = ~np.isnan(vals[p])
             if present.any():
@@ -94,7 +119,7 @@ class QueryStats:
     keeps. Thread-safe. ``stage_ms`` sums wall time per stage."""
 
     FIELDS = ("series_matched", "blocks_raw", "blocks_narrow",
-              "result_cells", "fused_kernels")
+              "result_cells", "fused_kernels", "subquery_inner_cells")
 
     def __init__(self):
         self.series_matched = 0        # series selected by leaf filters
@@ -102,6 +127,7 @@ class QueryStats:
         self.blocks_narrow = 0         # compressed-resident blocks streamed
         self.result_cells = 0          # final matrix series x steps
         self.fused_kernels = 0         # fused-tier executions in this query
+        self.subquery_inner_cells = 0  # inner matrix cells subqueries slid over
         self.stage_ms: dict[str, float] = {}
         self._lock = threading.Lock()
 
@@ -153,10 +179,3 @@ class QueryResult:
 
 class QueryError(Exception):
     pass
-
-
-class NotYetPorted(NotImplementedError):
-    """A query the JAX package answers through a route the port does not
-    have yet; the message names the ROADMAP item that brings it. Raised
-    instead of answering from another route — never a wrong or empty
-    answer."""

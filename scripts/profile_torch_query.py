@@ -74,6 +74,10 @@ def main() -> int:
         print(f"store: {kind}, {int((~ok).sum())} pool rows, resident sample "
               f"bytes {shard.store.resident_sample_bytes() / 1e9:.3f} GB",
               flush=True)
+    # per-series answers over the whole store (chip_smoke.py phase 10's
+    # Q3: 159,687 series) are profiled too
+    engine.config.sample_limit = max(engine.config.sample_limit,
+                                     shard.num_series * 64)
     start = cs.BASE_TS + cs.WINDOW_MS
     end = cs.BASE_TS + cs.NUM_SAMPLES * cs.INTERVAL_MS
     t_last = int(shard.store.last_ts.max())

@@ -28,9 +28,9 @@ from filodb_tpu.ops import fusedresident as jfusedresident
 from filodb_tpu.query.engine import QueryEngine as JQueryEngine
 from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
 from filodb_tpu_torch.core.record import RecordBuilder
-from filodb_tpu_torch.core.schemas import GAUGE, PROM_HISTOGRAM
+from filodb_tpu_torch.core.schemas import GAUGE
 from filodb_tpu_torch.query.engine import QueryEngine
-from filodb_tpu_torch.query.rangevector import NotYetPorted, QueryError
+from filodb_tpu_torch.query.rangevector import QueryError
 
 START = 1_600_000_000_000
 IV = 10_000
@@ -147,35 +147,15 @@ def test_instant_query_matches_jax_engine(engines):
                                np.asarray(ref.matrix.values), rtol=1e-5)
 
 
-def hist_engine():
-    """A port engine over a small prom-histogram dataset "hp" (metric h)."""
-    ms = TimeSeriesMemStore(device="cpu")
-    sh = ms.setup("hp", PROM_HISTOGRAM, 0, StoreConfig(
-        max_series_per_shard=8, samples_per_series=128,
-        flush_batch_size=10**9, device="cpu"))
-    les = np.array([1.0, 10.0, np.inf])
-    for t in range(40):
-        b = RecordBuilder(PROM_HISTOGRAM, bucket_les=les)
-        b.add({"_metric_": "h", "host": "h0"}, START + t * IV,
-              np.array([t, 2 * t, 3 * t], np.float64))
-        sh.ingest(b.build())
-    sh.flush()
-    return QueryEngine(ms, "hp", device="cpu")
-
-
-# what stays unported: subqueries, @, __col__ selectors, chunk-metadata
-# plans, and range functions over histogram series (the general hist
-# ExecPlan path); the routes this test listed before are parity cases of
-# tests/test_torch_general_query.py and tests/test_torch_orderstats.py now
-UNPORTED = ("max_over_time(rate(m[5m])[10m:1m])",
-            f"m @ {(START + 600_000) // 1000}",
-            'm{__col__="dAvg"}', "_filodb_chunkmeta_all(m)", "rate(h[5m])")
+# what stays unported: __col__ over a downsample family. The other routes
+# this test listed answer now and are parity cases of
+# tests/test_torch_general_query.py, tests/test_torch_orderstats.py,
+# tests/test_torch_subquery.py and tests/test_torch_hist_general.py
+UNPORTED = ('m{__col__="dAvg"}',)
 
 
 @pytest.mark.parametrize("q", UNPORTED)
 def test_unported_routes_raise_typed_errors(engines, q):
     _, teng, _, _ = engines
-    if q == "rate(h[5m])":
-        teng = hist_engine()
-    with pytest.raises((QueryError, NotYetPorted), match="not yet ported"):
+    with pytest.raises(QueryError, match="not yet ported"):
         teng.query_range(q, START + 300_000, START + 990_000, 30_000)

@@ -11,9 +11,9 @@ orders), the series keys, the route (``exec_path``; the K2 route is
 card) and ``QueryStats``. The JAX package's fused-kernel mode stays at its
 default.
 
-Histogram queries off the fused pattern need the reference's general hist
-ExecPlan path, which the port does not have yet: they raise NotYetPorted,
-never a wrong or empty answer.
+Histogram queries off the fused pattern (other shapes, churned or off-grid
+shards, several shards) take the general hist ExecPlan path in both
+engines, with the same answers and route.
 """
 
 import numpy as np
@@ -28,7 +28,6 @@ from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
 from filodb_tpu_torch.core.record import RecordBuilder
 from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM
 from filodb_tpu_torch.query.engine import QueryEngine
-from filodb_tpu_torch.query.rangevector import NotYetPorted
 from filodb_tpu_torch.utils.metrics import (FILODB_QUERY_FUSED_FALLBACK,
                                             FILODB_QUERY_FUSED_SERVED,
                                             registry)
@@ -196,31 +195,40 @@ def test_empty_selection_answers_empty_without_a_decode():
 @pytest.mark.parametrize("q", ("sum(rate(h[2m]))", "h", "rate(h[2m])",
                                "histogram_quantile(0.9, rate(h[2m]))",
                                "sum by (host) (increase(h[3m]))"))
-def test_general_hist_path_raises_not_yet_ported(q):
-    """The reference answers these through its general hist ExecPlan path;
-    the port raises instead of answering from another route."""
+def test_general_hist_path_matches_jax_engine(q):
+    """Off the fused pattern both engines take the general hist ExecPlan
+    path over the resident store, with the same answer."""
     jeng, teng, _ = engines_for("all")
-    assert jeng.query_range(q, *RANGE).matrix.num_series > 0
-    with pytest.raises(NotYetPorted, match="item 9"):
-        teng.query_range(q, *RANGE)
+    ref = jeng.query_range(q, *RANGE)
+    got = teng.query_range(q, *RANGE)
+    assert ref.matrix.num_series > 0
+    assert_same_answer(got, ref, q)
+    assert got.exec_path == "local"
 
 
 @pytest.mark.parametrize("layout", ("churned", "offgrid"))
-def test_churned_or_offgrid_hist_shards_raise_not_yet_ported(layout):
+def test_churned_or_offgrid_hist_shards_match_jax_engine(layout):
     jeng, teng, tsh = engines_for("off", layout=layout)
     q = QUERIES[0]
     ref = jeng.query_range(q, *RANGE)
+    got = teng.query_range(q, *RANGE)
     assert ref.exec_path == "local" and ref.matrix.num_series == 1
-    with pytest.raises(NotYetPorted, match="item 9"):
-        teng.query_range(q, *RANGE)
+    assert_same_answer(got, ref, q)
 
 
-def test_hist_dataset_over_several_shards_raises_not_yet_ported():
+def test_hist_dataset_over_several_shards_matches_jax_engine():
+    jms = JMemStore()
     tms = TimeSeriesMemStore(device="cpu")
     for shard in (0, 1):
+        jms.setup("prometheus", JPROM_HISTOGRAM, shard, JStoreConfig(
+            max_series_per_shard=16, samples_per_series=128))
         tms.setup("prometheus", PROM_HISTOGRAM, shard, StoreConfig(
             max_series_per_shard=16, samples_per_series=128, device="cpu"))
+    ingest(jms, JRecordBuilder, JPROM_HISTOGRAM, 8)
     ingest(tms, RecordBuilder, PROM_HISTOGRAM, 8)
+    jeng = JQueryEngine(jms, "prometheus")
     teng = QueryEngine(tms, "prometheus", device="cpu")
-    with pytest.raises(NotYetPorted, match="item 9"):
-        teng.query_range(QUERIES[0], *RANGE)
+    ref = jeng.query_range(QUERIES[0], *RANGE)
+    got = teng.query_range(QUERIES[0], *RANGE)
+    assert ref.exec_path == "local" and ref.matrix.num_series == 1
+    assert_same_answer(got, ref, QUERIES[0])

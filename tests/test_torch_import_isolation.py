@@ -40,8 +40,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ops.decodereg", "ops.gridfns", "ops.rangefns", "ops.kernels",
               "ops.windows", "ops.instantfns", "ops.binop",
               "ops.aggregators", "core.chunkstore", "core.memstore",
-              "query.exec", "query.engine", "query.planner",
-              "query.rangevector"):
+              "core.schemas", "query.exec", "query.engine", "query.planner",
+              "query.logical", "query.rangevector"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
