@@ -75,11 +75,13 @@ Phases, in order; every check asserts and any failure exits non-zero:
                (increments in [0, 2000)); one row in 16 with non-integer
                increments (the cohort pool). The queries first run on the
                raw store (residency off), then shard.flush() compresses it
-               and they run again: each launches K1 of the kind once, agrees
-               with the raw answer (rtol 1e-5) and K1 with its plain twin;
-               K1 on the narrow block equals K1 raw on value_block() bit for
+               and they run again: each launches K1 of the kind once and
+               agrees with the raw answer (rtol 1e-5); K1 agrees with its
+               plain twin at the first and the last range; K1 on the narrow
+               block equals K1 raw on value_block() bit for
                bit. Prints the engine p50, K1's time beside K1 raw's on the
-               decoded block, the plain time, the bound, launches per query,
+               decoded block, the plain time (one call), the bound,
+               launches per query,
                resident sample bytes raw -> narrow and the compression
                seconds.
   5. hist kernels — K2 (the fused histogram-quantile kernel) against its
@@ -171,6 +173,34 @@ Phases, in order; every check asserts and any failure exits non-zero:
                avg_over_time(rate(m{host=~"h1.*"}[5m])[10m:1m]) over
                159,687 series against a windowed mean of its inner matrix
                in torch (rtol 1e-9). Prints each query's p50 over 3 runs.
+  10b. mirror (run after 10, on phase 4's shard) — narrow_mirror on, one
+               sample appended and flushed (the flush rebuilds the quant16
+               mirror outside the lock): on the continuous values no row is
+               exact and the query streams the raw block; the values
+               rounded to integers in place and flushed again, every row is
+               exact and sum(rate(m[5m])) streams K1-quant16 once, within
+               1e-5 of the raw route. Prints the refresh seconds.
+  11a. mesh small — 8-shard datasets through real ingest and flush on the
+               card and on the CPU (3 to 24 counters a shard; a "gauge"
+               dataset of each decode kind; one with cohort-pool rows; a
+               raw shard with the mirror): every mesh route (mesh-fused,
+               -fused-narrow, -twostep, -topk, -sketch, -empty, the pool
+               rows' mesh-fused, the mirror's single-shard K1-quant16)
+               through QueryEngine(mesh=["cuda"]) against
+               QueryEngine(mesh=["cpu"] * 8): route, QueryStats, keys, NaN
+               placement, values (counts bit for bit, the rest rtol 1e-5);
+               K1 launched 8 times a fused mesh query, by decode kind.
+  11b. mesh scale — bench.py's 2^20 x 720 store split over 8 shards of
+               2^17 (real registration, delta8-exact counters from a
+               seed), one memstore, QueryEngine(mesh=["cuda"]) against the
+               host loop: M1 sum(rate), M2 avg by (grp) (rate), M3
+               max(rate), M4 topk(5, rate), M5 quantile(0.99, rate), M6 M1
+               after the shards go delta8-resident. Routes, 8 K1 launches a
+               fused query, the mesh answer bit for bit the host loop's
+               (M4: keys equal, values bit for bit); M5's sketch holds every
+               series once a step. Prints each query's p50 over 3 after a
+               warm run, both engines, and the 8 per-shard K1 times beside
+               phase 4's one launch over 2^20 rows.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -193,6 +223,7 @@ phase 7's query to OUT; --k2-compare says whether saved partials are equal
 bit for bit. Neither prints a result line.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -1252,7 +1283,7 @@ def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
     n = torch.where(torch.from_numpy(ok).to(st.device), st.n, 0).contiguous()
     gids = fg.zero_gids(st.S, st.device)
     worst = 0.0
-    for (s, e), r, want in zip(variants, results, raw_ans):
+    for i, ((s, e), r, want) in enumerate(zip(variants, results, raw_ans)):
         out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
         vals = np.asarray(r.matrix.values)
         assert vals.shape == want.shape == (1, len(out_ts)), vals.shape
@@ -1260,6 +1291,11 @@ def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
         np.testing.assert_allclose(vals, want, rtol=1e-5,
                                    atol=1e-5 * float(np.abs(want).max()),
                                    err_msg=f"{kind} vs raw residency")
+        if i not in (0, len(variants) - 1):
+            # K1 against its plain twin (~3 s a call) at the widest and the
+            # narrowest range only: the depth was cut from all 8 to keep
+            # the script's budget with phases 11a/11b
+            continue
         T = len(out_ts)
         Tp = -(-T // 128) * 128
         band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
@@ -1296,9 +1332,12 @@ def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
         "rate", False, WINDOW_MS, INTERVAL_MS, dec, n, gids, lo, hi, rel, 8,
         c0, Ca), reps=20)
     del dec, a, b
+    # one call of the plain twin (~3 s a kind): the yardstick's depth was
+    # cut from 3 timed calls after a warm one to keep the script's budget
+    # with phases 11a/11b
     p_ms = cuda_ms(lambda: fg.fused_grid_aggregate_plain(
         "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, band, ohlo,
-        lo, hi, rel, 8, c0, Ca, kind, ops[1:]), reps=3, warm=1)
+        lo, hi, rel, 8, c0, Ca, kind, ops[1:]), reps=1, warm=0)
     key, bw, f32 = peaks_for(card)
     S = st.S
     # the block's columns once, n, gid and the row operands, the step
@@ -2605,6 +2644,404 @@ def phase_subquery_scale(torch, np, fg, card, engine, shard):
     return lat, launches
 
 
+# phase 11a: the mesh route on 8 small shards, card against CPU
+MESH_SMALL_N = 100
+MESH_SMALL_FUSED = tuple(f"{op}({fn}(c[5m]))"
+                         for op in ("sum", "avg", "count", "stddev")
+                         for fn in ("rate", "increase", "delta")) + (
+    "sum(sum_over_time(c[5m]))", "avg by (grp) (rate(c[5m]))")
+MESH_SMALL_ROUTES = (
+    [("c", q, "mesh-fused") for q in MESH_SMALL_FUSED]
+    + [("c", q, "mesh-twostep") for q in ("max(rate(c[5m]))",
+                                          "min by (grp) (rate(c[5m]))")]
+    + [("c", q, "mesh-topk") for q in ("topk(3, rate(c[5m]))",
+                                       "bottomk(2, rate(c[5m]))",
+                                       "topk(2, rate(c[5m])) by (grp)")]
+    + [("c", "quantile(0.9, rate(c[5m]))", "mesh-sketch"),
+       ("c", "sum(rate(nosuch[5m]))", "mesh-empty")]
+    + [(kind, q, "mesh-fused-narrow") for kind in NARROW_KINDS
+       for q in ("sum(rate(c[5m]))", "stddev by (grp) (increase(c[5m]))")]
+    + [("pool", "sum(rate(c[5m]))", "mesh-fused"),
+       ("mirror", "sum(rate(c[5m]))", "local")])
+
+
+def mesh_small_rows(np, kind, n, seed):
+    """``n`` value rows of MESH_SMALL_N samples: integer counters (the
+    ``c``, ``delta8``, ``pool`` and ``mirror`` sets), half-integer gauges
+    (``quant16``) or wide odd increments (``delta16``); in ``pool`` the
+    third row of every 5 is continuous (no variant carries it)."""
+    rng = np.random.default_rng(seed)
+    N = MESH_SMALL_N
+    out = []
+    for i in range(n):
+        if kind == "quant16":
+            v = 1000.0 + 0.5 * np.arange(N) + 4.0 * i
+        elif kind == "delta16":
+            v = np.cumsum(rng.integers(100, 3000, N) * 2 + 1).astype(float)
+        elif kind == "pool" and i % 5 == 2:
+            v = np.cumsum(rng.exponential(5.0, N))
+        else:
+            v = np.cumsum(rng.integers(1, 50, N)).astype(float)
+        out.append(v)
+    return out
+
+
+def build_mesh_small(np, pkg, dev):
+    """One memstore on ``dev``: the datasets phase 11a queries, each through
+    the real ingest path and a flush. ``c``: 8 shards of 3, 6, ..., 24
+    integer counters; one 8-shard "gauge" dataset of 3 series a shard per
+    decode kind; ``pool``: 8 "gauge" shards of 5 counters, one continuous
+    (the cohort pool); ``mirror``: one raw shard of 24 counters with the
+    quant16 mirror on."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, _qe = pkg
+    ms = TimeSeriesMemStore(device=dev)
+    ts = BASE_TS + np.arange(MESH_SMALL_N, dtype=np.int64) * INTERVAL_MS
+    sets = {"c": (8, None, "off", False)}
+    sets.update({k: (8, 3, "gauge", False) for k in NARROW_KINDS})
+    sets["pool"] = (8, 5, "gauge", False)
+    sets["mirror"] = (1, 24, "off", True)
+    for ds, (nshards, per, residency, mirror) in sets.items():
+        cfg = StoreConfig(max_series_per_shard=32, samples_per_series=128,
+                          flush_batch_size=10**9,
+                          compressed_residency=residency,
+                          narrow_mirror=mirror, device=dev)
+        shards = [ms.setup(ds, GAUGE, s, cfg) for s in range(nshards)]
+        counts = ([3 * (s + 1) for s in range(nshards)] if per is None
+                  else [per] * nshards)
+        rows = mesh_small_rows(np, ds, sum(counts), seed=21)
+        i = 0
+        for s, sh in enumerate(shards):
+            b = RecordBuilder(GAUGE)
+            for _ in range(counts[s]):
+                b.add_batch({"_metric_": "c", "host": f"h{i}",
+                             "grp": f"g{i % 4}"}, ts, rows[i])
+                i += 1
+            sh.ingest(b.build())
+            sh.flush()
+    return ms
+
+
+def phase_mesh_small(torch, np, fg, pkg, devs=("cuda", "cpu")):
+    """Phase 11a: every mesh route (and the pool-row and mirror cases) with
+    QueryEngine(mesh=["cuda"]) against QueryEngine(mesh=["cpu"] * 8) over
+    the same data: route, QueryStats, keys, NaN placement and values
+    (counts bit for bit, the rest rtol 1e-5 of the largest magnitude).
+    Returns K1's launches on the card by decode variant."""
+    QueryEngine = pkg[4]
+    stores = {dev: build_mesh_small(np, pkg, dev) for dev in devs}
+    meshes = {devs[0]: [devs[0]], devs[1]: [devs[1]] * 8}
+    for kind in NARROW_KINDS:
+        for dev in devs:
+            for sh in stores[dev].shards_of(kind):
+                nd = sh.store.narrow_operands()
+                assert nd is not None and nd[0] == kind and nd[2].all(), \
+                    (kind, dev, nd and nd[0])
+    for dev in devs:
+        pool = [sh.store.narrow_operands() for sh in stores[dev].shards_of(
+            "pool")]
+        assert all(nd is not None for nd in pool) and not all(
+            nd[2][:5].all() for nd in pool), dev
+        mirror = stores[dev].shard("mirror", 0).store
+        assert mirror.narrow.get(mirror) is not None, dev
+    start, end, step = BASE_TS + 300_000, BASE_TS + 990_000, 30_000
+    engines = {(dev, ds): QueryEngine(stores[dev], ds, device=dev,
+                                      mesh=meshes[dev])
+               for dev in devs for ds in ("c", "pool", "mirror",
+                                          *NARROW_KINDS)}
+    # the main path: counts from 0, read right after
+    reset_k1(fg)
+    got = [engines[(devs[0], ds)].query_range(q, start, end, step)
+           for ds, q, _route in MESH_SMALL_ROUTES]
+    by_kind = dict(fg.fused_grid_kernel.launches_by_kind)
+    want = dict.fromkeys(by_kind, 0)
+    for (ds, _q, route), r in zip(MESH_SMALL_ROUTES, got):
+        assert r.exec_path == route, (ds, _q, r.exec_path, route)
+        if route.startswith("mesh-fused"):
+            want["raw" if ds in ("c", "pool") else ds] += 8
+    want["quant16"] += 1                       # the mirror's single shard
+    assert by_kind == want, (by_kind, want)
+    for (ds, q, route), r in zip(MESH_SMALL_ROUTES, got):
+        ref = engines[(devs[1], ds)].query_range(q, start, end, step)
+        exact = q.startswith("count") or route == "mesh-empty"
+        compare_result(np, f"{ds}: {q}", r, ref, exact, route=route)
+        if ds == "mirror":
+            assert r.stats.blocks_narrow == 1, r.stats.blocks_narrow
+    return by_kind
+
+
+# phase 11b: the bench's shape split over 8 shards, mesh against host loop
+MESH_SHARDS = 8
+MESH_SERIES = NUM_SERIES // MESH_SHARDS
+MESH_QUERIES = {
+    "M1": "sum(rate(m[5m]))",
+    "M2": "avg by (grp) (rate(m[5m]))",
+    "M3": "max(rate(m[5m]))",
+    "M4": "topk(5, rate(m[5m]))",
+    "M5": "quantile(0.99, rate(m[5m]))",
+    "M6": "sum(rate(m[5m]))",
+}
+MESH_ROUTES = {"M1": "mesh-fused", "M2": "mesh-fused", "M3": "mesh-twostep",
+               "M4": "mesh-topk", "M5": "mesh-sketch",
+               "M6": "mesh-fused-narrow"}
+MESH_REPS = 3
+
+
+def build_mesh_scale(torch, np, pkg, dev="cuda"):
+    """(memstore, shards, registration s): bench.py's 2^20 series x 720
+    samples (C = 768) split over 8 shards of 2^17, every series registered
+    through the real ingest path (``add_series_batch`` -> ``shard.ingest``
+    -> ``discard_staged``), the data installed on the card from a seeded
+    torch.Generator: counters with integer anchors below 2^20 and integer
+    increments in [0, 8], which delta8 carries exactly (no pool row).
+    Residency is "off" until M6 turns it on."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, _qe = pkg
+    ms = TimeSeriesMemStore(device=dev)
+    cfg = StoreConfig(max_series_per_shard=MESH_SERIES,
+                      samples_per_series=CAPACITY, flush_batch_size=10**9,
+                      device=dev)
+    shards = [ms.setup("meshq", GAUGE, s, cfg) for s in range(MESH_SHARDS)]
+    t0 = time.perf_counter()
+    for s, sh in enumerate(shards):
+        ids = range(s * MESH_SERIES, (s + 1) * MESH_SERIES)
+        b = RecordBuilder(GAUGE)
+        b.add_series_batch({"_metric_": "m", "host": [f"h{i}" for i in ids],
+                            "grp": [f"g{i % 4}" for i in ids]}, BASE_TS, 0.0)
+        sh.ingest(b.build())
+        sh.discard_staged()
+        assert sh.num_series == MESH_SERIES, sh.num_series
+    reg_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(23)
+    row = BASE_TS + torch.arange(NUM_SAMPLES, device=dev) * INTERVAL_MS
+    for sh in shards:
+        st = sh.store
+        with sh.lock:
+            for r0 in range(0, MESH_SERIES, DATA_BATCH):
+                rows = min(DATA_BATCH, MESH_SERIES - r0)
+                inc = torch.randint(0, 9, (rows, NUM_SAMPLES), generator=g,
+                                    device=dev).float()
+                base = torch.randint(0, 1 << 20, (rows, 1), generator=g,
+                                     device=dev).float()
+                st.val[r0:r0 + rows, :NUM_SAMPLES] = base + torch.cumsum(
+                    inc, 1)
+            st.val[:, NUM_SAMPLES:] = 0.0
+            st.ts[:, :NUM_SAMPLES] = row
+            st.n.fill_(NUM_SAMPLES)
+            st.n_host[:] = NUM_SAMPLES
+            st.first_ts[:] = BASE_TS
+            st.last_ts[:] = BASE_TS + (NUM_SAMPLES - 1) * INTERVAL_MS
+            st.grid_base, st.grid_interval = BASE_TS, INTERVAL_MS
+            st.grid_ok = True
+            st.stats.samples_appended += MESH_SERIES * NUM_SAMPLES
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return ms, shards, reg_s
+
+
+def mesh_answer(np, r):
+    return {k.labels: np.asarray(v, np.float64)
+            for k, _t, v in r.matrix.iter_series()}
+
+
+def mesh_k1_per_shard(np, fg, shards, out_ts):
+    """K1's time on each shard's raw block at ``out_ts`` (CUDA events)."""
+    T = len(out_ts)
+    Tp = -(-T // 128) * 128
+    out = []
+    for sh in shards:
+        st = sh.store
+        _band, _ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
+            CAPACITY, Tp, out_ts.tobytes(), WINDOW_MS, BASE_TS, INTERVAL_MS,
+            "rate", False, st.val.device)
+        gz = fg.zero_gids(st.S, st.val.device)
+        out.append(cuda_ms(lambda st=st, gz=gz, lo=lo, hi=hi, rel=rel,
+                           c0=c0, Ca=Ca: fg.fused_grid_kernel(
+            "rate", False, WINDOW_MS, INTERVAL_MS, st.val, st.n, gz, lo, hi,
+            rel, 8, c0, Ca), reps=10))
+    return out
+
+
+def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
+    """Phase 11b: M1-M6 through QueryEngine(mesh=["cuda"]) and the host
+    loop (QueryEngine without a mesh) on one 8-shard memstore; routes, K1's
+    launches a query, the mesh answer against the host loop's (M1-M3, M6
+    bit for bit; M4 keys equal and values bit for bit; M5 the presented
+    quantiles bit for bit, every series counted once a step); p50 over 3
+    runs each after a warm run; the 8 per-shard K1 times beside phase 4's
+    single-shard K1 over the same 2^20 rows. Returns K1's launches on the
+    mesh runs by decode variant and the p50s."""
+    QueryEngine = pkg[4]
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+    ms, shards, reg_s = build_mesh_scale(torch, np, pkg, dev)
+    mesh_eng = QueryEngine(ms, "meshq", device=dev, mesh=[dev])
+    host_eng = QueryEngine(ms, "meshq", device=dev)
+    s, e = range_variants(shards[0])[0]
+    T = len(np.arange(s, e + 1, STEP_MS))
+
+    def timed(eng, q):
+        eng.query_range(q, s, e, STEP_MS)            # warm
+        times, r = [], None
+        for _ in range(MESH_REPS):
+            t0 = time.perf_counter()
+            r = eng.query_range(q, s, e, STEP_MS)
+            np.asarray(r.matrix.values)
+            times.append((time.perf_counter() - t0) * 1000)
+        return r, float(np.percentile(times, 50))
+
+    out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
+    lat, res, host, launches = {}, {}, {}, {}
+    by_kind = dict.fromkeys(fg.fused_grid_kernel.launches_by_kind, 0)
+    for name, q in MESH_QUERIES.items():
+        if name == "M6":
+            # before the store goes narrow: the 8 per-shard K1 launches of
+            # M1 by CUDA events, and M5's sketch counts
+            per_shard = mesh_k1_per_shard(np, fg, shards, out_ts)
+            with contextlib.ExitStack() as stack:
+                for sh in shards:
+                    stack.enter_context(sh.lock)
+                ex = mesh_eng._mesh_executor(shards)
+                sketch = ex.quantile("rate", out_ts, WINDOW_MS,
+                                     [np.zeros(MESH_SERIES, np.int32)]
+                                     * MESH_SHARDS, 1, 0.99)
+            # every series counted once at every step
+            assert (sketch.counts[0].sum(axis=0)[:T] == NUM_SERIES).all()
+            shards[0].config.compressed_residency = "gauge"
+            sync()
+            t0 = time.perf_counter()
+            for sh in shards:
+                sh.flush()
+            sync()
+            comp_s = time.perf_counter() - t0
+            for sh in shards:
+                nd = sh.store.narrow_operands()
+                assert nd is not None and nd[0] == "delta8" and nd[2].all(), \
+                    nd and nd[0]
+        mesh_eng.query_range(q, s, e, STEP_MS)       # warm
+        # the main path: counts from 0, read right after
+        reset_k1(fg)
+        times = []
+        for _ in range(MESH_REPS):
+            t0 = time.perf_counter()
+            r = mesh_eng.query_range(q, s, e, STEP_MS)
+            np.asarray(r.matrix.values)
+            times.append((time.perf_counter() - t0) * 1000)
+        for k, v in fg.fused_grid_kernel.launches_by_kind.items():
+            by_kind[k] += v
+        launches[name] = fg.fused_grid_kernel.launches / MESH_REPS
+        res[name], lat[name] = r, float(np.percentile(times, 50))
+        host[name], lat[name + " host"] = timed(host_eng, q)
+        assert r.exec_path == MESH_ROUTES[name], (name, r.exec_path)
+        assert host[name].exec_path == "local", host[name].exec_path
+        want = 8 if MESH_ROUTES[name].startswith("mesh-fused") else 0
+        assert launches[name] == want, (name, launches[name])
+        assert r.stats.fused_kernels == (want > 0), name
+        assert r.stats.series_matched == NUM_SERIES, r.stats.series_matched
+    for name in MESH_QUERIES:
+        g, h = res[name], host[name]
+        if name == "M4":
+            ga, ha = mesh_answer(np, g), mesh_answer(np, h)
+            assert set(ga) == set(ha), "M4 keys"
+            assert all(np.array_equal(ga[k], ha[k], equal_nan=True)
+                       for k in ha), "M4 values"
+        else:
+            assert [k.labels for k in g.matrix.keys] == \
+                [k.labels for k in h.matrix.keys], name
+            assert np.array_equal(np.asarray(g.matrix.values),
+                                  np.asarray(h.matrix.values),
+                                  equal_nan=True), (name, "not bit-equal")
+        vals = np.asarray(g.matrix.values, np.float64)
+        assert vals.shape[1] == T and np.isfinite(vals[~np.isnan(vals)]
+                                                  ).all(), name
+    assert res["M4"].matrix.num_series >= 5
+    assert res["M2"].matrix.num_series == 4
+    log(f"mesh scale [{card}]: {MESH_SHARDS} shards x {MESH_SERIES} series "
+        f"x {NUM_SAMPLES} samples registered in {reg_s:.1f} s; {T} steps; "
+        f"delta8 at flush in {comp_s:.2f} s")
+    for name, q in MESH_QUERIES.items():
+        log(f"mesh scale [{card}]: {name} {q}: {MESH_ROUTES[name]} p50 "
+            f"{lat[name]:.3f} ms, host loop p50 {lat[name + ' host']:.3f} "
+            f"ms (over {MESH_REPS} runs); K1 launches a mesh query "
+            f"{launches[name]:g}; bit-equal to the host loop")
+    log(f"mesh scale [{card}]: K1 per shard (2^17 rows) by CUDA events "
+        f"{[round(x, 4) for x in per_shard]} ms, sum "
+        f"{sum(per_shard):.4f} ms, beside phase 4's one launch over 2^20 "
+        f"rows {k1_single_ms:.4f} ms")
+    return by_kind, lat, per_shard
+
+
+def phase_mirror_scale(torch, np, fg, card, engine, shard):
+    """NarrowMirror on phase 4's raw shard, after every phase that times
+    it: the mirror on, one sample appended through the real path and
+    flushed (the flush rebuilds the mirror outside the lock). On phase 4's
+    continuous values no row round-trips and the query streams the raw
+    block; then the store's values are rounded to integers in place (a
+    direct write, as phase 4's install is), another flush rebuilds the
+    mirror, every row is exact, and sum(rate(m[5m])) streams K1-quant16,
+    within 1e-5 of the raw route's answer. Returns the quant16 launches."""
+    from filodb_tpu_torch.core.filters import Equals
+    from filodb_tpu_torch.core.record import RecordBuilder
+    from filodb_tpu_torch.core.schemas import GAUGE
+    st = shard.store
+    s, e = range_variants(shard)[0]
+    q = "sum(rate(m[5m]))"
+    (pid,) = shard.part_ids_from_filters([Equals("host", "h0")], s, e)
+    shard.config.narrow_mirror = True
+
+    def append_and_flush():
+        n = int(st.n_host[pid])
+        b = RecordBuilder(GAUGE)
+        b.add({"_metric_": "m", "host": "h0"}, BASE_TS + n * INTERVAL_MS,
+              float(st.val[pid, n - 1]) + 1.0)
+        shard.ingest(b.build())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def run(mirror):
+        shard.config.narrow_mirror = mirror
+        reset_k1(fg)
+        r = engine.query_range(q, s, e, STEP_MS)
+        kinds = dict(fg.fused_grid_kernel.launches_by_kind)
+        shard.config.narrow_mirror = True
+        return r, kinds
+
+    t_float = append_and_flush()
+    ok = st.narrow.get(st)[3]
+    r, kinds = run(True)
+    assert r.stats.blocks_raw == 1 and kinds["raw"] == 1, (r.stats.blocks_raw,
+                                                           kinds)
+    with shard.lock:
+        st.val.round_()
+        st.stats.samples_appended += NUM_SERIES * NUM_SAMPLES
+    assert st.narrow.get(st) is None            # stale until a flush
+    t_int = append_and_flush()
+    ok_int = st.narrow.get(st)[3]
+    assert ok_int.all(), int((~ok_int).sum())
+    got, kinds = run(True)
+    assert got.stats.blocks_narrow == 1 and kinds["quant16"] == 1 and \
+        kinds["raw"] == 0, (got.stats.blocks_narrow, kinds)
+    launches = kinds["quant16"]
+    raw, kinds = run(False)
+    assert raw.stats.blocks_raw == 1 and kinds["raw"] == 1, kinds
+    gv, rv = (np.asarray(x.matrix.values, np.float64) for x in (got, raw))
+    np.testing.assert_allclose(gv, rv, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(rv).max()),
+                               err_msg="mirror vs raw")
+    log(f"mirror scale [{card}]: phase 4's {NUM_SERIES} series; refresh at "
+        f"flush {t_float:.2f} s on the continuous values ({int(ok.sum())} "
+        f"rows exact: the query streams the raw block), {t_int:.2f} s after "
+        f"rounding them to integers (every row exact): sum(rate(m[5m])) "
+        f"streams K1-quant16 once, "
+        f"{'bit-equal to' if np.array_equal(gv, rv) else 'within 1e-5 of'} "
+        f"the raw route (max |diff| {float(np.abs(gv - rv).max()):.3g})")
+    shard.config.narrow_mirror = False
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2718,8 +3155,11 @@ def main() -> int:
     log(f"general scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _lat10, k1_10 = phase_subquery_scale(torch, np, fg, card, engine, shard)
-    del engine, shard
     log(f"subquery scale: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_mirror = phase_mirror_scale(torch, np, fg, card, engine, shard)
+    del engine, shard
+    log(f"mirror scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2770,8 +3210,22 @@ def main() -> int:
     _lat9b, k1_9b = phase_hist_general_scale(torch, np, fg, fr, card, engine,
                                              shard, sampled)
     del engine, shard
-    log(f"hist general scale: done in {time.perf_counter() - t0:.1f} s; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+    log(f"hist general scale: done in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    k1_11a = phase_mesh_small(torch, np, fg, pkg)
+    log(f"mesh small: {len(MESH_SMALL_ROUTES)} queries over 8-shard "
+        f"datasets with mesh=[\"cuda\"] match mesh=[\"cpu\"] * 8; K1 "
+        f"launches by kind {k1_11a} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    k1_11b, _lat11b, _per_shard = phase_mesh_scale(torch, np, fg, card, pkg,
+                                                   k1["ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mesh scale: done in {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - t_all:.1f} s")
 
     k1_rows = [{
         "name": "fusedgrid_k1" if kind == "raw" else f"fusedgrid_k1_{kind}",
@@ -2783,10 +3237,20 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None} for kind, r in [("raw", k1), *k1n.items()]]
     # K1 raw's main paths: phase 4's bench query, then the fused legs of
-    # phases 8b (S1), 9b (H3) and 10 (Q1), each counted from 0
-    k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10
+    # phases 8b (S1), 9b (H3) and 10 (Q1), and the mesh routes of 11a/11b,
+    # each counted from 0; the decode variants add the mesh's narrow routes
+    # and the mirror's quant16 stream
+    k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
+        + k1_11b["raw"]
+    for row in k1_rows[1:]:
+        kind = row["variant"]
+        row["launches"] += k1_11a[kind] + k1_11b[kind] + (
+            k1_mirror if kind == "quant16" else 0)
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
-        f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}")
+        f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
+        f"{k1_11b['raw']}; decode variants on the mesh (11a, 11b) "
+        f"{ {k: (k1_11a[k], k1_11b[k]) for k in NARROW_KINDS} }, quant16 "
+        f"through the mirror {k1_mirror}")
     table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",

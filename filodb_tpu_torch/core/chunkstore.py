@@ -23,7 +23,9 @@ store takes the first of delta8, quant16 and delta16 (ops/decodereg.py)
 whose pool stays under the cohort gate; a histogram [S, C, B] store an
 i8/i16 2D-delta block. On a grid-contiguous store the i64 timestamp block
 is released too (derived from first_ts, n and the interval). Appends
-rehydrate; the next flush re-compresses.
+rehydrate; the next flush re-compresses. A raw store may instead keep a
+quant16 mirror beside its f32 block (``SeriesStore.narrow``,
+ops/narrow.NarrowMirror).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import decodereg
+from ..ops.narrow import NarrowMirror
 from ..utils import diagnostics
 
 TS_PAD = np.int64(1) << np.int64(62)   # sentinel > any real timestamp
@@ -309,6 +312,10 @@ class SeriesStore:
         # the shard attaches its lock so mutations can assert the discipline
         self.owner_lock = None
         self.stats = SeriesStoreStats()
+        # quant16 mirror of the default value column beside the raw block
+        # (StoreConfig.narrow_mirror): rebuilt at flush, consulted by the
+        # query leaf
+        self.narrow = NarrowMirror()
         # scalar narrow-resident state (compressed_residency "gauge"/"all"):
         # (kind, ops, pool f32 [Rp, C], pp i32 [Rp] (pads = S), slot i32 [S]
         # (-1 = not pooled), ok_host bool [S]); ``kind`` names the decode

@@ -18,9 +18,10 @@ the build outside the shard lock, the swap under it only if the store did
 not mutate meanwhile.
 
 The port's shards carry no durable sink yet, and no ingest offsets or group
-watermarks with it. Recovery, purge, on-demand paging, inline downsampling,
-the cardinality governor and the optional quant16 mirror beside a raw store
-(the reference's ``narrow_mirror``) arrive with later slices.
+watermarks with it. Recovery, purge, on-demand paging, inline downsampling
+and the cardinality governor arrive with later slices. Under
+``narrow_mirror`` a raw store keeps a quant16 copy beside its f32 block,
+rebuilt at flush outside the shard lock.
 """
 
 from __future__ import annotations
@@ -60,6 +61,12 @@ class StoreConfig:
     #   "all"   — "gauge", and [S, C, B] histogram stores (i8/i16 2D-delta
     #             bucket blocks + timestamp elision)
     compressed_residency: str = "off"
+    # keep a quant16 mirror (ops/narrow.NarrowMirror) beside a raw f32
+    # store's value block, rebuilt at flush: the fused pass streams 2 B a
+    # sample instead of 4 for the rows that round-trip bit-exactly (the
+    # rest ride the general kernels). Off by default, as in the reference;
+    # only with residency "off" (a compressed store is its own narrow form)
+    narrow_mirror: bool = False
 
     def __post_init__(self):
         if self.dtype not in ("float32", "float64"):
@@ -401,6 +408,11 @@ class TimeSeriesShard:
             if resident:
                 self._compress_resident_two_phase()
             return 0
+        if self.config.narrow_mirror and not resident:
+            # flush-time rebuild, outside the lock: the build streams the
+            # whole store and copies the ok flags to the host; queries only
+            # consult the mirror
+            self.store.narrow.refresh(self.store)
         if self.eviction_policy.should_evict(self.store, self.config):
             cutoff = int(self.store.last_ts.max(initial=0)) - self.config.retention_ms
             with self.lock:

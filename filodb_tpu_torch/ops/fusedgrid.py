@@ -225,8 +225,9 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     contiguous f32 [S] row operands ((vmin, scale) for quant16, (anchor,)
     for the delta variants); ``n``/``gids`` contiguous int32 [S];
     ``lo``/``hi``/``rel`` contiguous int32 holding Tp values, Tp a multiple
-    of 128; 1 <= G <= 64; all on one device. Launches on the current stream
-    and does not synchronise. Counts its launches in ``.launches`` and, by
+    of 128; 1 <= G <= 64; all on one device. Launches on that device's
+    current stream (with the device made current for the launch) and does
+    not synchronise. Counts its launches in ``.launches`` and, by
     variant, in ``.launches_by_kind``.
 
     C interface (``fusedgrid_launch`` in csrc/fusedgrid.cu), in order:
@@ -280,13 +281,16 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     rate_scale = float(np.float32(1000.0 / window_ms))
     lib = _k1_lib()
     rows = [t.data_ptr() for t in row_ops] + [None] * (2 - len(row_ops))
-    err = lib.fusedgrid_launch(
-        val.data_ptr(), KIND_CODES[kind], *rows, val.stride(0), c0, Ca, C, S,
-        n.data_ptr(), gids.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        rel.data_ptr(), Tp, G, FN_CODES[fn], nout, int(window_ms),
-        int(interval_ms), rate_scale, rows_per_block, rt, vec4,
-        scratch.data_ptr(), nchunks, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # the <<<>>> launch runs on the thread's current device: make it the
+    # tensors' own (a mesh shard on cuda:1 while cuda:0 is current)
+    with torch.cuda.device(dev):
+        err = lib.fusedgrid_launch(
+            val.data_ptr(), KIND_CODES[kind], *rows, val.stride(0), c0, Ca,
+            C, S, n.data_ptr(), gids.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            rel.data_ptr(), Tp, G, FN_CODES[fn], nout, int(window_ms),
+            int(interval_ms), rate_scale, rows_per_block, rt, vec4,
+            scratch.data_ptr(), nchunks, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fusedgrid kernel launch failed: CUDA error {err} "
                            f"({lib.fusedgrid_error_string(err).decode()})")

@@ -509,17 +509,20 @@ def fused_hist_kernel(fn: str, window_ms: int, interval_ms: int, dd, first_d,
     out = torch.empty((2, G, Tp * B), dtype=torch.float32, device=dev)
     rate_scale = float(np.float32(1000.0 / window_ms))
     lib = _k2_lib()
-    err = lib.fusedhist_launch(
-        dd.data_ptr(), dd.element_size(), S, C, B,
-        first_d.data_ptr(), n.data_ptr(), gids.data_ptr(),
-        ops.lo.data_ptr(), ops.hi.data_ptr(), ops.rel.data_ptr(),
-        ops.slots.data_ptr(), ops.kseg.data_ptr(), ops.bounds.data_ptr(),
-        ops.usteps.data_ptr(), ops.ucol.data_ptr(),
-        ncells, ops.nsegs, ops.cmax, ops.nsteps,
-        Tp, G, K2_FN_CODES[fn], int(window_ms), int(interval_ms), rate_scale,
-        shape.rows_per_block, shape.rows_pass, shape.tile_steps,
-        int(shape.acc_shared), scratch.data_ptr(), shape.nchunks,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    # the <<<>>> launch runs on the thread's current device: make it dd's
+    with torch.cuda.device(dev):
+        err = lib.fusedhist_launch(
+            dd.data_ptr(), dd.element_size(), S, C, B,
+            first_d.data_ptr(), n.data_ptr(), gids.data_ptr(),
+            ops.lo.data_ptr(), ops.hi.data_ptr(), ops.rel.data_ptr(),
+            ops.slots.data_ptr(), ops.kseg.data_ptr(), ops.bounds.data_ptr(),
+            ops.usteps.data_ptr(), ops.ucol.data_ptr(),
+            ncells, ops.nsegs, ops.cmax, ops.nsteps,
+            Tp, G, K2_FN_CODES[fn], int(window_ms), int(interval_ms),
+            rate_scale, shape.rows_per_block, shape.rows_pass,
+            shape.tile_steps, int(shape.acc_shared), scratch.data_ptr(),
+            shape.nchunks, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fusedhist kernel launch failed: CUDA error {err} "
                            f"({lib.fusedhist_error_string(err).decode()})")

@@ -1,7 +1,7 @@
 """Narrow (compressed) residency encoders of the port.
 
-Port of ``filodb_tpu/ops/narrow.py`` but its ``NarrowMirror`` (an optional
-quant16 copy beside a raw store, a later slice).
+Port of ``filodb_tpu/ops/narrow.py``, its ``NarrowMirror`` (an optional
+quant16 copy beside a raw f32 store, rebuilt at flush) included.
 
 Histogram stores (ref: the wire codec's 2D-delta, doc/compression.md
 "Histograms"). Buckets are cumulative,
@@ -220,3 +220,40 @@ def cast_narrow_hist_i8(dd16):
     """i16 -> i8 narrowing for stores whose ok rows all fit 8 bits (pool rows
     may wrap — their dd is never read; decodes overlay the pool row-wise)."""
     return dd16.to(torch.int8)
+
+
+class NarrowMirror:
+    """quant16 mirror of a raw f32 store's [S, C] value block, rebuilt at
+    flush time outside the shard lock (the build streams the whole store
+    and copies the per-row ok flags to the host, which must never hold up
+    queries or ingest waiting on the lock) and only consulted by the query
+    leaf. The mirror is current while the store's epoch (samples appended
+    plus 1_000_003 per compaction, the reference's count) has not moved."""
+
+    def __init__(self):
+        self._epoch = -1
+        self._data = None
+
+    @staticmethod
+    def _store_epoch(store) -> int:
+        return (store.stats.samples_appended
+                + store.stats.compactions * 1_000_003)
+
+    def refresh(self, store) -> None:
+        """(Re)build if the store mutated since the last build. Call outside
+        the shard lock (flush time): one streaming pass, one host copy."""
+        if (store.dtype != torch.float32 or store.val is None
+                or store.val.dim() != 2):
+            return
+        epoch = self._store_epoch(store)
+        if self._data is None or self._epoch != epoch:
+            q, vmin, scale, ok = build_narrow(store.val, store.n)
+            self._data = (q, vmin, scale, ok.cpu().numpy())
+            self._epoch = epoch
+
+    def get(self, store):
+        """(q, vmin, scale, ok_host) when a current mirror exists, else
+        None; never builds (query leaves run under the shard lock)."""
+        if self._data is None or self._epoch != self._store_epoch(store):
+            return None
+        return self._data

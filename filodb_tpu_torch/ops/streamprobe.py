@@ -103,10 +103,12 @@ def stream_probe_kernel(val):
     scratch = torch.empty((nblocks, C), dtype=torch.float32, device=val.device)
     out = torch.empty(OUT_SHAPE, dtype=torch.float32, device=val.device)
     lib = _k3_lib()
-    err = lib.streamprobe_launch(
-        val.data_ptr(), val.stride(0), S, C, per_block, nblocks,
-        int(vector_loads(val)), scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(val.device).cuda_stream)
+    # the <<<>>> launch runs on the thread's current device: make it val's
+    with torch.cuda.device(val.device):
+        err = lib.streamprobe_launch(
+            val.data_ptr(), val.stride(0), S, C, per_block, nblocks,
+            int(vector_loads(val)), scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(val.device).cuda_stream)
     if err:
         why = lib.streamprobe_error_string(err).decode()
         raise RuntimeError(f"streamprobe kernel launch failed: CUDA error "

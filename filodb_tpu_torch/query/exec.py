@@ -1277,12 +1277,23 @@ class SelectRawPartitionsExec(ExecPlan):
         g_min = (pids[minority_sel].astype(np.int32)
                  if minority_sel is not None else None)
         narrow = None
-        if grid is not None and col is None and les is None and val.dim() == 2:
-            # scalar narrow-resident store: ship the narrow operands so the
-            # fused pass streams them, unless the selection's pool rows pass
-            # the cohort gate (correcting that many costs more than the
-            # transient f32 decode)
+        # the reference's row-count condition is kept so both packages pick
+        # the same route; K1 takes any S, and a store's row rounding (a
+        # multiple of 8 up to 512, of 512 beyond) always meets it
+        if (grid is not None and col is None and les is None
+                and (store.S % 512 == 0 or store.S <= 512)
+                and val.dim() == 2):
+            # scalar narrow-resident store first (the narrow form IS the
+            # store), then the optional quant16 mirror beside a raw one: ship
+            # the narrow operands so the fused pass streams them, unless the
+            # selection's inexact rows pass the cohort gate (correcting that
+            # many costs more than streaming the f32 block)
             nd = store.narrow_operands()
+            if nd is None and shard.config.narrow_mirror:
+                md = store.narrow.get(store)
+                if md is not None:
+                    q, vmin, scale, ok_host = md
+                    nd = ("quant16", (q, vmin, scale), ok_host)
             if nd is not None:
                 kind, nops, ok_host = nd
                 bad = pids[~ok_host[pids]].astype(np.int32)

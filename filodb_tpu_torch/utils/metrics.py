@@ -1,8 +1,8 @@
 """Metrics registry: counters and histograms, one process-global registry.
 
 Host copy of the parts of ``filodb_tpu/utils/metrics.py`` the port's main
-path records: the query latency histogram, the fused-tier served/fallback
-counters and the residency-fallback counter. Metric names are the reference's, so dashboards read both.
+path records: the query latency histogram, the fused-tier and mesh-route
+served/fallback counters and the residency-fallback counter. Metric names are the reference's, so dashboards read both.
 """
 
 from __future__ import annotations
@@ -13,6 +13,12 @@ from bisect import bisect_right
 FILODB_QUERY_LATENCY_MS = "filodb_query_latency_ms"
 FILODB_QUERY_FUSED_SERVED = "filodb_query_fused_served"
 FILODB_QUERY_FUSED_FALLBACK = "filodb_query_fused_fallback"
+# queries the mesh route served, tagged by route (fused / fused-narrow /
+# twostep / sketch / topk) and program mode (the port runs eagerly: "eager")
+FILODB_QUERY_MESH_SERVED = "filodb_query_mesh_served"
+# mesh-eligible queries that took the host scatter-gather path after
+# eligibility, tagged by reason (order_stat_caps / topk_caps)
+FILODB_QUERY_MESH_FALLBACK = "filodb_query_mesh_fallback"
 FILODB_TRACE_SPANS = "filodb_trace_spans"
 FILODB_STORE_RESIDENCY_FALLBACK = "filodb_store_residency_fallback"
 

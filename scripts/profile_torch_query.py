@@ -5,6 +5,7 @@ other queries are named.
 
     python3 scripts/profile_torch_query.py [--queries 5] [--out DIR]
                                            [--residency off|gauge]
+                                           [--mesh]
                                            [--query PROMQL ...]
                                            [--instant PROMQL ...]
 
@@ -32,6 +33,11 @@ cProfile listing to ``--out`` (default ``chiprun_out/``), in
 ``profile_torch_query_gauge.txt``. Needs a CUDA card. Named queries write
 their timings, tables and listings, in turn, to
 ``profile_torch_query_general.txt``.
+
+``--mesh`` builds chip_smoke.py phase 11b's store instead (the same shape
+split over 8 shards of 2^17 series, raw f32) and profiles each query twice,
+through ``QueryEngine(mesh=["cuda"])`` and through the host loop (the
+engine without a mesh), into ``profile_torch_query_mesh.txt``.
 """
 
 import argparse
@@ -50,6 +56,7 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"))
     ap.add_argument("--residency", choices=("off", "gauge"), default="off")
+    ap.add_argument("--mesh", action="store_true")
     ap.add_argument("--query", action="append", default=[])
     ap.add_argument("--instant", action="append", default=[])
     args = ap.parse_args()
@@ -66,6 +73,8 @@ def main() -> int:
 
     card = bench.card_line()
     print(f"card: {card}", flush=True)
+    if args.mesh:
+        return profile_mesh(args, torch, np, cs, fg, card)
     engine, shard, _ = bench.build_engine("cuda", residency=args.residency)
     if args.residency == "gauge":
         cs.install_narrow_scale(torch, shard, "delta8", "cuda")
@@ -92,6 +101,32 @@ def main() -> int:
             else "profile_torch_query.txt" if args.residency == "off"
             else f"profile_torch_query_{args.residency}.txt")
     with open(os.path.join(args.out, name), "w") as f:
+        f.write("\n".join(report) + "\n")
+    return 0
+
+
+def profile_mesh(args, torch, np, cs, fg, card) -> int:
+    """Each query through the mesh route and through the host loop on
+    phase 11b's 8-shard store."""
+    from filodb_tpu_torch.core.memstore import StoreConfig, TimeSeriesMemStore
+    from filodb_tpu_torch.core.record import RecordBuilder
+    from filodb_tpu_torch.core.schemas import GAUGE
+    from filodb_tpu_torch.query.engine import QueryEngine
+    ms, shards, _ = cs.build_mesh_scale(
+        torch, np, (StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE,
+                    QueryEngine))
+    start, end = cs.range_variants(shards[0])[0]
+    report = [f"card: {card}"]
+    for q in args.query or ["sum(rate(m[5m]))"]:
+        for tag, engine in (("mesh", QueryEngine(ms, "meshq", mesh=["cuda"])),
+                            ("host loop", QueryEngine(ms, "meshq"))):
+            print(f"engine: {tag}", flush=True)
+            report += [f"engine: {tag}"] + profile_query(
+                args, torch, np, cs, fg, card, engine, q, False, start, end,
+                None)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "profile_torch_query_mesh.txt"),
+              "w") as f:
         f.write("\n".join(report) + "\n")
     return 0
 

@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ops.windows", "ops.instantfns", "ops.binop",
               "ops.aggregators", "core.chunkstore", "core.memstore",
               "core.schemas", "query.exec", "query.engine", "query.planner",
-              "query.logical", "query.rangevector"):
+              "query.logical", "query.rangevector", "parallel.distributed",
+              "parallel.shardmapper", "utils.metrics"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -105,3 +106,18 @@ def test_full_f32_matmuls_are_set():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_a_mesh_of_cards_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default mesh resolves to it")
+    from filodb_tpu_torch.parallel.distributed import make_mesh
+    with pytest.raises(DeviceUnavailable):
+        make_mesh()
+    ms = TimeSeriesMemStore(device="cpu")
+    ms.setup("p", GAUGE, 0, StoreConfig(max_series_per_shard=8,
+                                        samples_per_series=16))
+    with pytest.raises(DeviceUnavailable):
+        QueryEngine(ms, "p", device="cpu", mesh=["cuda"])
+    assert QueryEngine(ms, "p", device="cpu",
+                       mesh=["cpu"] * 2).mesh == [torch.device("cpu")] * 2
