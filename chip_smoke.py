@@ -202,6 +202,31 @@ Phases, in order; every check asserts and any failure exits non-zero:
                warm run, both engines, and the 8 per-shard K1 times beside
                phase 4's one launch over 2^20 rows.
 
+  12a. serving small (run after 8a) — the engine's serving fast path
+               (every cache and admission on) over 6-9 integer counters in
+               an 8-slot shard, on the card and on the CPU: cold, a
+               result-cache hit, a shifted range (the fragment cache runs
+               only the new steps), a tail ingest and a further shift, a
+               release by eviction (the caches invalidate), a typo'd
+               metric twice (a negative hit). Route, QueryStats, cache
+               stats and epoch vectors equal, values within rtol 1e-5;
+               label values and names, series and raw_series equal; K1
+               launched once a step that executes, never on a hit.
+  12b. serving scale (run after 10b, on phase 4's store: its ingest adds a
+               sample) — three engines with every cache and admission on,
+               phase 4's engine (caches off) their oracle; sum(rate(m[5m]))
+               over bench variant 0: a cold miss, a result-cache hit, a
+               shift by 4 steps (the tail alone through K1), one new sample
+               for all 2^20 series through RecordBuilder and a flush, a
+               further shift over it, a typo'd metric twice, then one
+               concurrent round of 500 queries over bench's 8 variants.
+               Prints each step's p50 over the 3 engines, its K1 launches
+               (0 on a hit, 1 on an incremental query) and K1's (Tp,
+               active columns, G) for the full range and the tail,
+               fragment_steps_reused, estimate_cost's ms and the result
+               caches' device bytes; every answer within rtol 1e-5 of the
+               oracle's, and whether it was bit-equal.
+
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, it exits 2 and
@@ -3042,6 +3067,369 @@ def phase_mirror_scale(torch, np, fg, card, engine, shard):
     return launches
 
 
+# -- phase 12: the engine's serving fast path --------------------------------
+
+SERVE_QUERY = "sum by (dc) (rate(m[2m]))"
+SERVE_TYPO = "sum(rate(typo_metric[2m]))"
+SERVE_STEP = 30_000
+SERVE_RANGE = (BASE_TS + 300_000, BASE_TS + 800_000)
+# every cache and the admission gate on (a budget no phase-12 load reaches)
+SERVE_CONFIG = dict(result_cache_size=64, negative_cache_size=64,
+                    fragment_cache_size=64, max_concurrent_cost=1e13,
+                    slow_log_threshold_ms=None)
+
+
+def serve_ingest_small(RecordBuilder, GAUGE, shard, np, series, c0, n):
+    """Cells [c0, c0 + n) of integer counters (increments from a generator
+    seeded by the series) through the real ingest path."""
+    b = RecordBuilder(GAUGE)
+    for i in series:
+        vals = np.cumsum(np.random.default_rng(200 + i).integers(
+            1, 9, c0 + n))[c0:].astype(np.float64)
+        ts = BASE_TS + (c0 + np.arange(n, dtype=np.int64)) * 10_000
+        b.add_batch({"_metric_": "m", "host": f"h{i}", "dc": f"dc{i % 2}"},
+                    ts, vals)
+    shard.ingest(b.build())
+    shard.flush()
+
+
+def serve_record(np, eng, r) -> dict:
+    """What phase 12a compares of one answer and the engine's state."""
+    m = r.matrix.to_host()
+    return {"path": r.exec_path,
+            "stats": {f: getattr(r.stats, f) for f in r.stats.FIELDS},
+            "keys": [k.labels for k in m.keys], "ts": np.asarray(m.out_ts),
+            "vals": np.asarray(m.values, np.float64)[:len(m.keys)],
+            "caches": [c.stats() for c in (eng.result_cache,
+                                           eng.negative_cache,
+                                           eng.fragment_cache)],
+            "epochs": eng._epoch_vector()}
+
+
+def serve_sequence_small(np, fg, pkg, dev, ds):
+    """Phase 12a's sequence on one device, in dataset ``ds`` (the caches'
+    counters are process-global, tagged by dataset): [(step, record, K1
+    launches)] and the metadata answers."""
+    from filodb_tpu_torch.core.filters import Equals
+    from filodb_tpu_torch.query.engine import QueryConfig
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+    ms = TimeSeriesMemStore(device=dev)
+    shard = ms.setup(ds, GAUGE, 0, StoreConfig(
+        max_series_per_shard=8, samples_per_series=256,
+        flush_batch_size=10**9, device=dev))
+    serve_ingest_small(RecordBuilder, GAUGE, shard, np, range(6), 0, 90)
+    eng = QueryEngine(ms, ds, device=dev,
+                      config=QueryConfig(**SERVE_CONFIG))
+    s, e = SERVE_RANGE
+    out = []
+
+    def run(what, q=SERVE_QUERY, shift=0):
+        reset_k1(fg)
+        r = eng.query_range(q, s + shift * SERVE_STEP, e + shift * SERVE_STEP,
+                            SERVE_STEP)
+        out.append((what, serve_record(np, eng, r),
+                    fg.fused_grid_kernel.launches))
+
+    run("cold")
+    run("repeat")
+    run("shift", shift=2)
+    serve_ingest_small(RecordBuilder, GAUGE, shard, np, range(6), 90, 30)
+    run("shift after a tail ingest", shift=6)
+    # three series more than the shard's 8 slots: an eviction releases
+    # the least recently active one (a destructive epoch bump)
+    serve_ingest_small(RecordBuilder, GAUGE, shard, np, range(6, 9), 100, 20)
+    assert shard.stats.partitions_evicted > 0
+    run("after a release", shift=6)
+    run("typo", SERVE_TYPO)
+    run("typo again", SERVE_TYPO)
+    meta = (eng.label_values("host"), eng.label_names(),
+            eng.series([Equals("dc", "dc1")], 0, 1 << 62),
+            [(lbl, ts.tolist(), v.tolist()) for lbl, ts, v in eng.raw_series(
+                [Equals("_metric_", "m")], BASE_TS, BASE_TS + 10**7)])
+    return out, meta
+
+
+SERVE_SMALL_ROUTES = ["local", "result-cache[local]",
+                      "incremental[reused=15,computed=2]",
+                      "incremental[reused=13,computed=4]", "local", "local",
+                      "negative-cache"]
+SERVE_SMALL_LAUNCHES = [1, 0, 1, 1, 1, 0, 0]
+
+
+def phase_serving_small(torch, np, fg, pkg, devs=("cuda", "cpu")):
+    """Phase 12a: the serving sequence on the card against the CPU: the
+    same routes, QueryStats counters, cache stats and epoch vectors, the
+    values within rtol 1e-5 of the largest magnitude, the metadata answers
+    equal; K1 launched once a step that executes, never on a hit. Returns
+    (K1 launches, answers bit-equal to the CPU's, answers)."""
+    card, card_meta = serve_sequence_small(np, fg, pkg, devs[0], "serve0")
+    cpu, cpu_meta = serve_sequence_small(np, fg, pkg, devs[1], "serve1")
+    assert [g["path"] for _w, g, _l in card] == SERVE_SMALL_ROUTES, \
+        [g["path"] for _w, g, _l in card]
+    bit_equal = 0
+    for (what, g, _l), (_w, r, _rl) in zip(card, cpu):
+        for k in ("path", "stats", "keys", "caches", "epochs"):
+            assert g[k] == r[k], (what, k, g[k], r[k])
+        assert np.array_equal(g["ts"], r["ts"]), what
+        assert (np.isnan(g["vals"]) == np.isnan(r["vals"])).all(), what
+        scale = float(np.nanmax(np.abs(r["vals"]), initial=0.0))
+        np.testing.assert_allclose(g["vals"], r["vals"], rtol=1e-5,
+                                   atol=1e-5 * scale, equal_nan=True,
+                                   err_msg=what)
+        bit_equal += bool(np.array_equal(g["vals"], r["vals"],
+                                         equal_nan=True))
+    if devs[0] == "cuda":
+        launches = [n for _w, _g, n in card]
+        assert launches == SERVE_SMALL_LAUNCHES, launches
+    assert card_meta == cpu_meta
+    return sum(n for _w, _g, n in card), bit_equal, len(card)
+
+
+def serve_time(torch, np, fn):
+    """(host ms, result) of one query, its answer copied to the host and
+    the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    np.asarray(r.matrix.to_host().values)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000, r
+
+
+def serve_answer(np, r):
+    m = r.matrix.to_host()
+    return [k.labels for k in m.keys], np.asarray(m.values, np.float64)
+
+
+def serve_check(np, what, got, want) -> bool:
+    """An answer against the caches-off oracle's: keys, NaN placement,
+    values within rtol 1e-5 of the largest magnitude; True when bit-equal."""
+    gk, gv = serve_answer(np, got)
+    rk, rv = serve_answer(np, want)
+    assert gk == rk and gv.shape == rv.shape, (what, gk, rk)
+    assert np.array_equal(np.asarray(got.matrix.out_ts),
+                          np.asarray(want.matrix.out_ts)), what
+    assert (np.isnan(gv) == np.isnan(rv)).all(), what
+    scale = float(np.nanmax(np.abs(rv), initial=0.0))
+    np.testing.assert_allclose(gv, rv, rtol=1e-5, atol=1e-5 * scale,
+                               equal_nan=True, err_msg=what)
+    return bool(np.array_equal(gv, rv, equal_nan=True))
+
+
+def k1_pass_shape(fn, needs_sumsq, window_ms, interval_ms, val, n, gids,
+                  band, ohlo, lo, hi, rel, G, c0=0, Ca=None, kind="raw",
+                  row_ops=()):
+    """(Tp, active columns, G) of one ``fused_grid_partials`` call, from
+    its arguments."""
+    return int(lo.shape[-1]), int(Ca or val.shape[1]), int(G)
+
+
+@contextlib.contextmanager
+def k1_launch_args(fg, seen: list):
+    """Record (Tp, active columns, G) of every K1 pass the engine makes
+    (the wrapper's counts are untouched)."""
+    real = fg.fused_grid_partials
+
+    def recording(*a, **kw):
+        seen.append(k1_pass_shape(*a, **kw))
+        return real(*a, **kw)
+
+    fg.fused_grid_partials = recording
+    try:
+        yield
+    finally:
+        fg.fused_grid_partials = real
+
+
+def serve_ingest_scale(np, shard):
+    """One new sample for every series of phase 4's store, at each row's
+    next grid cell, through RecordBuilder -> shard.ingest -> flush. Rows
+    phase 10b appended to are found by their count; every other row of
+    bench's registration (host h<i> at row i) takes the next cell after
+    NUM_SAMPLES. Returns (seconds, the minimum new timestamp)."""
+    from filodb_tpu_torch.core.record import RecordBuilder
+    from filodb_tpu_torch.core.schemas import GAUGE
+    st = shard.store
+    n = st.n_host.copy()
+    odd = np.nonzero(n != NUM_SAMPLES)[0]
+    with shard.lock:
+        odd_hosts = {int(p): shard.index.labels_of(int(p))["host"]
+                     for p in odd}
+    t0 = time.perf_counter()
+    b = RecordBuilder(GAUGE)
+    skip = set(odd_hosts.values())
+    b.add_series_batch({"_metric_": "m", "host": [
+        f"h{i}" for i in range(NUM_SERIES) if f"h{i}" not in skip]},
+        BASE_TS + NUM_SAMPLES * INTERVAL_MS, 1e6)
+    shard.ingest(b.build())
+    for p, h in odd_hosts.items():
+        b = RecordBuilder(GAUGE)
+        b.add({"_metric_": "m", "host": h}, BASE_TS + int(n[p]) * INTERVAL_MS,
+              1e6)
+        shard.ingest(b.build())
+    shard.flush()
+    secs = time.perf_counter() - t0
+    assert (st.n_host == n + 1).all(), int((st.n_host != n + 1).sum())
+    assert st.grid_info() is not None
+    return secs, BASE_TS + NUM_SAMPLES * INTERVAL_MS
+
+
+SERVE_SCALE_REPS = 3
+SERVE_SCALE_SHIFT = 4          # steps a dashboard's window slides
+
+
+def phase_serving_scale(torch, np, fg, card, engine, shard, dev="cuda"):
+    """Phase 12b: the serving fast path over phase 4's store (run after
+    every other phase that reads it: its ingest adds a sample). Three
+    engines with every cache and admission on; their oracle is phase 4's
+    engine (caches off). Returns the K1 launches of the serving path."""
+    from filodb_tpu_torch.promql import parser as promql
+    from filodb_tpu_torch.query.engine import QueryConfig, QueryEngine
+    from concurrent.futures import ThreadPoolExecutor
+    q = "sum(rate(m[5m]))"
+    s0 = BASE_TS + WINDOW_MS
+    e0 = BASE_TS + NUM_SAMPLES * INTERVAL_MS          # bench variant 0
+    shift = SERVE_SCALE_SHIFT * STEP_MS
+    R0, R1, R2 = (s0, e0), (s0 + shift, e0 + shift), \
+        (s0 + 2 * shift, e0 + 2 * shift)
+    ms = engine.memstore
+    engines = [QueryEngine(ms, engine.dataset, device=dev,
+                           config=QueryConfig(**SERVE_CONFIG))
+               for _ in range(SERVE_SCALE_REPS)]
+    want = {R: engine.query_range(q, *R, STEP_MS) for R in (R0, R1)}
+    times = {k: [] for k in ("cold", "hit", "shift", "ingest+shift",
+                             "typo", "typo hit")}
+    launches = {k: [] for k in times}
+    bit_equal = {k: True for k in times}
+    k1_args = {}
+    paths = {}
+
+    def step(name, eng, R, oracle=None, query=q):
+        reset_k1(fg)
+        seen = []
+        with k1_launch_args(fg, seen):
+            ms_, r = serve_time(torch, np, lambda: eng.query_range(
+                query, *R, STEP_MS))
+        times[name].append(ms_)
+        launches[name].append(fg.fused_grid_kernel.launches)
+        k1_args.setdefault(name, seen)
+        paths.setdefault(name, r.exec_path)
+        if oracle is not None:
+            bit_equal[name] &= serve_check(np, name, r, oracle)
+        return r
+
+    for eng in engines:
+        step("cold", eng, R0, want[R0])
+        step("hit", eng, R0, want[R0])
+        r = step("shift", eng, R1, want[R1])
+    assert paths["cold"] == "local" and paths["hit"] == "result-cache[local]"
+    assert paths["shift"] == f"incremental[reused={47 - 4},computed=4]", \
+        paths["shift"]
+    assert launches["cold"] == launches["shift"] == [1] * SERVE_SCALE_REPS \
+        and launches["hit"] == [0] * SERVE_SCALE_REPS, launches
+    reused_shift = r.stats.fragment_steps_reused
+    # the admission gate's estimate: one index selection under the lock
+    plan = promql.query_to_logical_plan(q, *R0, STEP_MS)
+    cost_ms = []
+    for _ in range(SERVE_SCALE_REPS):
+        t0 = time.perf_counter()
+        cost = engines[0].estimate_cost(plan)
+        cost_ms.append((time.perf_counter() - t0) * 1000)
+    assert cost == NUM_SERIES * 47 * 2.0, cost
+    ingest_s, min_ts = serve_ingest_scale(np, shard)
+    want[R2] = engine.query_range(q, *R2, STEP_MS)
+    for eng in engines:
+        r = step("ingest+shift", eng, R2, want[R2])
+    tail = (R2[1] - min_ts) // STEP_MS + 1
+    assert paths["ingest+shift"] == \
+        f"incremental[reused={47 - tail},computed={tail}]", \
+        paths["ingest+shift"]
+    assert launches["ingest+shift"] == [1] * SERVE_SCALE_REPS, launches
+    reused_ingest = r.stats.fragment_steps_reused
+    typo = "sum(rate(typo_metric[5m]))"
+    for eng in engines:
+        step("typo", eng, R0, query=typo)
+        r = step("typo hit", eng, R0, query=typo)
+        assert r.exec_path == "negative-cache" and r.matrix.num_series == 0
+    assert launches["typo"] == launches["typo hit"] == \
+        [0] * SERVE_SCALE_REPS, launches
+    # what a full cache of the phase's queries holds, by device
+    dev_b = host_b = 0
+    for eng in engines:
+        for _epochs, payload in eng.result_cache._entries.values():
+            v = payload[0].values
+            if isinstance(v, torch.Tensor) and v.is_cuda:
+                dev_b += v.numel() * v.element_size()
+            else:
+                host_b += np.asarray(v).nbytes
+    frag_b = engines[0].fragment_cache.stats()["bytes"]
+    # one concurrent round of bench's 8 variants, caches on
+    variants = [(s0 + k * INTERVAL_MS, e0 - k * INTERVAL_MS)
+                for k in range(8)]
+    expect = [engine.query_range(q, *v, STEP_MS) for v in variants]
+    eng = engines[0]
+    rc0, fc0 = eng.result_cache.stats(), eng.fragment_cache.stats()
+
+    def run(i):
+        return i, eng.query_range(q, *variants[i % 8], STEP_MS)
+
+    reset_k1(fg)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=64) as pool:
+        outs = list(pool.map(run, range(500)))
+    round_ms = (time.perf_counter() - t0) * 1000
+    round_launches = fg.fused_grid_kernel.launches
+    # a variant whose fragment another thread stored is served whole from
+    # it, its last steps from a shorter K1 launch: within the bar
+    round_bit_equal = sum(serve_check(np, f"round {i}", r, expect[i % 8])
+                          for i, r in outs)
+    rc1, fc1 = eng.result_cache.stats(), eng.fragment_cache.stats()
+    hits = int(rc1["hits"] - rc0["hits"])
+    misses = int(rc1["misses"] - rc0["misses"])
+    frag_hits = int(fc1["hits"] - fc0["hits"])
+    # every result-cache miss executes (one K1 launch) unless its range
+    # is served whole from the fragment cache
+    assert hits + misses == 500 and round_launches == misses - frag_hits, \
+        (hits, misses, frag_hits, round_launches)
+    assert eng.admission.stats()["in_use"] == 0.0
+    p50 = {k: float(np.percentile(v, 50)) for k, v in times.items()}
+    full_args, tail_args = k1_args["cold"][0], k1_args["shift"][0]
+    log(f"serving scale [{card}]: {NUM_SERIES} series, {q} over bench "
+        f"variant 0 (47 steps), every cache and admission on; p50 over "
+        f"{SERVE_SCALE_REPS} engines (host ms): cold {p50['cold']:.3f} (K1 "
+        f"launches {launches['cold']}), result-cache hit {p50['hit']:.3f} "
+        f"(K1 {launches['hit']}), shift by {SERVE_SCALE_SHIFT} steps "
+        f"{p50['shift']:.3f} ({paths['shift']}, K1 {launches['shift']}, "
+        f"fragment_steps_reused {reused_shift}), a new sample for every "
+        f"series ingested and flushed in {ingest_s:.3f} s, then the range "
+        f"shifted {SERVE_SCALE_SHIFT} more {p50['ingest+shift']:.3f} "
+        f"({paths['ingest+shift']}, K1 {launches['ingest+shift']}, "
+        f"fragment_steps_reused {reused_ingest}), a typo'd metric "
+        f"{p50['typo']:.3f} then a negative hit {p50['typo hit']:.3f} (K1 "
+        f"{launches['typo']}, {launches['typo hit']})")
+    log(f"serving scale [{card}]: each engine's host ms "
+        f"{ {k: [round(x, 3) for x in v] for k, v in times.items()} }")
+    log(f"serving scale [{card}]: K1 (Tp, active columns, G) full "
+        f"{full_args} -> launch shape {fg.k1_launch_shape(NUM_SERIES, full_args[1], full_args[0], full_args[2], 2)}; "
+        f"tail of {SERVE_SCALE_SHIFT} steps {tail_args} -> "
+        f"{fg.k1_launch_shape(NUM_SERIES, tail_args[1], tail_args[0], tail_args[2], 2)}; "
+        f"after the ingest {k1_args['ingest+shift'][0]}; answers against "
+        f"the caches-off engine: bit-equal {bit_equal} (else within rtol "
+        f"1e-5)")
+    log(f"serving scale [{card}]: estimate_cost {cost:.0f} in "
+        f"{np.percentile(cost_ms, 50):.3f} ms (p50 of {SERVE_SCALE_REPS}: "
+        f"a selection of {NUM_SERIES} series under the shard lock); "
+        f"result caches of the {SERVE_SCALE_REPS} engines hold "
+        f"{dev_b} device bytes and {host_b} host bytes, a fragment cache "
+        f"{frag_b} host bytes; one concurrent round of 500 queries over "
+        f"bench's 8 variants from 64 threads: {round_ms / 500:.3f} ms a "
+        f"query, {hits} result-cache hits, {misses} misses, {frag_hits} "
+        f"served whole by the fragment cache, K1 launches {round_launches}; "
+        f"{round_bit_equal} of 500 answers bit-equal to the caches-off "
+        f"engine's, the rest within rtol 1e-5")
+    return sum(sum(v) for v in launches.values()) + round_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3140,6 +3528,15 @@ def main() -> int:
     log(f"general small: {n_q} queries of the general mix on 1312 series "
         f"match the CPU engine; K1 launches {launches8a} = the fused routes "
         f"QueryStats counts ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    k1_12a, equal12a, n12a = phase_serving_small(torch, np, fg, pkg)
+    log(f"serving small: {n12a} steps of the serving sequence (cold, "
+        f"result-cache hit, shift, tail ingest + shift, release, typo, "
+        f"negative hit) with every cache and admission on match the CPU "
+        f"engine in route, QueryStats, cache stats and epochs, "
+        f"{equal12a} of {n12a} answers bit for bit, the rest within rtol "
+        f"1e-5; the metadata API equal; K1 launches {SERVE_SMALL_LAUNCHES} "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     engine, shard, reg_s = bench.build_engine("cuda")
@@ -3158,8 +3555,11 @@ def main() -> int:
     log(f"subquery scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     k1_mirror = phase_mirror_scale(torch, np, fg, card, engine, shard)
-    del engine, shard
     log(f"mirror scale: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_12b = phase_serving_scale(torch, np, fg, card, engine, shard)
+    del engine, shard
+    log(f"serving scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3237,18 +3637,19 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None} for kind, r in [("raw", k1), *k1n.items()]]
     # K1 raw's main paths: phase 4's bench query, then the fused legs of
-    # phases 8b (S1), 9b (H3) and 10 (Q1), and the mesh routes of 11a/11b,
-    # each counted from 0; the decode variants add the mesh's narrow routes
-    # and the mirror's quant16 stream
+    # phases 8b (S1), 9b (H3) and 10 (Q1), the mesh routes of 11a/11b and
+    # the serving path's misses and incremental tails (12a, 12b), each
+    # counted from 0; the decode variants add the mesh's narrow routes and
+    # the mirror's quant16 stream
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
-        + k1_11b["raw"]
+        + k1_11b["raw"] + k1_12a + k1_12b
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
             k1_mirror if kind == "quant16" else 0)
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
-        f"{k1_11b['raw']}; decode variants on the mesh (11a, 11b) "
+        f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}; decode variants on the mesh (11a, 11b) "
         f"{ {k: (k1_11a[k], k1_11b[k]) for k in NARROW_KINDS} }, quant16 "
         f"through the mirror {k1_mirror}")
     table = {"kernels": k1_rows + [{

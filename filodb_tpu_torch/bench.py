@@ -185,6 +185,10 @@ def build_engine(device=None, *, residency: str = "off",
         st.first_ts[:] = BASE_TS
         st.last_ts[:] = BASE_TS + (num_samples - 1) * INTERVAL_MS
         st.grid_base, st.grid_interval, st.grid_ok = BASE_TS, INTERVAL_MS, True
+        # a direct write of query-visible rows: bump the shard's epoch and
+        # lead as the staged flush it stands in for would
+        shard._bump_epoch_locked(BASE_TS)
+        shard.visible_lead_ms = BASE_TS + (num_samples - 1) * INTERVAL_MS
     sync(dev)
     return QueryEngine(ms, "prometheus", device=dev), shard, reg_s
 

@@ -17,15 +17,23 @@ histogram store, to i8/i16 2D-delta form. Compression runs in two phases:
 the build outside the shard lock, the swap under it only if the store did
 not mutate meanwhile.
 
+Every change to what a query can see bumps the shard's ``data_epoch``
+under the shard lock and logs the minimum data timestamp it can have
+affected (``EPOCH_SPEC`` names the sites): the engine's result, negative
+and fragment caches key on these epochs. A per-tenant cardinality governor
+(``core/cardinality.py``), when attached, sheds new series at its quota.
+The metadata API (label values and names) reads the part-key index.
+
 The port's shards carry no durable sink yet, and no ingest offsets or group
-watermarks with it. Recovery, purge, on-demand paging, inline downsampling
-and the cardinality governor arrive with later slices. Under
-``narrow_mirror`` a raw store keeps a quant16 copy beside its f32 block,
-rebuilt at flush outside the shard lock.
+watermarks with it. Recovery, purge, on-demand paging and inline
+downsampling arrive with later slices. Under ``narrow_mirror`` a raw store
+keeps a quant16 copy beside its f32 block, rebuilt at flush outside the
+shard lock.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +47,67 @@ from .filters import Filter
 from .partkey_index import PartKeyIndex
 from .record import RecordContainer
 from .schemas import Schema, Schemas
+
+# epoch-log sentinel: this visibility bump may have affected data at ANY
+# timestamp (destructive mutations: partition release, retention
+# compaction). Fragments validated against a log holding it invalidate
+# whole (query/incremental.py stable_before).
+EPOCH_AFFECTS_ALL = -(1 << 62)
+
+# The declared visibility surface, a pure literal as in the reference
+# (whose static checker reads it from the AST): every function where
+# query-visible store state changes, with the affected-timestamp class its
+# bump records:
+#   "batch_min_ts"      — the bump logs the minimum data timestamp the
+#                         mutation touched (staged flush); per-step
+#                         fragment validity survives for steps before it
+#   "EPOCH_AFFECTS_ALL" — destructive: rows at arbitrary timestamps
+#                         vanished (release/eviction, retention
+#                         compaction); caches invalidate whole
+#   "admit"             — series admission only: a partition with no
+#                         visible sample changes no answer, so no bump
+#                         until the first staged flush lands its data
+# The reference's purge, durable age-out and recovery sites arrive with
+# their functions (the port's persistence slice). Mutations that change no
+# answer bump nothing: ``discard_staged`` drops rows no query saw,
+# ``compress_commit`` swaps a store for its bit-exact narrow form, and a
+# ``NarrowMirror`` refresh rebuilds a copy queries only consult.
+EPOCH_SPEC = {
+    "class": "TimeSeriesShard",
+    "bump": "_bump_epoch_locked",
+    "lock": "lock",
+    "visible_calls": {
+        "store": ("append", "compact", "free_rows"),
+        "index": ("remove_part_keys",),
+    },
+    "admit_calls": {
+        "index": ("add_part_key", "add_part_keys_bulk",
+                  "add_part_keys_columnar"),
+    },
+    "admit_maps": ("_part_key_of_id", "_part_key_to_id"),
+    "sites": {
+        "staged_flush": {
+            "fn": "TimeSeriesShard._flush_staged_locked",
+            "affects": "batch_min_ts"},
+        "partition_release": {
+            "fn": "TimeSeriesShard._release_partitions_locked",
+            "affects": "EPOCH_AFFECTS_ALL"},
+        "compaction": {
+            "fn": "TimeSeriesShard.flush",
+            "affects": "EPOCH_AFFECTS_ALL"},
+        "series_admit": {
+            "fn": "TimeSeriesShard._create_series_locked",
+            "affects": "admit"},
+        "series_admit_bulk": {
+            "fn": "TimeSeriesShard._bulk_create_locked",
+            "affects": "admit"},
+    },
+}
+
+# _create_series_locked outcome distinct from "blocked, stage the prefix
+# first" (None): the tenant's cardinality quota shed this NEW series — the
+# caller skips its samples (existing series are never affected)
+SHED_PID = -2
 
 
 @dataclass
@@ -84,6 +153,7 @@ class ShardStats:
     unknown_schema_dropped: int = 0
     partitions_evicted: int = 0
     evicted_part_key_reingests: int = 0
+    series_quota_shed: int = 0
 
 
 class TimeSeriesShard:
@@ -115,6 +185,28 @@ class TimeSeriesShard:
                           if self._native_ps is not None else None)
         # bumped on every partition release: invalidates batch-resolved pids
         self._release_epoch = 0
+        # visibility watermark: bumped under the shard lock whenever what a
+        # query can see changes (a staged flush landing rows, a partition
+        # release, a retention compaction). The engine's caches record the
+        # vector of these counters and serve only while it still matches.
+        self.data_epoch = 0
+        # (new epoch, min affected data ts) per bump, for per-step fragment
+        # validity (query/incremental.stable_before): an append logs the
+        # minimum timestamp that became visible, a destructive bump
+        # EPOCH_AFFECTS_ALL. Bounded; a gap reads as "unknown" and the
+        # fragment invalidates whole, never a stale serve.
+        self._epoch_log: deque[tuple[int, int]] = deque(maxlen=256)
+        # staged-but-not-visible sample timestamps: min feeds the epoch log
+        # at the flush, max the visible lead
+        self._stage_min_ts: int | None = None
+        self._stage_max_ts = 0
+        # query-visible data-time lead: advances when staged rows land on
+        # the store (streaming increments chase it, never the staged lead)
+        self.visible_lead_ms = 0
+        # True while a recovery rebuilds the shard (the persistence slice
+        # sets it): an empty selection seen meanwhile is no proof of
+        # emptiness, so the negative cache does not record it
+        self.recovering = False
         self._free_pids: list[int] = []
         self._evicted_keys = BloomFilter()
         self._rv_keys: dict[int, object] = {}
@@ -140,6 +232,10 @@ class TimeSeriesShard:
         self._stage_val: list[np.ndarray] = []
         self._staged = 0
         self.stats = ShardStats()
+        # per-tenant active-series governor (core/cardinality.py), shared by
+        # a dataset's shards and consulted under the shard lock at every
+        # series birth; None: no quota
+        self.governor = None
 
     # -- partition resolution ----------------------------------------------
 
@@ -175,7 +271,8 @@ class TimeSeriesShard:
                     if pid is None:
                         return j   # blocked on this container's own series
                 mapping[j] = pid
-                protected.add(pid)
+                if pid >= 0:       # SHED_PID: quota-shed birth, no slot
+                    protected.add(pid)
                 i = j + 1
                 if self._release_epoch != epoch0 and i < n_sets:
                     break          # eviction ran: re-probe the tail
@@ -202,6 +299,18 @@ class TimeSeriesShard:
         new_keys = [keys[seg + j] for j in miss.tolist()]
         if len(set(new_keys)) != len(new_keys):
             return False
+        gov_tenant = None
+        if self.governor is not None and self.governor.limit is not None:
+            # all-or-nothing block reservation; mixed-tenant batches (or a
+            # batch that does not fit) take the per-key path, which sheds
+            # series-precisely
+            tenants = {self.governor.tenant_of(label_sets[seg + int(j)])
+                       for j in miss}
+            if len(tenants) != 1:
+                return False
+            gov_tenant = tenants.pop()
+            if not self.governor.admit_block(gov_tenant, len(miss)):
+                return False
         added = False
         if (container.label_columns is not None and seg == 0
                 and len(miss) == n_sets):
@@ -214,6 +323,8 @@ class TimeSeriesShard:
                                       count=len(miss))
             if not self.index.add_part_keys_bulk(new_pids, new_keys, first_ts,
                                                  counts_hint=counts_hint):
+                if gov_tenant is not None:   # the reservation rolls back
+                    self.governor.retire(gov_tenant, len(miss))
                 return False
         pid_list = new_pids.tolist()
         self._part_key_to_id.update(zip(new_keys, pid_list))
@@ -241,13 +352,28 @@ class TimeSeriesShard:
                               protected) -> int | None:
         """Admit a new series: assign a slot (evicting under pressure),
         index it, mirror the key into the native table. None when every
-        eviction candidate is protected."""
+        eviction candidate is protected; SHED_PID when the tenant's quota
+        sheds the birth."""
         S = self.config.max_series_per_shard
         pid = self._part_key_to_id.get(pk)
         if pid is not None:
             return pid
+        gov_tenant = None
+        if self.governor is not None:
+            # series-birth limiter, checked before any eviction so an
+            # over-quota birth never evicts another series for a slot it
+            # will not use; samples of existing series are unaffected
+            gov_tenant = self.governor.tenant_of(labels)
+            if not self.governor.admit(gov_tenant):
+                self.stats.series_quota_shed += 1
+                self.governor.count_shed("shard", gov_tenant)
+                return SHED_PID
         if not self._free_pids and len(self.index) >= S:
             if not self._ensure_free_space_locked(protected):
+                # blocked (the caller stages its prefix and retries, which
+                # admits again): the reservation rolls back
+                if gov_tenant is not None:
+                    self.governor.retire(gov_tenant)
                 return None
         if pk in self._evicted_keys:
             self.stats.evicted_part_key_reingests += 1
@@ -288,6 +414,14 @@ class TimeSeriesShard:
         pid_list = pids.tolist()
         self.slot_epoch[pids] += 1
         self._release_epoch += 1
+        # destructive: a released series held samples at any timestamp
+        self._bump_epoch_locked(EPOCH_AFFECTS_ALL)
+        if self.governor is not None:
+            # labels still resolve here (the index tombstones below):
+            # released series give back their tenant's quota slots
+            for pid in pid_list:
+                self.governor.retire(
+                    self.governor.tenant_of(self.index.labels_of(pid)))
         for pid in pid_list:
             pk = self._part_key_of_id.pop(pid, None)
             if pk is not None:
@@ -301,6 +435,22 @@ class TimeSeriesShard:
         for pid in pid_list:
             self._rv_keys.pop(pid, None)
         self._free_pids.extend(pid_list)
+
+    def _bump_epoch_locked(self, min_affected_ms: int) -> None:
+        """Advance the visibility watermark (the caller holds the shard
+        lock), logging the minimum data timestamp the mutation can have
+        touched (``EPOCH_AFFECTS_ALL`` for destructive changes). Every
+        ``data_epoch`` bump goes through here: per-step fragment validity
+        needs one log entry a bump."""
+        self.data_epoch += 1
+        self._epoch_log.append((self.data_epoch, int(min_affected_ms)))
+
+    def epoch_state(self) -> tuple[int, list[tuple[int, int]]]:
+        """``(data_epoch, recent (epoch, min affected ts) entries)``, read
+        together under the shard lock (host integers only: no device
+        sync)."""
+        with self.lock:
+            return self.data_epoch, list(self._epoch_log)
 
     # -- ingest -------------------------------------------------------------
 
@@ -365,11 +515,20 @@ class TimeSeriesShard:
             sel = (container.part_idx >= start) & (container.part_idx < done)
             pids = mapping[container.part_idx[sel]]
             ts, vals = container.ts[sel], container.values[sel]
+        if len(pids) and pids.min() < 0:
+            # quota-shed births (SHED_PID): drop exactly their samples
+            keep = pids >= 0
+            pids, ts, vals = pids[keep], ts[keep], vals[keep]
         if len(pids) == 0:
             return
         self._stage_pid.append(pids)
         self._stage_ts.append(ts)
         self._stage_val.append(vals)
+        batch_min, lead = int(ts.min()), int(ts.max())
+        if self._stage_min_ts is None or batch_min < self._stage_min_ts:
+            self._stage_min_ts = batch_min
+        if lead > self._stage_max_ts:
+            self._stage_max_ts = lead
         self._staged += len(ts)
         self.stats.rows_ingested += len(ts)
 
@@ -377,6 +536,15 @@ class TimeSeriesShard:
         """Land staged samples on the device store (caller holds the lock)."""
         if not self._staged:
             return 0
+        # the visibility point: staged rows are host-side until this
+        # scatter, so the bump belongs here, not at staging (a query cached
+        # in between would validate against rows it did not see)
+        self._bump_epoch_locked(self._stage_min_ts
+                                if self._stage_min_ts is not None
+                                else EPOCH_AFFECTS_ALL)
+        self._stage_min_ts = None
+        if self._stage_max_ts > self.visible_lead_ms:
+            self.visible_lead_ms = self._stage_max_ts
         pids = np.concatenate(self._stage_pid)
         ts = np.concatenate(self._stage_ts)
         vals = np.concatenate(self._stage_val, axis=0)
@@ -387,11 +555,14 @@ class TimeSeriesShard:
     def discard_staged(self) -> None:
         """Drop staged samples without landing them (bulk-load set-up: the
         series are registered through the real ingest path and their data
-        installed on the device directly)."""
+        installed on the device directly). No epoch bump: no query saw the
+        dropped rows."""
         with self.lock:
             self._stage_pid.clear(); self._stage_ts.clear()
             self._stage_val.clear()
             self._staged = 0
+            self._stage_min_ts = None
+            self._stage_max_ts = 0
 
     def flush(self) -> int:
         """Push staged samples to the device store; under capacity pressure
@@ -417,6 +588,8 @@ class TimeSeriesShard:
             cutoff = int(self.store.last_ts.max(initial=0)) - self.config.retention_ms
             with self.lock:
                 self.store.compact(cutoff)
+                # rows aged out (destructive)
+                self._bump_epoch_locked(EPOCH_AFFECTS_ALL)
         if resident:
             # after any compaction (which rehydrates): the streaming build
             # and host fetches run OUTSIDE the shard lock, only the swap
@@ -472,6 +645,25 @@ class TimeSeriesShard:
         with self.lock:
             return self.index.part_ids_from_filters(filters, start, end,
                                                     limit)
+
+    def needs_paging(self, pids: np.ndarray, start_ms: int) -> bool:
+        """True when a read needs samples older than the resident rows and a
+        durable sink holds them. The port's shards have no sink until the
+        persistence slice (ROADMAP queue 1 item 6): nothing pages."""
+        return False
+
+    def label_values(self, label: str, filters=None, top_k=None) -> list[str]:
+        with self.lock:
+            return self.index.label_values(label, filters, top_k=top_k)
+
+    def label_value_counts(self, label: str, filters=None,
+                           top_k=None) -> list[tuple[str, int]]:
+        with self.lock:
+            return self.index.label_value_counts(label, filters, top_k=top_k)
+
+    def label_names(self, filters=None) -> list[str]:
+        with self.lock:
+            return self.index.label_names(filters)
 
     @property
     def num_series(self) -> int:

@@ -13,17 +13,27 @@ function over all the dataset's shards is tried on the mesh first, as in
 the reference (ref: queryengine2/QueryEngine.scala:59-67): K1 launched once
 per shard for the fusable aggregates, per-shard range functions and
 partials for the rest, sketch counts for ``quantile``, candidate blocks for
-``topk``/``bottomk``, folded on the host in shard order. The result,
-fragment and negative caches, retention routing, admission and remote legs
-come with later slices.
+``topk``/``bottomk``, folded on the host in shard order.
+
+The serving fast path sits in front of execution, each piece off unless its
+``QueryConfig`` field turns it on (as in the reference): a TTL-bounded
+negative cache for provably empty selections, a step-aligned result cache
+validated against the shards' data epochs, the per-step fragment cache that
+extends a shifted range by executing only its new steps
+(``query/incremental.py``), and cost-based admission
+(``query/scheduler.py``). The metadata API (label values and names,
+series, raw samples) reads the local shards. Retention routing and the
+remote legs come with later slices.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
-from dataclasses import dataclass
+from collections import Counter, OrderedDict, deque
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -32,19 +42,30 @@ from ..core.memstore import TimeSeriesMemStore
 from ..device import resolve_device
 from ..ops import aggregators, fusedresident, gridfns, rangefns
 from ..parallel import distributed
+from ..parallel.cluster import stitch_matrices
 from ..parallel.shardmapper import ShardMapper
 from ..promql import parser as promql
-from ..utils.metrics import FILODB_QUERY_LATENCY_MS, registry
-from ..utils.tracing import (SPAN_QUERY, SPAN_QUERY_EXECUTE, SPAN_QUERY_PARSE,
+from ..utils.metrics import (FILODB_QUERY_LATENCY_MS,
+                             FILODB_QUERY_NEGATIVE_CACHE_EVICTIONS,
+                             FILODB_QUERY_NEGATIVE_CACHE_HITS,
+                             FILODB_QUERY_RESULT_CACHE_EVICTIONS,
+                             FILODB_QUERY_RESULT_CACHE_HITS,
+                             FILODB_QUERY_RESULT_CACHE_INVALIDATIONS,
+                             FILODB_QUERY_RESULT_CACHE_MISSES,
+                             FILODB_QUERY_SLOW, registry)
+from ..utils.tracing import (SPAN_QUERY, SPAN_QUERY_ADMIT, SPAN_QUERY_EXECUTE,
+                             SPAN_QUERY_FRAGMENT, SPAN_QUERY_PARSE,
                              SPAN_QUERY_PLAN, span, tracer)
 from . import logical as L
 from .exec import (_SKETCH_BYTES_CAP, AggregateMapReduce, QueryContext,
                    SelectRawPartitionsExec, TopKPartial, _gather_rows_padded,
                    _group_ids_for, _pad_steps, _pow2, _present_topk,
                    _segment_partial, check_sample_limit, group_keys_of)
+from .incremental import FragmentCache, plan_cacheable
 from .planner import QueryPlanner
 from .rangevector import (QueryError, QueryResult, QueryStats, RangeVectorKey,
                           ResultMatrix)
+from .scheduler import AdmissionController, AdmissionRejected
 
 # aggregation operators whose partial state crosses the mesh (the
 # ops/aggregators partial layout)
@@ -88,9 +109,247 @@ def pool_correction(data, gids: np.ndarray, bad: np.ndarray, Gp: int,
 
 @dataclass
 class QueryConfig:
-    """Ref: query/.../QueryConfig.scala (stale-sample-after, sample limits)."""
+    """Ref: query/.../QueryConfig.scala (stale-sample-after, sample limits),
+    plus the serving fast path's knobs: every cache and the admission gate
+    are off by default, as in the reference."""
     stale_sample_after_ms: int = 5 * 60 * 1000
     sample_limit: int = 1_000_000
+    # queries at or over this wall duration enter the slow-query ring;
+    # None disables the log
+    slow_log_threshold_ms: float | None = 1000.0
+    # step-aligned result cache entries per engine (0 disables)
+    result_cache_size: int = 0
+    # aggregate estimated cost admitted to execute concurrently; None
+    # leaves the global budget unbounded (admission still runs when
+    # tenant_quotas is set, and is off only when both are unset)
+    max_concurrent_cost: float | None = None
+    # tenant -> max concurrent cost (admission only)
+    tenant_quotas: dict = field(default_factory=dict)
+    # Retry-After hint on an admission shed
+    shed_retry_after_s: float = 1.0
+    # TTL- and size-bounded negative cache of provably empty selections
+    # (0 disables)
+    negative_cache_size: int = 0
+    negative_cache_ttl_s: float = 30.0
+    # incremental serving: per-step fragment cache entries per engine (0
+    # disables), with a total byte bound and a per-entry step bound
+    fragment_cache_size: int = 0
+    fragment_cache_bytes: int = 64 << 20
+    fragment_max_steps: int = 4096
+
+
+class QueryResultCache:
+    """Step-aligned range-result cache, invalidated by ingest watermark
+    (ref: the reference's repeated-dashboard serving posture — QueryEngine2
+    materializes once, serves many).
+
+    Entries are keyed on ``(promql, start, end, step, tenant, min
+    window)`` and record the EPOCH VECTOR — every shard's ``data_epoch``
+    mutation counter — captured BEFORE the query executed. A hit requires
+    the current vector to EQUAL the recorded one, so any flush, release,
+    compaction or topology change since makes the entry unreachable
+    (counted as an invalidation): a served hit is provably identical to
+    re-execution, because the data it would re-read cannot have changed.
+    Capacity-bounded LRU (``QueryConfig.result_cache_size``) with an
+    evictions metric.
+
+    The payload is the result as execution returned it: its matrix values
+    may be a device tensor (a per-series answer on the card) or a host
+    array (a presented aggregate), never a lazy object (a fused pass's
+    ``PaddedPartials`` resolves when the result is presented, before the
+    put). Every hit hands out the same matrix, which nothing mutates; keys
+    that are a ``LazyKeys`` build a fresh list under the shard lock on each
+    read. So concurrent hits on one entry share nothing that resolves."""
+
+    def __init__(self, capacity: int = 256, tags: dict | None = None):
+        self.capacity = max(1, int(capacity))
+        # per-cache metric identity (e.g. {"dataset": ...}): untagged,
+        # every engine's cache would share one process-global counter set
+        # and stats() would report the sum as if it were this cache's
+        self.tags = dict(tags or {})
+        # key -> (epoch vector, payload) where payload =
+        # (matrix, result_type, warnings, stats_dict, exec_path)
+        self._entries: OrderedDict[tuple, tuple] = OrderedDict()
+        self._lock = threading.Lock()
+        self._hits = registry.counter(FILODB_QUERY_RESULT_CACHE_HITS,
+                                      self.tags)
+        self._misses = registry.counter(FILODB_QUERY_RESULT_CACHE_MISSES,
+                                        self.tags)
+        self._evictions = registry.counter(
+            FILODB_QUERY_RESULT_CACHE_EVICTIONS, self.tags)
+        self._invalidations = registry.counter(
+            FILODB_QUERY_RESULT_CACHE_INVALIDATIONS, self.tags)
+
+    def get(self, key: tuple, current_epochs):
+        with self._lock:
+            e = self._entries.get(key)
+            if e is None:
+                self._misses.increment()
+                return None
+            epochs, payload = e
+            if current_epochs is None:
+                # unverifiable vector: never serve what cannot be proven,
+                # but an unreadable watermark is not evidence the data
+                # changed — keep the entry
+                self._misses.increment()
+                return None
+            if epochs != current_epochs:
+                # the watermark moved: serving the entry could diverge
+                # from re-execution — drop it
+                del self._entries[key]
+                self._invalidations.increment()
+                self._misses.increment()
+                return None
+            self._entries.move_to_end(key)
+            self._hits.increment()
+            return payload
+
+    def put(self, key: tuple, payload, epochs) -> None:
+        if epochs is None:
+            return                      # unverifiable vector: never cache
+        with self._lock:
+            self._entries[key] = (epochs, payload)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                self._evictions.increment()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"size": len(self._entries), "capacity": self.capacity,
+                    "hits": self._hits.value, "misses": self._misses.value,
+                    "evictions": self._evictions.value,
+                    "invalidations": self._invalidations.value}
+
+
+class NegativeResultCache:
+    """TTL- and size-bounded cache of query texts whose selection came back
+    EMPTY (0 series): a typo'd metric name on a dashboard refresh loop stops
+    costing a full parse+plan+execute per tick.
+
+    Unlike QueryResultCache this is deliberately NOT watermark-validated:
+    an empty selection usually stays empty (the metric does not exist), and
+    the TTL bounds how long a newly-appearing series can be masked — the
+    documented freshness trade of negative caching. Keys are
+    ``(promql, tenant)`` only, so a sliding dashboard window keeps hitting —
+    but emptiness is only PROVEN for the executed time range (leaf
+    selection is time-bounded: an existing series queried over a pre-ingest
+    range matches zero series THERE, not everywhere). Each entry therefore
+    records its proven ``[start, end]``, and a hit requires the requested
+    range to stay inside it, extended forward by the wall time elapsed
+    since the proof — exactly the window the TTL trade already concedes to
+    newly-appearing data, enough for a sliding dashboard to keep hitting,
+    while a query over a DIFFERENT (e.g. live vs historical) range misses
+    and re-executes. Capacity-bounded LRU with TTL expiry, both counted as
+    evictions."""
+
+    def __init__(self, capacity: int = 256, ttl_s: float = 30.0,
+                 tags: dict | None = None):
+        self.capacity = max(1, int(capacity))
+        self.ttl_s = float(ttl_s)
+        self.tags = dict(tags or {})
+        # key -> (expiry, proven start ms, proven end ms, proof monotonic s)
+        self._entries: OrderedDict[tuple, tuple] = OrderedDict()
+        self._lock = threading.Lock()
+        self._hits = registry.counter(FILODB_QUERY_NEGATIVE_CACHE_HITS,
+                                      self.tags)
+        self._evictions = registry.counter(
+            FILODB_QUERY_NEGATIVE_CACHE_EVICTIONS, self.tags)
+
+    def hit(self, key: tuple, range_key: tuple,
+            now: float | None = None) -> bool:
+        """True when a recent execution proved this query empty over a
+        range covering the requested ``(start, end, step)`` (see class
+        docstring for the forward-extension rule; expired entries evict
+        here). A non-covering range is a miss but keeps the entry — the
+        proof still stands for ITS range."""
+        now = time.monotonic() if now is None else now
+        start, end, step = range_key
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                return False
+            exp, p_start, p_end, t_proof = ent
+            if now >= exp:
+                del self._entries[key]
+                self._evictions.increment()
+                return False
+            # the proven-empty range, slid forward by elapsed wall time
+            # (+ one step of grid slack): the only unproven data a hit can
+            # mask is data newer than the proof — the documented TTL trade
+            if start < p_start \
+                    or end > p_end + (now - t_proof) * 1000.0 + step:
+                return False
+            self._entries.move_to_end(key)
+            self._hits.increment()
+            return True
+
+    def put(self, key: tuple, range_key: tuple,
+            now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        start, end, _step = range_key
+        with self._lock:
+            self._entries[key] = (now + self.ttl_s, start, end, now)
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                self._evictions.increment()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"size": len(self._entries), "capacity": self.capacity,
+                    "ttl_s": self.ttl_s, "hits": self._hits.value,
+                    "evictions": self._evictions.value}
+
+
+class SlowQueryLog:
+    """Bounded ring of slow-query records: promql text, duration, plan
+    summary (the engine's exec path), per-query stats, and the trace id —
+    the pivot from "this dashboard is slow" to the exact trace in the
+    tracer's ring. One process-global ring, like the tracer and the metrics
+    registry."""
+
+    def __init__(self, capacity: int = 128):
+        self._ring: deque[dict] = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def record(self, entry: dict) -> None:
+        with self._lock:
+            self._ring.append(entry)
+
+    def entries(self, limit: int | None = None) -> list[dict]:
+        """Newest first."""
+        with self._lock:
+            out = list(self._ring)
+        out.reverse()
+        return out[:limit] if limit else out
+
+    def resize(self, capacity: int) -> None:
+        with self._lock:
+            self._ring = deque(self._ring, maxlen=max(1, int(capacity)))
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+
+slow_query_log = SlowQueryLog()
 
 
 class QueryEngine:
@@ -115,6 +374,26 @@ class QueryEngine:
             pow2 *= 2
         self.mapper = shard_mapper or ShardMapper(pow2)
         self.config = config if config is not None else QueryConfig()
+        # serving fast path (each off unless configured): the step-aligned
+        # result cache, cost-based admission, the negative cache of empty
+        # selections, the per-step fragment cache
+        cfg = self.config
+        tags = {"dataset": dataset}
+        self.result_cache = (QueryResultCache(cfg.result_cache_size,
+                                              tags=tags)
+                             if cfg.result_cache_size else None)
+        self.admission = (AdmissionController(
+            cfg.max_concurrent_cost, cfg.tenant_quotas,
+            cfg.shed_retry_after_s, tags=tags)
+            if (cfg.max_concurrent_cost is not None or cfg.tenant_quotas)
+            else None)
+        self.negative_cache = (NegativeResultCache(
+            cfg.negative_cache_size, cfg.negative_cache_ttl_s, tags=tags)
+            if cfg.negative_cache_size else None)
+        self.fragment_cache = (FragmentCache(
+            cfg.fragment_cache_size, cfg.fragment_cache_bytes,
+            cfg.fragment_max_steps, tags=tags)
+            if cfg.fragment_cache_size else None)
         schema = memstore._dataset_schema.get(dataset)
         opts = schema.options if schema else None
         self.planner = (QueryPlanner(self.mapper, opts) if opts
@@ -126,37 +405,331 @@ class QueryEngine:
                             stale_ms=self.config.stale_sample_after_ms)
 
     def query_range(self, promql_text: str, start_ms: int, end_ms: int,
-                    step_ms: int) -> QueryResult:
+                    step_ms: int, tenant: str | None = None) -> QueryResult:
+        """``tenant`` keys the caches and the admission quota."""
         return self._query_traced(
             promql_text,
             lambda: promql.query_to_logical_plan(promql_text, start_ms,
-                                                 end_ms, step_ms))
+                                                 end_ms, step_ms),
+            range_key=(int(start_ms), int(end_ms), int(step_ms)),
+            tenant=tenant)
 
-    def query_instant(self, promql_text: str, time_ms: int) -> QueryResult:
+    def query_instant(self, promql_text: str, time_ms: int,
+                      tenant: str | None = None) -> QueryResult:
+        """Instant queries bypass the caches (they key on a range)."""
         res = self._query_traced(
             promql_text,
             lambda: promql.query_to_logical_plan(promql_text, time_ms,
-                                                 time_ms, 1))
+                                                 time_ms, 1),
+            tenant=tenant)
         res.result_type = "vector"
         return res
 
-    def _query_traced(self, promql_text: str, to_plan) -> QueryResult:
-        """One root span per query and the end-to-end latency histogram
-        (recorded in a finally: a query that raises still counts)."""
+    def _query_traced(self, promql_text: str, to_plan,
+                      range_key: tuple | None = None,
+                      tenant: str | None = None) -> QueryResult:
+        """One root span per query, the end-to-end latency histogram and
+        the slow-query ring, recorded in a finally (a query that raises
+        still counts).
+
+        The serving fast path, in the reference's order: the negative cache
+        first (no epoch read, no parse); then the epoch state; the result
+        cache; the fragment cache, which serves a shifted range from its
+        valid per-step columns and executes only the missing steps; then
+        admitted execution, which stores into every cache against the
+        epoch vector read BEFORE it ran, so a concurrent flush invalidates
+        the entry instead of racing it. The ``min_window`` slot of the
+        cache keys stays None until retention routing is ported."""
         ctx = self._ctx()
         t0 = time.perf_counter_ns()
-        trace_id = None
+        tctx = None
+        err: BaseException | None = None
         try:
             with span(SPAN_QUERY, dataset=self.dataset,
                       promql=promql_text[:200]):
-                trace_id = (tracer.current_context() or {}).get("trace_id")
+                tctx = tracer.current_context()
+                neg_key = None
+                if range_key is not None and self.negative_cache is not None:
+                    neg_key = (promql_text, tenant)
+                    if self.negative_cache.hit(neg_key, range_key):
+                        return self._negative_hit(range_key, ctx)
+                cache_key = epochs = elogs = frag_key = None
+                frag = (self.fragment_cache if range_key is not None
+                        else None)
+                if range_key is not None and (self.result_cache is not None
+                                              or frag is not None):
+                    epochs, elogs = self._epoch_state(
+                        with_logs=frag is not None)
+                if range_key is not None and self.result_cache is not None:
+                    cache_key = (promql_text, *range_key, tenant, None)
+                    hit = self._result_cache_probe(cache_key, epochs, ctx)
+                    if hit is not None:
+                        return hit
+                if frag is not None and epochs is not None:
+                    frag_key = (promql_text, range_key[2], tenant, None)
+                    served = self._fragment_serve(frag_key, promql_text,
+                                                  range_key, tenant, epochs,
+                                                  elogs, ctx)
+                    if served is not None:
+                        if cache_key is not None:
+                            self.result_cache.put(
+                                cache_key,
+                                (served.matrix, served.result_type,
+                                 list(served.warnings), ctx.stats.to_dict(),
+                                 ctx.exec_path), epochs)
+                        return served
                 with span(SPAN_QUERY_PARSE), ctx.stats.stage("parse"):
                     plan = to_plan()
-                return self.exec_logical(plan, ctx)
+                res = self._exec_admitted(plan, ctx, tenant)
+                if cache_key is not None:
+                    self.result_cache.put(
+                        cache_key,
+                        (res.matrix, res.result_type, list(res.warnings),
+                         ctx.stats.to_dict(), ctx.exec_path), epochs)
+                if frag_key is not None:
+                    self._fragment_store(frag_key, plan, res, range_key,
+                                         epochs)
+                if (neg_key is not None and ctx.stats.series_matched == 0
+                        and res.matrix.num_series == 0
+                        and ctx.stats.recovering_shards == 0
+                        and not self._any_recovering()):
+                    # the selection was provably empty: the next refresh
+                    # skips the pipeline until the TTL admits new series.
+                    # An empty seen while a shard recovers proves nothing
+                    self.negative_cache.put(neg_key, range_key)
+                return res
+        except BaseException as e:
+            err = e                     # noted below, then re-raised
+            raise
         finally:
-            registry.histogram(FILODB_QUERY_LATENCY_MS,
-                               {"dataset": self.dataset}).record(
-                (time.perf_counter_ns() - t0) / 1e6, trace_id=trace_id)
+            self._note_query_done(promql_text, ctx,
+                                  (time.perf_counter_ns() - t0) / 1e6,
+                                  tctx, err)
+
+    def _negative_hit(self, range_key: tuple,
+                      ctx: QueryContext) -> QueryResult:
+        """The synthesized empty result of a negative-cache hit: this
+        request's step grid, zero series."""
+        start, end, step = range_key
+        out_ts = np.arange(start, end + 1, max(step, 1), dtype=np.int64)
+        ctx.stats.add("negative_cache_hits")
+        ctx.exec_path = "negative-cache"
+        res = QueryResult(ResultMatrix(out_ts, np.zeros((0, len(out_ts))),
+                                       []))
+        res.stats = ctx.stats
+        res.exec_path = ctx.exec_path
+        return res
+
+    def _result_cache_probe(self, cache_key: tuple, epochs,
+                            ctx: QueryContext) -> QueryResult | None:
+        """A validated cache entry as a fresh QueryResult, else None. The
+        response carries the original execution's stats plus a
+        result_cache_hits marker."""
+        payload = self.result_cache.get(cache_key, epochs)
+        if payload is None:
+            return None
+        matrix, result_type, warnings, stats_dict, exec_path = payload
+        ctx.stats.merge(stats_dict)
+        ctx.stats.add("result_cache_hits")
+        ctx.exec_path = f"result-cache[{exec_path}]"
+        res = QueryResult(matrix, result_type, list(warnings))
+        res.stats = ctx.stats
+        res.exec_path = ctx.exec_path
+        return res
+
+    def _build_range_plan(self, promql_text: str, start_ms: int, end_ms: int,
+                          step_ms: int, ctx: QueryContext) -> L.LogicalPlan:
+        """Parse one (sub-)range: the fragment path's delta legs build
+        their plans as the full execution does (the reference's widening
+        for a downsample family's resolution comes with retention
+        routing)."""
+        with span(SPAN_QUERY_PARSE), ctx.stats.stage("parse"):
+            return promql.query_to_logical_plan(promql_text, start_ms,
+                                                end_ms, step_ms)
+
+    def _fragment_serve(self, frag_key: tuple, promql_text: str,
+                        range_key: tuple, tenant: str | None, epochs, elogs,
+                        ctx: QueryContext) -> QueryResult | None:
+        """Incremental (delta) evaluation off the fragment cache: reuse the
+        entry's provably valid per-step columns, execute only the missing
+        head/tail sub-ranges (each through the normal exec route: on the
+        card, K1 over just those steps), stitch, and store the merged
+        fragment back against the pre-execution epoch vector. None => no
+        usable fragment; the caller executes the full range."""
+        start, end, step = range_key
+        hit = self.fragment_cache.probe(frag_key, start, end, step,
+                                        epochs, elogs)
+        if hit is None:
+            return None
+        with span(SPAN_QUERY_FRAGMENT, dataset=self.dataset,
+                  reused=hit.reused_steps) as tags:
+            parts = [ResultMatrix(hit.keep_ts, hit.keep_vals, hit.keys)]
+            warnings = list(hit.warnings)
+            n_new = 0
+            for lo, hi in hit.missing:
+                plan = self._build_range_plan(promql_text, lo, hi, step, ctx)
+                sub = self._exec_admitted(plan, ctx, tenant)
+                for w in sub.warnings:
+                    if w not in warnings:
+                        warnings.append(w)
+                m = sub.matrix.to_host()
+                parts.append(ResultMatrix(
+                    np.asarray(m.out_ts, np.int64),
+                    np.asarray(m.values, np.float64), list(m.keys)))
+                n_new += len(m.out_ts)
+            tags["computed"] = n_new
+            merged = stitch_matrices(parts) if len(parts) > 1 else parts[0]
+            m_ts = np.asarray(merged.out_ts)
+            mask = (m_ts >= start) & (m_ts <= end)
+            served_m = ResultMatrix(m_ts[mask],
+                                    np.asarray(merged.values)[:, mask],
+                                    list(merged.keys))
+            check_sample_limit(served_m.num_series, len(served_m.out_ts),
+                               self.config.sample_limit)
+            ctx.stats.add("fragment_steps_reused", hit.reused_steps)
+            ctx.exec_path = (
+                f"incremental[reused={hit.reused_steps},computed={n_new}]"
+                if hit.missing else "fragment-cache[full]")
+            self.fragment_cache.store(
+                frag_key, merged.out_ts, np.asarray(merged.values),
+                merged.keys, warnings, epochs, step,
+                extended=bool(hit.missing) and hit.reused_steps > 0)
+        res = QueryResult(served_m, "matrix", warnings)
+        res.stats = ctx.stats
+        res.exec_path = ctx.exec_path
+        return res
+
+    def _fragment_store(self, frag_key: tuple, plan: L.LogicalPlan,
+                        res: QueryResult, range_key: tuple, epochs) -> None:
+        """Seed the fragment cache from a full execution: only plans whose
+        steps are provably time-local (``incremental.plan_cacheable``) and
+        scalar columnar results (no histogram matrix). The columns go to
+        the host as f64, as the reference stores them."""
+        if res.result_type != "matrix" or res.matrix.bucket_les is not None:
+            return
+        if not plan_cacheable(plan):
+            return
+        host = res.matrix.to_host()
+        vals = np.asarray(host.values)
+        if vals.ndim != 2:
+            return
+        if vals.shape[0] > len(host.keys):
+            vals = vals[:len(host.keys)]   # padded leaf rows carry no series
+        elif vals.shape[0] < len(host.keys):
+            return
+        self.fragment_cache.store(frag_key,
+                                  np.asarray(host.out_ts, np.int64),
+                                  np.asarray(vals, np.float64),
+                                  list(host.keys), res.warnings, epochs,
+                                  range_key[2])
+
+    def _exec_admitted(self, plan: L.LogicalPlan, ctx: QueryContext,
+                       tenant: str | None) -> QueryResult:
+        """Execute under the admission gate when one is configured: the
+        decision (cost estimate + reserve) runs under its own span; a shed
+        raises AdmissionRejected and lands in QueryStats and the slow-query
+        ring before anything executes. A cost that could never fit the
+        budget or the tenant's quota raises a plain QueryError."""
+        if self.admission is None:
+            return self.exec_logical(plan, ctx)
+        with span(SPAN_QUERY_ADMIT, tenant=tenant or "") as tags:
+            cost = self.estimate_cost(plan)
+            tags["cost"] = round(cost, 1)
+            try:
+                got = self.admission.acquire(cost, tenant)
+            except AdmissionRejected:
+                tags["shed"] = True
+                ctx.stats.add("admission_shed")
+                raise
+        try:
+            return self.exec_logical(plan, ctx)
+        finally:
+            self.admission.release(got, tenant)
+
+    def estimate_cost(self, plan: L.LogicalPlan) -> float:
+        """Admission-control cost estimate: the planner walks the logical
+        tree; this engine supplies the index probe (local series counts; a
+        narrow-resident store discounts its rows). The probe reads host
+        state only (index postings, the store's residency fields): no
+        device sync under the shard lock."""
+        def series_of(filters, from_ms, to_ms):
+            total = narrow = 0
+            for sh in self.memstore.shards_of(self.dataset):
+                with sh.lock:
+                    pids = sh.part_ids_from_filters(list(filters), from_ms,
+                                                    to_ms)
+                total += len(pids)
+                if sh.store is not None and sh.store._val_compressed:
+                    # compressed residency (scalar or hist) halves the
+                    # streamed bytes, and the fused tier reads it in place
+                    narrow += len(pids)
+            return total, (narrow / total if total else 0.0)
+
+        return self.planner.estimate_cost(
+            plan, series_of, self.config.stale_sample_after_ms)
+
+    def _any_recovering(self) -> bool:
+        """True while any local shard is mid-recovery (partial data)."""
+        return any(sh.recovering
+                   for sh in self.memstore.shards_of(self.dataset))
+
+    def _epoch_vector(self) -> tuple:
+        """The shards' data-epoch vector (see :meth:`_epoch_state`)."""
+        return self._epoch_state()[0]
+
+    def _epoch_state(self, with_logs: bool = False):
+        """``(vector, logs)``: the vector is every shard's ``data_epoch``
+        mutation counter; with ``with_logs`` each shard's recent (epoch,
+        min affected ts) bump log rides along, the substrate of per-step
+        fragment validity (``incremental.stable_before``). Every shard is
+        local until the port's remote legs land, so the vector is always
+        readable."""
+        vec = []
+        logs: dict = {}
+        for sh in self.memstore.shards_of(self.dataset):
+            if with_logs:
+                ep, lg = sh.epoch_state()
+                logs[("local", str(sh.shard_num))] = lg
+            else:
+                ep = sh.data_epoch
+            vec.append(("local", sh.shard_num, ep))
+        return tuple(sorted(vec, key=str)), logs
+
+    def _note_query_done(self, promql_text: str, ctx: QueryContext,
+                         dur_ms: float, tctx: dict | None,
+                         error: BaseException | None) -> None:
+        trace_id = (tctx.get("trace_id")
+                    if tctx and tctx.get("sampled") else None)
+        registry.histogram(FILODB_QUERY_LATENCY_MS,
+                           {"dataset": self.dataset}) \
+            .record(dur_ms, trace_id=trace_id)
+        thr = self.config.slow_log_threshold_ms
+        shed = isinstance(error, AdmissionRejected)
+        slow = thr is not None and dur_ms >= thr
+        if slow and not shed:
+            registry.counter(FILODB_QUERY_SLOW,
+                             {"dataset": self.dataset}).increment()
+        if slow or shed:
+            # admission sheds enter the ring whatever their duration: the
+            # operator diagnosing sheds needs their text, cost and tenant
+            # beside the slow queries
+            entry = {
+                "promql": promql_text, "dataset": self.dataset,
+                "duration_ms": round(dur_ms, 3),
+                "plan": ctx.exec_path, "trace_id": trace_id,
+                "stats": ctx.stats.to_dict(),
+                # wall timestamp for display only; durations come from the
+                # monotonic clock
+                "ts": time.time(),
+            }
+            if shed:
+                entry["shed"] = True
+                entry["cost"] = round(error.cost, 1)
+                if error.tenant is not None:
+                    entry["tenant"] = error.tenant
+            if error is not None:
+                entry["error"] = f"{type(error).__name__}: {error}"
+            slow_query_log.record(entry)
 
     def exec_logical(self, plan: L.LogicalPlan,
                      ctx: QueryContext | None = None) -> QueryResult:
@@ -481,3 +1054,82 @@ class QueryEngine:
         return _present_topk(TopKPartial(
             k, False, out_ts, group_keys, vals,
             key_ref.reshape(G, k, T), key_table))
+
+    # -- metadata queries (ref: QueryActor label-values / series paths); the
+    # local shards' legs (the peer fan-out comes with the remote legs) ------
+
+    def label_value_counts(self, label: str, filters=None):
+        """value -> series count summed over the local shards (full
+        counts: pruning per shard could drop a value that wins by sum)."""
+        counts: Counter = Counter()
+        for shard in self.memstore.shards_of(self.dataset):
+            for v, c in shard.label_value_counts(label, filters):
+                counts[v] += c
+        return counts
+
+    def label_values(self, label: str, filters=None,
+                     top_k=None) -> list[str]:
+        """Sorted distinct values of ``label``; with ``top_k``, the k
+        values with the most series, by count summed over the shards."""
+        if top_k is not None:
+            counts = self.label_value_counts(label, filters)
+            return [v for v, _ in counts.most_common(top_k)]
+        vals: dict[str, None] = {}
+        for shard in self.memstore.shards_of(self.dataset):
+            for v in shard.label_values(label, filters):
+                vals[v] = None
+        return sorted(vals)
+
+    def label_names(self, filters=None) -> list[str]:
+        names: set[str] = set()
+        for shard in self.memstore.shards_of(self.dataset):
+            names.update(shard.label_names(filters))
+        return sorted(names)
+
+    def series(self, filters, start_ms: int,
+               end_ms: int) -> list[dict[str, str]]:
+        """Label sets of the series matching ``filters`` in the range."""
+        out = []
+        for shard in self.memstore.shards_of(self.dataset):
+            # ids and labels under one lock: a release reuses slots
+            with shard.lock:
+                pids = shard.part_ids_from_filters(list(filters), start_ms,
+                                                   end_ms)
+                out.extend(shard.index.labels_of(int(p)) for p in pids)
+        return out
+
+    def raw_series(self, filters, start_ms: int, end_ms: int):
+        """Yield (labels, ts int64, vals f64) of the raw samples in range,
+        the remote-read path (ref: PrometheusModel's remote-read conversion
+        reads raw chunks, not periodic samples). Scalar schemas only.
+
+        Under the shard lock: the ids, their labels, and one gather of
+        their rows on the store's device (a compressed-resident store
+        decodes its block once for the whole selection). The copy to the
+        host waits until the lock is released: the gathered rows are a
+        copy, ordered on the stream before any later in-place write."""
+        for shard in self.memstore.shards_of(self.dataset):
+            if shard.schema.is_histogram:
+                continue   # remote read carries scalar samples
+            with shard.lock:
+                pids = shard.part_ids_from_filters(list(filters), start_ms,
+                                                   end_ms)
+                if len(pids) == 0 or shard.store is None:
+                    continue
+                if shard.needs_paging(pids, start_ms):
+                    raise QueryError(
+                        "raw series older than the resident rows (paged "
+                        "from a durable sink) are not yet ported (ROADMAP "
+                        "queue 1 item 6)")
+                labels = [shard.index.labels_of(int(p)) for p in pids]
+                tsrc, vsrc = shard.store.snapshot_arrays()
+                rows = torch.from_numpy(pids.astype(np.int64)).to(tsrc.device)
+                ts_sel = tsrc.index_select(0, rows)
+                v_sel = vsrc.index_select(0, rows)
+                nh = shard.store.n_host[pids].copy()
+            ts_h, v_h = ts_sel.cpu().numpy(), v_sel.cpu().numpy()
+            for i, lbl in enumerate(labels):
+                t, v = ts_h[i, :nh[i]], v_h[i, :nh[i]]
+                keep = (t >= start_ms) & (t <= end_ms)
+                if keep.any():
+                    yield lbl, t[keep], np.asarray(v[keep], np.float64)

@@ -4,7 +4,8 @@ Port of the local half of ``filodb_tpu/query/planner.py`` (ref:
 coordinator/.../queryengine2/QueryEngine.scala:106-375): picks target shards
 from shard-key filters, pushes the map phase down to the shard leaves and
 wires scatter-gather, joins, subqueries, ``@``, chunk-metadata leaves and
-the instant, sort, misc and scalar mappers on top.
+the instant, sort, misc and scalar mappers on top; and the admission gate's
+cost estimate over the logical tree.
 """
 
 from __future__ import annotations
@@ -137,6 +138,69 @@ class QueryPlanner:
         return ReduceAggregateExec(
             transformers=[presenter], operator=p.operator, params=p.params,
             by=p.by, without=p.without, children=children)
+
+    # -- cost estimation (feeds admission control) ----------------------------
+
+    # window factor cap: beyond this many window-steps the kernels' work per
+    # step stops growing meaningfully (band matmuls stream the store once)
+    COST_WINDOW_STEPS_CAP = 256.0
+
+    def estimate_cost(self, plan: L.LogicalPlan, series_of,
+                      stale_ms: int = 300_000) -> float:
+        """Planner-side cost estimate for admission control: roughly the
+        samples a query touches — ``series x steps x window-steps`` summed
+        over data-reading leaves, with a narrow-residency discount (a
+        compressed-resident block streams half the device-memory bytes of raw f32).
+
+        ``series_of(filters, from_ms, to_ms) -> (series, narrow_fraction)``
+        is the engine's index probe (the planner stays storage-agnostic).
+        An ESTIMATE, not a meter: admission compares concurrent magnitudes,
+        so relative ordering is what matters (ref: the reference's
+        query-limits config bounds the same axis by fiat)."""
+        def leaf(raw, start_ms, end_ms, step_ms, window_ms) -> float:
+            step = max(int(step_ms), 1)
+            steps = max((int(end_ms) - int(start_ms)) // step + 1, 1)
+            series, narrow_frac = series_of(
+                list(raw.filters), raw.range_selector.from_ms,
+                raw.range_selector.to_ms)
+            wsteps = min(max(float(window_ms) / step, 1.0),
+                         self.COST_WINDOW_STEPS_CAP)
+            discount = 1.0 - 0.5 * min(max(float(narrow_frac), 0.0), 1.0)
+            return float(series) * steps * wsteps * discount
+
+        def walk(p) -> float:
+            if isinstance(p, L.PeriodicSeriesWithWindowing):
+                return leaf(p.series, p.start_ms, p.end_ms, p.step_ms,
+                            p.window_ms)
+            if isinstance(p, L.PeriodicSeries):
+                return leaf(p.raw_series, p.start_ms, p.end_ms, p.step_ms,
+                            stale_ms)
+            if isinstance(p, L.Aggregate):
+                return walk(p.vectors)
+            if isinstance(p, L.BinaryJoin):
+                return walk(p.lhs) + walk(p.rhs)
+            if isinstance(p, L.ScalarVectorBinaryOperation):
+                cost = walk(p.vector)
+                if isinstance(p.scalar, L.LogicalPlan):
+                    cost += walk(p.scalar)
+                return cost
+            if isinstance(p, (L.ApplyInstantFunction,
+                              L.ApplyMiscellaneousFunction,
+                              L.ApplySortFunction)):
+                return walk(p.vectors)
+            if isinstance(p, L.ScalarOfVector):
+                return walk(p.vectors)
+            if isinstance(p, L.VectorOfScalar):
+                return walk(p.scalar)
+            if isinstance(p, L.SubqueryWithWindowing):
+                # the inner plan already carries its own (denser) grid; the
+                # outer window slide is host-side and cheap in comparison
+                return walk(p.inner)
+            if isinstance(p, L.ApplyAtTimestamp):
+                return walk(p.vectors)
+            return 0.0        # scalar literals / time() / chunk-meta probes
+
+        return walk(plan)
 
     def _walk_shard_children(self, p) -> list[ExecPlan]:
         if isinstance(p, L.PeriodicSeries):

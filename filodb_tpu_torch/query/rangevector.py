@@ -115,19 +115,32 @@ class ResultMatrix:
 class QueryStats:
     """Per-query resource accounting threaded through exec via QueryContext
     (ref: the reference's QueryStats aggregated across ExecPlans and
-    returned in query responses); the counters the port's local path
-    keeps. Thread-safe. ``stage_ms`` sums wall time per stage."""
+    returned in query responses); the counters the port's local path and
+    its serving layer keep. Thread-safe. ``stage_ms`` sums wall time per
+    stage."""
 
     FIELDS = ("series_matched", "blocks_raw", "blocks_narrow",
-              "result_cells", "fused_kernels", "subquery_inner_cells")
+              "result_cells", "result_cache_hits", "negative_cache_hits",
+              "fused_kernels", "admission_shed", "subquery_inner_cells",
+              "fragment_steps_reused", "recovering_shards")
 
     def __init__(self):
         self.series_matched = 0        # series selected by leaf filters
         self.blocks_raw = 0            # raw f32/f64 store blocks read
         self.blocks_narrow = 0         # compressed-resident blocks streamed
         self.result_cells = 0          # final matrix series x steps
+        self.result_cache_hits = 0     # answered from the result cache
+        self.negative_cache_hits = 0   # empty selection served from the
+                                       # TTL-bounded negative cache
         self.fused_kernels = 0         # fused-tier executions in this query
+        self.admission_shed = 0        # shed by cost-based admission
         self.subquery_inner_cells = 0  # inner matrix cells subqueries slid over
+        self.fragment_steps_reused = 0  # request steps served from the
+                                        # incremental fragment cache
+        self.recovering_shards = 0     # leaf selects served by a shard
+                                       # mid-recovery (an empty answer then
+                                       # proves nothing: the negative cache
+                                       # skips it)
         self.stage_ms: dict[str, float] = {}
         self._lock = threading.Lock()
 
@@ -146,16 +159,15 @@ class QueryStats:
             with self._lock:
                 self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
 
-    def merge(self, other: "QueryStats") -> None:
-        """Fold another QueryStats' counters and stage times into this one."""
-        with other._lock:
-            counts = {f: getattr(other, f) for f in self.FIELDS}
-            stages = dict(other.stage_ms)
+    def merge(self, other: "QueryStats | dict") -> None:
+        """Fold another QueryStats' counters and stage times into this one;
+        a dict in ``to_dict`` form (a cached result's stats) folds alike."""
+        d = other.to_dict() if isinstance(other, QueryStats) else other
         with self._lock:
-            for f, v in counts.items():
-                setattr(self, f, getattr(self, f) + v)
-            for k, v in stages.items():
-                self.stage_ms[k] = self.stage_ms.get(k, 0.0) + v
+            for f in self.FIELDS:
+                setattr(self, f, getattr(self, f) + int(d.get(f, 0)))
+            for k, v in (d.get("stage_ms") or {}).items():
+                self.stage_ms[k] = self.stage_ms.get(k, 0.0) + float(v)
 
     def to_dict(self) -> dict:
         with self._lock:

@@ -1,8 +1,12 @@
-"""Metrics registry: counters and histograms, one process-global registry.
+"""Metrics registry: counters, gauges and histograms, one process-global
+registry.
 
-Host copy of the parts of ``filodb_tpu/utils/metrics.py`` the port's main
-path records: the query latency histogram, the fused-tier and mesh-route
-served/fallback counters and the residency-fallback counter. Metric names are the reference's, so dashboards read both.
+Host copy of the parts of ``filodb_tpu/utils/metrics.py`` the port records:
+the query latency histogram, the fused-tier and mesh-route served/fallback
+counters, the residency-fallback counter, and the serving layer's metrics
+(result, negative and fragment caches, slow queries, admission, the
+per-tenant cardinality governor). Metric names are the reference's, so
+dashboards read both.
 """
 
 from __future__ import annotations
@@ -21,6 +25,37 @@ FILODB_QUERY_MESH_SERVED = "filodb_query_mesh_served"
 FILODB_QUERY_MESH_FALLBACK = "filodb_query_mesh_fallback"
 FILODB_TRACE_SPANS = "filodb_trace_spans"
 FILODB_STORE_RESIDENCY_FALLBACK = "filodb_store_residency_fallback"
+# errors dropped on purpose on a best-effort path, tagged by site
+FILODB_SWALLOWED_ERRORS = "filodb_swallowed_errors"
+FILODB_SCHEDULER_WORKER_ERRORS = "filodb_scheduler_worker_errors"
+# queries at or over QueryConfig.slow_log_threshold_ms
+FILODB_QUERY_SLOW = "filodb_query_slow"
+FILODB_QUERY_RESULT_CACHE_HITS = "filodb_query_result_cache_hits"
+FILODB_QUERY_RESULT_CACHE_MISSES = "filodb_query_result_cache_misses"
+FILODB_QUERY_RESULT_CACHE_EVICTIONS = "filodb_query_result_cache_evictions"
+FILODB_QUERY_RESULT_CACHE_INVALIDATIONS = \
+    "filodb_query_result_cache_invalidations"
+# cost-based admission: sheds (retryable), oversized (never admissible),
+# and the cost admitted and executing now (a gauge)
+FILODB_QUERY_ADMISSION_SHED = "filodb_query_admission_shed"
+FILODB_QUERY_ADMISSION_OVERSIZED = "filodb_query_admission_oversized"
+FILODB_QUERY_ADMISSION_COST = "filodb_query_admission_cost"
+FILODB_QUERY_NEGATIVE_CACHE_HITS = "filodb_query_negative_cache_hits"
+FILODB_QUERY_NEGATIVE_CACHE_EVICTIONS = \
+    "filodb_query_negative_cache_evictions"
+FILODB_QUERY_FRAGMENT_CACHE_HITS = "filodb_query_fragment_cache_hits"
+FILODB_QUERY_FRAGMENT_CACHE_MISSES = "filodb_query_fragment_cache_misses"
+FILODB_QUERY_FRAGMENT_CACHE_EXTENSIONS = \
+    "filodb_query_fragment_cache_extensions"
+FILODB_QUERY_FRAGMENT_CACHE_EVICTIONS = \
+    "filodb_query_fragment_cache_evictions"
+FILODB_QUERY_FRAGMENT_CACHE_INVALIDATIONS = \
+    "filodb_query_fragment_cache_invalidations"
+# resident bytes of the fragment cache's host value columns (a gauge)
+FILODB_QUERY_FRAGMENT_CACHE_BYTES = "filodb_query_fragment_cache_bytes"
+# per-tenant active series (a gauge) and births shed at the quota
+FILODB_TENANT_ACTIVE_SERIES = "filodb_tenant_active_series"
+FILODB_TENANT_SERIES_SHED = "filodb_tenant_series_shed"
 
 
 class Counter:
@@ -35,6 +70,22 @@ class Counter:
     @property
     def value(self) -> float:
         return self._v
+
+
+class Gauge:
+    """``update`` is a plain rebind (atomic under the interpreter lock);
+    read-modify-write goes through ``increment``."""
+
+    def __init__(self):
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def update(self, v: float):
+        self.value = float(v)
+
+    def increment(self, by: float = 1.0):
+        with self._lock:
+            self.value += by
 
 
 class Histogram:
@@ -76,6 +127,9 @@ class MetricsRegistry:
 
     def counter(self, name: str, tags: dict | None = None) -> Counter:
         return self._get(Counter, name, tags)
+
+    def gauge(self, name: str, tags: dict | None = None) -> Gauge:
+        return self._get(Gauge, name, tags)
 
     def histogram(self, name: str, tags: dict | None = None) -> Histogram:
         return self._get(Histogram, name, tags)

@@ -1,7 +1,8 @@
 """Tracing: in-process spans with a per-thread context stack.
 
 Host copy of the span recorder of ``filodb_tpu/utils/tracing.py``, limited
-to what the port's query path opens: ``with span(SPAN_QUERY_EXECUTE, ...)``
+to what the port's query path opens (the query's stages, admission, the
+fragment cache's delta evaluation, a subscription's increment): ``with span(SPAN_QUERY_EXECUTE, ...)``
 records one span into a bounded ring, parented under the innermost open span
 of the thread. Durations come from the monotonic clock; the wall clock is
 read once per span for its start timestamp. Cross-node propagation and the
@@ -26,6 +27,9 @@ SPAN_QUERY_PLAN = "query.plan"
 SPAN_QUERY_EXECUTE = "query.execute"
 SPAN_QUERY_LEAF = "query.exec.leaf"
 SPAN_QUERY_REDUCE = "query.exec.reduce"
+SPAN_QUERY_ADMIT = "query.admission"
+SPAN_QUERY_FRAGMENT = "query.fragment"
+SPAN_QUERY_SUBSCRIBE = "query.subscribe"
 
 
 @dataclass

@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "ops.aggregators", "core.chunkstore", "core.memstore",
               "core.schemas", "query.exec", "query.engine", "query.planner",
               "query.logical", "query.rangevector", "parallel.distributed",
-              "parallel.shardmapper", "utils.metrics"):
+              "parallel.shardmapper", "utils.metrics", "utils.tracing",
+              "core.cardinality", "query.incremental", "query.scheduler",
+              "parallel.cluster"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
