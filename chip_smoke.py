@@ -199,7 +199,8 @@ Phases, in order; every check asserts and any failure exits non-zero:
                fused query, the mesh answer bit for bit the host loop's
                (M4: keys equal, values bit for bit); M5's sketch holds every
                series once a step. Prints each query's p50 over 3 after a
-               warm run, both engines, and the 8 per-shard K1 times beside
+               warm run (M2, ~5.8 s of Python keys a query: one run, no
+               warm), both engines, and the 8 per-shard K1 times beside
                phase 4's one launch over 2^20 rows.
 
   12a. serving small (run after 8a) — the engine's serving fast path
@@ -227,6 +228,49 @@ Phases, in order; every check asserts and any failure exits non-zero:
                caches' device bytes; every answer within rtol 1e-5 of the
                oracle's, and whether it was bit-equal.
 
+  13a. durable small (run after 12a) — 32 counters and 16 gauges (4
+               stop early) and 16 histograms (B = 8) x 180 samples, each
+               container published to a FileBus and ingested with its
+               offset into sink-backed shards (groups_per_shard = 4, a
+               FileColumnStore in a temporary directory, the inline 1m
+               downsampler attached); the first 2/3 persisted, then a
+               crash. On the card and again on the CPU: recover from the
+               sink and the bus (the downsampler re-seeded from the
+               loaded chunks); the histogram dataset recovered into an
+               "all" shard and its quantile through K2; the gauge dataset
+               recovered into a "gauge" shard and sum(rate) through
+               K1-delta8 (bit for bit K1 raw on the decode); the store
+               compacted and cold ranges paged in through the narrow and
+               the wide path (ODP_BATCH lowered to 16) and raw_series;
+               purge and the durable age-out with their epoch bumps; the
+               batch (5m) and cascade (1m -> 10m) jobs; the families
+               loaded, ``__col__``, a routed stitched query and
+               resolution="5m". Card against CPU: index, rows, epochs,
+               routes, QueryStats (rows_paged_in, resolution), counts and
+               every sink file equal, answers within rtol 1e-5 (quantiles
+               1e-3); the recovered answers bit for bit the pre-crash ones;
+               K1 / K2 launched exactly for the fused routes.
+  13b. durable scale (run last) — a restart of one 2^17 x 720 shard of
+               exact counters, f32 on the card, groups_per_shard = 16:
+               6 RecordBuilder containers published to a FileBus and
+               ingested with offsets, the first 4 persisted
+               (flush_all_groups, the inline 5m downsampler on), a crash;
+               sum(rate(m[5m])) and two selections (4096 and 8192 series)
+               through K1 before it; a fresh memstore on the card
+               recovers from the sink and the bus; the same queries
+               through K1 bit for bit (else within rtol 1e-5, and said);
+               the oldest 2/3 compacted away and the two selections paged
+               back in (one ODP batch, two) within rtol 1e-5 of the
+               pre-crash answers; the replayed third persisted, the 5m
+               family (24 buckets a series) loaded and
+               sum(avg_over_time(m[30m])) at 5m through the router with
+               resolution="5m" (K1, the closed band) against a numpy
+               oracle over the published records (rtol 1e-5). Prints the
+               flush seconds and on-disk bytes a sample, the recovery's
+               index ms, chunk load and replay seconds, the cold and
+               resident query ms and paged series/s, the routed query ms
+               against raw, on the host clock, with the card.
+
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or without the package beside it, it exits 2 and
@@ -246,12 +290,19 @@ with the package in DIR (default: beside this script), prints the engine's
 single-query p50 and K2's time by CUDA events, and saves K2's partials at
 phase 7's query to OUT; --k2-compare says whether saved partials are equal
 bit for bit. Neither prints a result line.
+
+    python3 chip_smoke.py --durable
+
+runs phases 13a and 13b alone (after the kernels' build) and prints no
+result line.
 """
 
 import contextlib
 import gc
 import json
 import os
+import re
+import shutil
 import sys
 import time
 
@@ -2809,6 +2860,9 @@ MESH_ROUTES = {"M1": "mesh-fused", "M2": "mesh-fused", "M3": "mesh-twostep",
                "M4": "mesh-topk", "M5": "mesh-sketch",
                "M6": "mesh-fused-narrow"}
 MESH_REPS = 3
+# M2 (~5.8 s a query of Python group keys) runs once on each engine, with
+# no warm run: the cut that makes room for phase 13
+MESH_REPS_BY = {"M2": 1}
 
 
 def build_mesh_scale(torch, np, pkg, dev="cuda"):
@@ -2905,10 +2959,11 @@ def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
     s, e = range_variants(shards[0])[0]
     T = len(np.arange(s, e + 1, STEP_MS))
 
-    def timed(eng, q):
-        eng.query_range(q, s, e, STEP_MS)            # warm
+    def timed(eng, q, reps):
+        if reps > 1:
+            eng.query_range(q, s, e, STEP_MS)        # warm
         times, r = [], None
-        for _ in range(MESH_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             r = eng.query_range(q, s, e, STEP_MS)
             np.asarray(r.matrix.values)
@@ -2943,20 +2998,22 @@ def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
                 nd = sh.store.narrow_operands()
                 assert nd is not None and nd[0] == "delta8" and nd[2].all(), \
                     nd and nd[0]
-        mesh_eng.query_range(q, s, e, STEP_MS)       # warm
+        reps = MESH_REPS_BY.get(name, MESH_REPS)
+        if reps > 1:
+            mesh_eng.query_range(q, s, e, STEP_MS)   # warm
         # the main path: counts from 0, read right after
         reset_k1(fg)
         times = []
-        for _ in range(MESH_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
             r = mesh_eng.query_range(q, s, e, STEP_MS)
             np.asarray(r.matrix.values)
             times.append((time.perf_counter() - t0) * 1000)
         for k, v in fg.fused_grid_kernel.launches_by_kind.items():
             by_kind[k] += v
-        launches[name] = fg.fused_grid_kernel.launches / MESH_REPS
+        launches[name] = fg.fused_grid_kernel.launches / reps
         res[name], lat[name] = r, float(np.percentile(times, 50))
-        host[name], lat[name + " host"] = timed(host_eng, q)
+        host[name], lat[name + " host"] = timed(host_eng, q, reps)
         assert r.exec_path == MESH_ROUTES[name], (name, r.exec_path)
         assert host[name].exec_path == "local", host[name].exec_path
         want = 8 if MESH_ROUTES[name].startswith("mesh-fused") else 0
@@ -2987,7 +3044,8 @@ def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
     for name, q in MESH_QUERIES.items():
         log(f"mesh scale [{card}]: {name} {q}: {MESH_ROUTES[name]} p50 "
             f"{lat[name]:.3f} ms, host loop p50 {lat[name + ' host']:.3f} "
-            f"ms (over {MESH_REPS} runs); K1 launches a mesh query "
+            f"ms (over {MESH_REPS_BY.get(name, MESH_REPS)} runs); K1 "
+            f"launches a mesh query "
             f"{launches[name]:g}; bit-equal to the host loop")
     log(f"mesh scale [{card}]: K1 per shard (2^17 rows) by CUDA events "
         f"{[round(x, 4) for x in per_shard]} ms, sum "
@@ -3430,6 +3488,640 @@ def phase_serving_scale(torch, np, fg, card, engine, shard, dev="cuda"):
     return sum(sum(v) for v in launches.values()) + round_launches
 
 
+
+# ---- phase 13: the durable tier and the retention tiers --------------------
+
+# a base on the 10-minute grid, so 1m, 5m and 10m downsample buckets start
+# with the data
+DUR_BASE = 1_699_999_800_000
+DUR_IV = 10_000
+M1_MS, M5_MS, M10_MS = 60_000, 300_000, 600_000
+
+# 13a: 32 counters "m" (4 stop at cell 60: purge fodder) and 16 gauges "g",
+# 180 cells; 9 containers of 20 cells, the first 6 persisted; a histogram
+# dataset of 16 series x B = 8 beside them
+DUR_SMALL_CELLS = 180
+DUR_SMALL_BATCH = 20
+DUR_SMALL_PERSIST = 5          # containers 0..5 reach the sink
+DUR_SMALL_STALE = (3, 10, 17, 24)
+DUR_SMALL_ODP_BATCH = 16
+DUR_SMALL_RANGE = (DUR_BASE + 300_000, DUR_BASE + 1_790_000, 30_000)
+DUR_SMALL_QUERIES = ("sum(rate(m[5m]))", "sum by (dc) (increase(m[5m]))",
+                     "avg(avg_over_time(g[5m]))", "max_over_time(g[2m])")
+DUR_HIST_QUERY = "histogram_quantile(0.9, sum(rate(lat[5m])))"
+DUR_HIST_LES = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, float("inf"))
+
+# 13b: one phase-11b mesh shard's shape, exact counters, f32 on the card
+DUR_SERIES = 1 << 17
+DUR_CELLS = 720
+DUR_CONTAINERS = 6             # 120 cells each
+DUR_PERSISTED = 4              # containers 0..3 (2/3) reach the sink
+DUR_GROUPS = 16
+DUR_NARROW_SEL = 'sum(rate(m{grp="g7"}[5m]))'      # 4096 series: 1 batch
+# 8192 series, 2 batches: half the 16384 (4 batches) first planned, since
+# phase 13b runs far past its 60 s target on host work
+DUR_WIDE_SEL = 'sum(rate(m{blk="b3"}[5m]))'
+DUR_QUERY = "sum(rate(m[5m]))"
+DUR_ROUTED = "sum(avg_over_time(m[30m]))"
+
+
+def dur_small_data(np):
+    """Labels and [48, 180] values of phase 13a: integer counters (delta8
+    rows: an anchor below 2^20 plus increments in [0, 8]) and integer
+    gauges (steps in [-5, 5]); the stale series stop at cell 60."""
+    rng = np.random.default_rng(13)
+    labels, vals, ncell = [], [], []
+    for i in range(48):
+        name = "m" if i < 32 else "g"
+        labels.append({"_metric_": name, "host": f"h{i}", "dc": f"dc{i % 3}"})
+        if name == "m":
+            v = float(rng.integers(0, 1 << 20)) + np.cumsum(
+                rng.integers(0, 9, DUR_SMALL_CELLS))
+        else:
+            v = 5000.0 + np.cumsum(rng.integers(-5, 6, DUR_SMALL_CELLS))
+        vals.append(v.astype(np.float64))
+        ncell.append(60 if i in DUR_SMALL_STALE else DUR_SMALL_CELLS)
+    hrng = np.random.default_rng(14)
+    inc = hrng.integers(0, 3, (16, DUR_SMALL_CELLS, len(DUR_HIST_LES)))
+    hist = np.cumsum(np.cumsum(inc, axis=2), axis=1).astype(np.float64)
+    return labels, np.stack(vals), ncell, hist
+
+
+def dur_small_containers(np, RecordBuilder, GAUGE, PROM_HISTOGRAM, data, k):
+    """Container ``k`` of the gauge dataset and of the histogram one."""
+    labels, vals, ncell, hist = data
+    lo, hi = k * DUR_SMALL_BATCH, (k + 1) * DUR_SMALL_BATCH
+    ts = DUR_BASE + np.arange(lo, hi, dtype=np.int64) * DUR_IV
+    b = RecordBuilder(GAUGE)
+    for i, lbl in enumerate(labels):
+        if ncell[i] > lo:
+            top = min(hi, ncell[i])
+            b.add_batch(lbl, ts[:top - lo], vals[i, lo:top])
+    hb = RecordBuilder(PROM_HISTOGRAM,
+                       bucket_les=np.asarray(DUR_HIST_LES, np.float64))
+    for s in range(hist.shape[0]):
+        h = hist[s, lo:hi]
+        hb.add_batch({"_metric_": "lat", "pod": f"p{s}"}, ts,
+                     {"sum": h[:, -1] * 3.0, "count": h[:, -1], "h": h})
+    return b.build(), hb.build()
+
+
+def dur_answer(np, r) -> dict:
+    m = r.matrix.to_host()
+    return {"path": re.sub(r"\[(cuda|plain)\]", "", r.exec_path),
+            "full_path": r.exec_path,
+            "stats": {f: getattr(r.stats, f) for f in r.stats.FIELDS},
+            "resolution": r.stats.resolution,
+            "keys": [k.labels for k in m.keys], "ts": np.asarray(m.out_ts),
+            "les": (None if m.bucket_les is None
+                    else np.asarray(m.bucket_les).tolist()),
+            "vals": np.asarray(m.values, np.float64)[:len(m.keys)]}
+
+
+def dur_tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _dirs, files in os.walk(root) for f in files)
+
+
+def dur_tree(root: str) -> dict:
+    """relative path -> bytes of every file under ``root``."""
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            p = os.path.join(dirpath, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def dur_state(np, sh) -> dict:
+    """A shard's index, rows and visibility state, on the host."""
+    idx = [(p, sh.index.labels_of(p), sh.index.start_time(p),
+            sh.index.end_time(p)) for p in range(len(sh.index))]
+    rows = []
+    if sh.store is not None:
+        t, v = sh.store.snapshot_arrays()
+        t, v = t.cpu().numpy(), v.cpu().numpy()
+        for p in range(len(sh.index)):
+            n = int(sh.store.n_host[p])
+            rows.append((t[p, :n].tolist(), v[p, :n].tolist()))
+    return {"index": idx, "rows": rows, "epochs": sh.epoch_state(),
+            "visible_lead": sh.visible_lead_ms, "lead": sh.lead_ms,
+            "watermarks": sh.group_watermarks.tolist()}
+
+
+def dur_small_run(np, fg, fr, pkg, dev, root):
+    """Phase 13a's eight steps on one device; returns what the card and
+    the CPU must agree on, and each step's K1 / K2 launches."""
+    from filodb_tpu_torch.core.downsample import InlineDownsampler, ds_family
+    from filodb_tpu_torch.core.filters import Equals
+    from filodb_tpu_torch.core.schemas import PROM_HISTOGRAM, Schemas
+    from filodb_tpu_torch.core.store import CODEC_BACKEND, FileColumnStore
+    from filodb_tpu_torch.ingest.bus import FileBus
+    from filodb_tpu_torch.jobs.batch_downsampler import (
+        load_downsampled, make_inline_publisher, run_batch_downsample,
+        run_cascade_downsample)
+    from filodb_tpu_torch.query import exec as qexec
+    from filodb_tpu_torch.query.retention import (RetentionPolicy,
+                                                  RetentionRouter)
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+    out, k1, k2 = {"codec": CODEC_BACKEND}, {}, {}
+    sink_dir, bus_p, bus_h = (os.path.join(root, "sink"),
+                              os.path.join(root, "bus", "p.log"),
+                              os.path.join(root, "bus", "h.log"))
+
+    def cfg(residency="off", series=64):
+        return StoreConfig(max_series_per_shard=series,
+                           samples_per_series=256, flush_batch_size=10**9,
+                           groups_per_shard=4, compressed_residency=residency,
+                           device=dev)
+
+    def query(eng, what, q, rng=DUR_SMALL_RANGE, **kw):
+        reset_k1(fg)
+        fr.fused_hist_kernel.launches = 0
+        r = eng.query_range(q, *rng, **kw)
+        out[what] = dur_answer(np, r)
+        k1[what] = fg.fused_grid_kernel.launches
+        k2[what] = fr.fused_hist_kernel.launches
+        for kind, n in fg.fused_grid_kernel.launches_by_kind.items():
+            if n and kind != "raw":
+                k1[f"{what} [{kind}]"] = n
+        return r
+
+    # 1. ingest with offsets, persist part, crash
+    data = dur_small_data(np)
+    sink, bus, hbus = (FileColumnStore(sink_dir), FileBus(bus_p),
+                       FileBus(bus_h))
+    ms = TimeSeriesMemStore(device=dev)
+    sh = ms.setup("p", GAUGE, 0, cfg(), sink=sink)
+    sh.downsample = (M1_MS, InlineDownsampler(
+        M1_MS, make_inline_publisher(sink, "p", M1_MS)))
+    hsh = ms.setup("h", PROM_HISTOGRAM, 0, cfg(series=16), sink=sink)
+    for k in range(DUR_SMALL_CELLS // DUR_SMALL_BATCH):
+        c, hc = dur_small_containers(np, RecordBuilder, GAUGE,
+                                     PROM_HISTOGRAM, data, k)
+        sh.ingest(c, bus.publish(c))
+        hsh.ingest(hc, hbus.publish(hc))
+        sh.flush()
+        hsh.flush()
+        if k == DUR_SMALL_PERSIST:
+            sh.flush_all_groups()
+            hsh.flush_all_groups()
+    pre = QueryEngine(ms, "p", device=dev)
+    for q in DUR_SMALL_QUERIES:
+        query(pre, f"pre-crash {q}", q)
+    del ms, sh, hsh, pre
+
+    # 2. recover from the sink and the bus
+    sink2 = FileColumnStore(sink_dir)
+    ms2 = TimeSeriesMemStore(device=dev)
+    sh2 = ms2.setup("p", GAUGE, 0, cfg(), sink=sink2)
+    floor = sink2.read_meta(ds_family("p", M1_MS), 0)["published_through"]
+    inline = InlineDownsampler(M1_MS, make_inline_publisher(sink2, "p",
+                                                            M1_MS),
+                               floor_ms=floor)
+    sh2.downsample = (M1_MS, inline)
+    out["replayed"] = sh2.recover(FileBus(bus_p), Schemas(),
+                                  on_chunks_loaded=lambda: inline
+                                  .seed_from_store(sh2))
+    assert out["replayed"] == sum(
+        min(n, DUR_SMALL_CELLS) - min(n, (DUR_SMALL_PERSIST + 1)
+                                      * DUR_SMALL_BATCH)
+        for n in data[2]), out["replayed"]
+    out["recovered"] = dur_state(np, sh2)
+    eng2 = QueryEngine(ms2, "p", device=dev)
+    for q in DUR_SMALL_QUERIES:
+        query(eng2, f"recovered {q}", q)
+
+    # 3. a histogram shard recovered into "all": K2 over its 2D-delta block
+    hms = TimeSeriesMemStore(device=dev)
+    hsh2 = hms.setup("h", PROM_HISTOGRAM, 0, cfg("all", 16), sink=sink2)
+    hsh2.recover(FileBus(bus_h), Schemas())
+    assert hsh2.store.is_narrow_resident
+    out["hist recovered"] = dur_state(np, hsh2)["index"]
+    query(QueryEngine(hms, "h", device=dev), "hist K2", DUR_HIST_QUERY)
+
+    # 4. the gauge dataset recovered into a "gauge" shard: K1-delta8
+    gms = TimeSeriesMemStore(device=dev)
+    gsh = gms.setup("p", GAUGE, 0, cfg("gauge"), sink=sink2)
+    gsh.recover(FileBus(bus_p), Schemas())
+    nd = gsh.store.narrow_operands()
+    assert nd is not None and nd[0] == "delta8" and nd[2][:48].all(), \
+        nd and nd[0]
+    query(QueryEngine(gms, "p", device=dev), "delta8 sum(rate)",
+          "sum(rate(m[5m]))")
+    out["delta8 vs decode"] = dur_delta8_vs_decode(np, fg, gsh)
+
+    # 5. compact, then cold ranges through the narrow and the wide ODP path
+    with sh2.lock:
+        sh2.store.compact(DUR_BASE + 50 * DUR_IV)
+    saved, qexec.ODP_BATCH = qexec.ODP_BATCH, DUR_SMALL_ODP_BATCH
+    try:
+        query(eng2, "odp narrow", 'sum(rate(m{dc="dc0"}[5m]))')
+        query(eng2, "odp wide", "sum by (dc) (rate(m[5m]))")
+        query(eng2, "odp wide per-series", "max_over_time(m[10m])")
+    finally:
+        qexec.ODP_BATCH = saved
+    assert out["odp narrow"]["stats"]["rows_paged_in"] == 11
+    assert out["odp wide"]["stats"]["rows_paged_in"] == 32
+    out["odp raw_series"] = [
+        (lbl, t.tolist(), v.tolist()) for lbl, t, v in eng2.raw_series(
+            [Equals("dc", "dc1")], DUR_BASE, DUR_BASE + 10**7)]
+    assert len(out["odp raw_series"][0][1]) == DUR_SMALL_CELLS
+
+    # 6. purge, then the durable age-out
+    e0 = sh2.data_epoch
+    out["purged"] = sh2.purge_expired_partitions(DUR_BASE + 100 * DUR_IV)
+    assert out["purged"] == len(DUR_SMALL_STALE), out["purged"]
+    out["purge epochs"] = sh2.epoch_state()[1][-(sh2.data_epoch - e0):]
+    sh2.flush_all_groups()
+    e1 = sh2.data_epoch
+    out["aged out"] = sh2.age_out_durable(DUR_BASE + 60 * DUR_IV)
+    assert out["aged out"] > 0 and sh2.data_epoch == e1 + 1, (out["aged out"], sh2.data_epoch, e1)
+    out["age-out epoch"] = sh2.epoch_state()[1][-1]
+
+    # 7. the inline family at flush, then the batch and cascade jobs
+    inline.flush_remaining(sh2)
+    out["batch 5m"] = run_batch_downsample(sink2, "p", 0, M5_MS)
+    out["cascade 1m->10m"] = run_cascade_downsample(sink2, "p", 0, M1_MS,
+                                                    M10_MS)
+    out["sink files"] = {k: v for k, v in dur_tree(sink_dir).items()
+                         if not k.endswith(".tmp")}
+
+    # 8. load the families, __col__, routed and stitched resolution queries
+    fams = {}
+    for res in (M1_MS, M5_MS):
+        fms = TimeSeriesMemStore(device=dev)
+        load_downsampled(sink2, "p", 0, res, "dAvg", fms)
+        fams[res] = QueryEngine(fms, ds_family("p", res), device=dev)
+    query(fams[M1_MS], "family __col__", 'max(m{__col__="dMax"})')
+    query(fams[M5_MS], "family ::dAvg", 'm::dAvg{host="h1"}',
+          (DUR_BASE + 600_000, DUR_BASE + 1_790_000, M5_MS))
+    eng2.retention = RetentionRouter(
+        RetentionPolicy([M1_MS, M5_MS], raw_window_ms=10 * M1_MS),
+        fams.get, dataset="p")
+    lead = DUR_BASE + (DUR_SMALL_CELLS - 1) * DUR_IV
+    query(eng2, "routed stitched", "sum(avg_over_time(m[5m]))",
+          (DUR_BASE + 600_000, lead, M1_MS))
+    assert out["routed stitched"]["resolution"] == "1m+raw"
+    query(eng2, "resolution=5m", "sum(avg_over_time(m[10m]))",
+          (DUR_BASE + 600_000, DUR_BASE + 1_500_000, M5_MS),
+          resolution="5m")
+    assert out["resolution=5m"]["full_path"].startswith("retention[5m]:")
+    return out, k1, k2
+
+
+def dur_delta8_vs_decode(np, fg, sh) -> bool:
+    """K1 on a recovered shard's delta8 block against K1 raw on its decode,
+    bit for bit (True when they agree; the CPU has no K1 to hold)."""
+    import torch
+    from filodb_tpu_torch.ops import decodereg
+    st = sh.store
+    if st.device.type != "cuda":
+        return True
+    kind, ops, ok = st.narrow_operands()
+    n = torch.where(torch.from_numpy(ok).to(st.device), st.n, 0).contiguous()
+    gids = fg.zero_gids(st.S, st.device)
+    s, e, step = DUR_SMALL_RANGE
+    out_ts = np.arange(s, e + 1, step, dtype=np.int64) - DUR_BASE
+    Tp = -(-len(out_ts) // 128) * 128
+    _b, _o, lo, hi, rel, c0, Ca = fg.device_operands(
+        st.C, Tp, out_ts.tobytes(), WINDOW_MS, 0, DUR_IV, "rate",
+        decodereg.variant(kind).full_columns, st.device)
+    a = fg.fused_grid_kernel("rate", True, WINDOW_MS, DUR_IV, ops[0], n,
+                             gids, lo, hi, rel, 8, c0, Ca, kind, ops[1:])
+    b = fg.fused_grid_kernel("rate", True, WINDOW_MS, DUR_IV,
+                             st.value_block(), n, gids, lo, hi, rel, 8, c0,
+                             Ca)
+    return same_outputs(a, b)
+
+
+def phase_durable_small(torch, np, fg, fr, pkg, devs=("cuda", "cpu")):
+    """Phase 13a: the eight steps on the card against the CPU, each in its
+    own temporary directory: the same index, rows, epochs, routes,
+    QueryStats (rows_paged_in, resolution), counts and sink files, the
+    answers within rtol 1e-5 of the largest magnitude. Returns (K1
+    launches by step, K2 launches by step, steps compared, codec)."""
+    import tempfile
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="filodb-durable-") as tmp:
+        for i, dev in enumerate(devs):
+            runs[i] = dur_small_run(np, fg, fr, pkg, dev,
+                                    os.path.join(tmp, f"{i}-{dev}"))
+    (card, k1, k2), (cpu, _k1c, _k2c) = runs[0], runs[1]
+    assert set(card) == set(cpu)
+    n = 0
+    for what, g in card.items():
+        r = cpu[what]
+        if isinstance(g, dict) and "vals" in g:
+            for k in ("path", "stats", "resolution", "keys", "les"):
+                assert g[k] == r[k], (what, k, g[k], r[k])
+            assert np.array_equal(g["ts"], r["ts"]), what
+            assert (np.isnan(g["vals"]) == np.isnan(r["vals"])).all(), what
+            scale = float(np.nanmax(np.abs(r["vals"]), initial=0.0))
+            tol = 1e-3 if what == "hist K2" else 1e-5
+            np.testing.assert_allclose(g["vals"], r["vals"], rtol=tol,
+                                       atol=tol * scale, equal_nan=True,
+                                       err_msg=what)
+            assert np.isfinite(g["vals"]).any(), what
+        elif what == "sink files":
+            assert sorted(g) == sorted(r), (sorted(g), sorted(r))
+            for f in g:
+                assert g[f] == r[f], f
+        else:
+            assert g == r, (what, g if not isinstance(g, dict) else "...")
+        n += 1
+    assert card["delta8 vs decode"] is True
+    # the recovered answers are the pre-crash ones: the same rows, the
+    # same route
+    for q in DUR_SMALL_QUERIES:
+        a, b = card[f"pre-crash {q}"], card[f"recovered {q}"]
+        assert a["full_path"] == b["full_path"], q
+        assert np.array_equal(a["vals"], b["vals"], equal_nan=True), q
+    if devs[0] == "cuda":
+        fused = {w: g["stats"]["fused_kernels"] for w, g in card.items()
+                 if isinstance(g, dict) and "stats" in g}
+        assert all(k1[w] + k2[w] == fused[w] for w in fused), (k1, k2, fused)
+        assert k2["hist K2"] == 1 and k1["delta8 sum(rate) [delta8]"] == 1
+        assert card["hist K2"]["full_path"] == "fused-hist-narrow[cuda]"
+    return k1, k2, n, card["codec"]
+
+
+def dur_scale_data(np, S, k, prev):
+    """Container ``k``'s [S, cells] values of phase 13b's exact counters,
+    continuing the rows' last values ``prev`` (None: draw the anchors):
+    anchors below 2^20 plus increments in [0, 8] from seeded generators
+    (every value below 2^23: exact in f32)."""
+    per = DUR_CELLS // DUR_CONTAINERS
+    if prev is None:
+        prev = np.random.default_rng(1300).integers(
+            0, 1 << 20, S).astype(np.float64)
+    inc = np.random.default_rng(1301 + k).integers(0, 9, (S, per))
+    return prev[:, None] + np.cumsum(inc, axis=1)
+
+
+def dur_scale_container(np, builder, S, k, vals):
+    """Container ``k`` (cells [120k, 120k + 120) of every series) through
+    the real RecordBuilder: one add_batch a series."""
+    per = DUR_CELLS // DUR_CONTAINERS
+    ts = DUR_BASE + np.arange(k * per, (k + 1) * per, dtype=np.int64) * DUR_IV
+    for i in range(S):
+        builder.add_batch({"_metric_": "m", "host": f"h{i}",
+                           "grp": f"g{i % 32}", "blk": f"b{i % 16}"},
+                          ts, vals[i])
+    return builder.build()
+
+
+def dur_capture(publish, captured: list):
+    """The inline publisher ``publish`` that also keeps a host copy of the
+    dAvg records it hands to the sink (the oracle's input)."""
+    import numpy as np
+
+    def wrapped(shard, recs):
+        publish(shard, recs)
+        p, t, v = recs["dAvg"]
+        captured.append((np.array(p, np.int64), np.array(t), np.array(v)))
+    wrapped.published_max = publish.published_max
+    return wrapped
+
+
+def dur_family_oracle(np, captured, out_ts, window_ms):
+    """sum(avg_over_time(m::dAvg[w])) from the published records on the
+    host, in f64: keep-first on (pid, bucket) as the loader dedups, then per
+    series the mean of its bucket averages with timestamps in [t - w, t],
+    summed over the series that have one."""
+    p = np.concatenate([c[0] for c in captured])
+    t = np.concatenate([c[1] for c in captured])
+    v = np.concatenate([c[2] for c in captured])
+    key = p << 42 | (t % (1 << 42))
+    _u, idx = np.unique(key, return_index=True)
+    idx.sort()
+    p, t, v = p[idx], t[idx], v[idx]
+    n_pid = int(p.max()) + 1
+    out = np.full(len(out_ts), np.nan)
+    for j, te in enumerate(out_ts):
+        sel = (t >= te - window_ms) & (t <= te)
+        if not sel.any():
+            continue
+        s = np.bincount(p[sel], weights=v[sel], minlength=n_pid)
+        c = np.bincount(p[sel], minlength=n_pid)
+        out[j] = float((s[c > 0] / c[c > 0]).sum())
+    return out
+
+
+def phase_durable_scale(torch, np, fg, card, pkg, dev="cuda", S=DUR_SERIES,
+                        wide_sel=DUR_WIDE_SEL):
+    """Phase 13b: a restart of one 2^17 x 720 shard. Returns K1's launches
+    on the phase's main path (recovered shard and downsample family)."""
+    import tempfile
+    from filodb_tpu_torch.core.downsample import InlineDownsampler, ds_family
+    from filodb_tpu_torch.core.schemas import Schemas
+    from filodb_tpu_torch.core.store import CODEC_BACKEND, FileColumnStore
+    from filodb_tpu_torch.ingest.bus import FileBus
+    from filodb_tpu_torch.jobs.batch_downsampler import (load_downsampled,
+                                                         make_inline_publisher)
+    from filodb_tpu_torch.query.retention import (RetentionPolicy,
+                                                  RetentionRouter)
+    from filodb_tpu_torch.utils.metrics import (FILODB_INDEX_RECOVER_MS,
+                                                registry)
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+
+    def sync():
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+
+    def cfg():
+        return StoreConfig(max_series_per_shard=S, samples_per_series=CAPACITY,
+                           flush_batch_size=10**9, groups_per_shard=DUR_GROUPS,
+                           device=dev)
+
+    def run(eng, q, rng, reps=1, **kw):
+        """(answer, route, QueryStats, p50 host ms over ``reps``)."""
+        times, r = [], None
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            r = eng.query_range(q, *rng, **kw)
+            vals = np.asarray(r.matrix.to_host().values, np.float64)
+            times.append((time.perf_counter() - t0) * 1000)
+        return vals, r.exec_path, r.stats, float(np.percentile(times, 50))
+
+    lead = DUR_BASE + (DUR_CELLS - 1) * DUR_IV
+    full = (DUR_BASE + WINDOW_MS, lead, STEP_MS)
+    k1 = 0
+    with tempfile.TemporaryDirectory(prefix="filodb-restart-") as tmp:
+        sink_dir = os.path.join(tmp, "sink")
+        bus_path = os.path.join(tmp, "bus", "dur.log")
+        # 1. ingest with offsets, persist the first 2/3, crash
+        sink, bus = FileColumnStore(sink_dir), FileBus(bus_path)
+        ms = TimeSeriesMemStore(device=dev)
+        sh = ms.setup("dur", GAUGE, 0, cfg(), sink=sink)
+        captured: list = []
+        sh.downsample = (M5_MS, InlineDownsampler(M5_MS, dur_capture(
+            make_inline_publisher(sink, "dur", M5_MS), captured)))
+        builder = RecordBuilder(GAUGE)
+        t_gen = t_ingest = flush_s = 0.0
+        vals = None
+        for k in range(DUR_CONTAINERS):
+            t0 = time.perf_counter()
+            vals = dur_scale_data(np, S, k, None if vals is None
+                                  else vals[:, -1])
+            c = dur_scale_container(np, builder, S, k, vals)
+            off = bus.publish(c)
+            t_gen += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sh.ingest(c, off)
+            sh.flush()
+            sync()
+            t_ingest += time.perf_counter() - t0
+            del c
+            if k == DUR_PERSISTED - 1:
+                t0 = time.perf_counter()
+                sh.flush_all_groups()
+                flush_s = time.perf_counter() - t0
+                log_bytes = os.path.getsize(os.path.join(
+                    sink_dir, "dur", "shard0", "chunks.log"))
+        bus_bytes = os.path.getsize(bus_path)
+        # 2. the reference answers, through K1, before the crash
+        eng = QueryEngine(ms, "dur", device=dev)
+        pre = {q: run(eng, q, full) for q in (DUR_QUERY, DUR_NARROW_SEL,
+                                              wide_sel)}
+        for q, (_v, path, st, _ms) in pre.items():
+            assert path == "local" and st.fused_kernels == 1, (q, path)
+        del eng, sh, ms
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+        # 3. a fresh memstore recovers from the sink and the bus
+        sink2 = FileColumnStore(sink_dir)
+        ms2 = TimeSeriesMemStore(device=dev)
+        sh2 = ms2.setup("dur", GAUGE, 0, cfg(), sink=sink2)
+        family = ds_family("dur", M5_MS)
+        inline = InlineDownsampler(
+            M5_MS, dur_capture(make_inline_publisher(sink2, "dur", M5_MS),
+                               captured),
+            floor_ms=sink2.read_meta(family, 0)["published_through"])
+        sh2.downsample = (M5_MS, inline)
+        marks = {}
+
+        def loaded():
+            sync()
+            marks["chunks"] = time.perf_counter()
+            inline.seed_from_store(sh2)
+            marks["seeded"] = time.perf_counter()
+
+        t0 = time.perf_counter()
+        replayed = sh2.recover(FileBus(bus_path), Schemas(),
+                               on_chunks_loaded=loaded)
+        sync()
+        t_end = time.perf_counter()
+        index_ms = registry.gauge(FILODB_INDEX_RECOVER_MS,
+                                  {"dataset": "dur", "shard": "0"}).value
+        chunks_s = marks["chunks"] - t0 - index_ms / 1000
+        seed_s = marks["seeded"] - marks["chunks"]
+        replay_s = t_end - marks["seeded"]
+        assert sh2.num_series == S and replayed == S * (
+            DUR_CELLS - DUR_PERSISTED * DUR_CELLS // DUR_CONTAINERS), replayed
+
+        # 4. the recovered shard through K1: bit-equal to the pre-crash answer
+        eng2 = QueryEngine(ms2, "dur", device=dev)
+        reset_k1(fg)
+        post = {q: run(eng2, q, full, reps=3) for q in pre}
+        raw_routed = run(eng2, DUR_ROUTED, (DUR_BASE + 30 * M1_MS, lead,
+                                            M5_MS), reps=3)
+        k1 += fg.fused_grid_kernel.launches
+        on_card = torch.device(dev).type == "cuda"
+        assert fg.fused_grid_kernel.launches == (3 * 3 + 3) * on_card, \
+            fg.fused_grid_kernel.launches
+        bit_equal = {}
+        for q in pre:
+            assert post[q][1] == "local" and post[q][2].fused_kernels == 1
+            bit_equal[q] = bool(np.array_equal(pre[q][0], post[q][0],
+                                               equal_nan=True))
+            np.testing.assert_allclose(post[q][0], pre[q][0], rtol=1e-5,
+                                       err_msg=q)
+
+        # 5. compact away the oldest 2/3; cold queries page them back in
+        with sh2.lock:
+            sh2.store.compact(DUR_BASE + DUR_PERSISTED * DUR_CELLS
+                              // DUR_CONTAINERS * DUR_IV)
+        cold = {q: run(eng2, q, full) for q in (DUR_NARROW_SEL, wide_sel)}
+        for q, (vals, path, st, _ms) in cold.items():
+            assert path == "local" and st.fused_kernels == 0, (q, path)
+            np.testing.assert_allclose(vals, pre[q][0], rtol=1e-5,
+                                       err_msg=f"cold {q}")
+        n_narrow = cold[DUR_NARROW_SEL][2].rows_paged_in
+        n_wide = cold[wide_sel][2].rows_paged_in
+        assert n_narrow == S // 32 and n_wide == S // 16, (n_narrow, n_wide)
+        # 6. the node persists the replayed third; the inline downsampler,
+        # seeded from the loaded chunks, closes every bucket
+        t0 = time.perf_counter()
+        sh2.flush_all_groups()
+        inline.flush_remaining(sh2)
+        flush2_s = time.perf_counter() - t0
+
+        # the 5m family the inline downsampler published, loaded and
+        # queried through the router with resolution="5m"
+        t0 = time.perf_counter()
+        fms = TimeSeriesMemStore(device=dev)
+        fam_sh = load_downsampled(sink2, "dur", 0, M5_MS, "dAvg", fms)
+        load_s = time.perf_counter() - t0
+        assert int(fam_sh.store.n_host[:S].min()) == \
+            int(fam_sh.store.n_host[:S].max()) == DUR_CELLS * DUR_IV // M5_MS
+        assert fam_sh.store.grid_info() is not None
+        fam = QueryEngine(fms, family, device=dev)
+        eng2.retention = RetentionRouter(
+            RetentionPolicy([M5_MS], raw_window_ms=30 * M1_MS),
+            {M5_MS: fam}.get, dataset="dur")
+        rrange = (DUR_BASE + 30 * M1_MS, lead, M5_MS)
+        reset_k1(fg)
+        routed = run(eng2, DUR_ROUTED, rrange, reps=3, resolution="5m")
+        routed_k1 = fg.fused_grid_kernel.launches
+        k1 += routed_k1
+        assert routed[1] == "retention[5m]:local", routed[1]
+        assert routed[2].resolution == "5m" and routed[2].fused_kernels == 1
+        assert routed_k1 == 3 * on_card, routed_k1
+        out_ts = np.arange(rrange[0], rrange[1] + 1, M5_MS, dtype=np.int64)
+        want = dur_family_oracle(np, captured, out_ts, 30 * M1_MS)
+        np.testing.assert_allclose(routed[0][0], want, rtol=1e-5,
+                                   err_msg="routed family query vs oracle")
+
+        disk = dur_tree_bytes(tmp)
+        free = shutil.disk_usage(tmp).free
+    samples = S * DUR_CELLS
+    tag = f"durable scale [{card}]"
+    log(f"{tag}: {S} series x {DUR_CELLS} samples in {DUR_CONTAINERS} "
+        f"RecordBuilder containers published to a FileBus "
+        f"({bus_bytes / 1e9:.3f} GB, {t_gen:.1f} s with generation) and "
+        f"ingested with offsets ({t_ingest:.1f} s); codec {CODEC_BACKEND}")
+    log(f"{tag}: flush_all_groups of the first {DUR_PERSISTED}/"
+        f"{DUR_CONTAINERS} ({DUR_GROUPS} groups, inline 5m downsampler on) "
+        f"{flush_s:.3f} s; chunk log {log_bytes} B = "
+        f"{log_bytes / (S * DUR_PERSISTED * DUR_CELLS // DUR_CONTAINERS):.3f}"
+        f" B a sample on disk")
+    log(f"{tag}: recovery: index {index_ms:.1f} ms (filodb_index_recover_ms)"
+        f", chunk load {chunks_s:.3f} s, downsampler seed {seed_s:.3f} s, "
+        f"replay {replay_s:.3f} s of {replayed} rows; the recovered "
+        f"shard's answers bit-equal to the pre-crash ones: {bit_equal}")
+    log(f"{tag}: resident p50 (3) {post[DUR_NARROW_SEL][3]:.3f} ms over "
+        f"{S // 32} series, {post[wide_sel][3]:.3f} ms over {S // 16}; cold "
+        f"(ODP) {cold[DUR_NARROW_SEL][3]:.3f} ms narrow ({n_narrow} series "
+        f"paged, {n_narrow / cold[DUR_NARROW_SEL][3] * 1000:.0f} series/s), "
+        f"{cold[wide_sel][3]:.3f} ms wide ({n_wide} series in "
+        f"{-(-n_wide // 4096)} batches, "
+        f"{n_wide / cold[wide_sel][3] * 1000:.0f} series/s); within rtol "
+        f"1e-5 of the pre-crash answers")
+    log(f"{tag}: post-recovery flush_all_groups + the last buckets "
+        f"{flush2_s:.3f} s; the 5m family loaded in {load_s:.3f} s; "
+        f"{DUR_ROUTED} at 5m with resolution=\"5m\" p50 {routed[3]:.3f} ms "
+        f"({routed[1]}, K1 {routed_k1 // 3} a query) against raw "
+        f"{raw_routed[3]:.3f} ms ({raw_routed[1]}); within rtol 1e-5 of the "
+        f"numpy oracle; {disk / 1e9:.3f} GB on disk at the end "
+        f"({free / 1e9:.1f} GB free); {samples} samples")
+    return k1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3466,6 +4158,16 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--k2-compare"]:
         return 0 if k2_compare(torch, sys.argv[2:]) else 1
+    if sys.argv[1:2] == ["--durable"]:
+        # not part of the smoke run: phases 13a and 13b alone
+        kernels.build()
+        k1a, k2a, n13a, codec = phase_durable_small(torch, np, fg, fr, pkg)
+        log(f"durable small: {n13a} records match the CPU; codec {codec}; "
+            f"K1 {k1a}; K2 {k2a}")
+        t0 = time.perf_counter()
+        phase_durable_scale(torch, np, fg, card, pkg)
+        log(f"durable scale: done in {time.perf_counter() - t0:.1f} s")
+        return 0
     log(f"build: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
     t0 = time.perf_counter()
@@ -3536,6 +4238,16 @@ def main() -> int:
         f"engine in route, QueryStats, cache stats and epochs, "
         f"{equal12a} of {n12a} answers bit for bit, the rest within rtol "
         f"1e-5; the metadata API equal; K1 launches {SERVE_SMALL_LAUNCHES} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    k1_13a, k2_13a, n13a, codec = phase_durable_small(torch, np, fg, fr, pkg)
+    log(f"durable small: recovery, K2 over a recovered histogram shard, "
+        f"K1-delta8 over a recovered gauge shard, narrow and wide ODP, "
+        f"purge, durable age-out, inline, batch and cascade downsampling, "
+        f"__col__ and routed, stitched resolution queries: {n13a} records "
+        f"match the CPU run (routes, QueryStats, sink files); host codecs "
+        f"{codec}; K1 launches by step {k1_13a}; K2 {sum(k2_13a.values())} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -3624,7 +4336,12 @@ def main() -> int:
                                                    k1["ms"])
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"mesh scale: done in {time.perf_counter() - t0:.1f} s; total "
+    log(f"mesh scale: done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k1_13b = phase_durable_scale(torch, np, fg, card, pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"durable scale: done in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     k1_rows = [{
@@ -3641,22 +4358,33 @@ def main() -> int:
     # the serving path's misses and incremental tails (12a, 12b), each
     # counted from 0; the decode variants add the mesh's narrow routes and
     # the mirror's quant16 stream
+    # phase 13a: K1 raw over the recovered shard and the families, K1-delta8
+    # over the recovered gauge shard; 13b: the recovered 2^17 shard and the
+    # loaded 5m family
+    k1_13a_narrow = {kind: sum(v for w, v in k1_13a.items()
+                               if w.endswith(f"[{kind}]"))
+                     for kind in NARROW_KINDS}
+    k1_13a_raw = sum(v for w, v in k1_13a.items() if "[" not in w) \
+        - sum(k1_13a_narrow.values())
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
-        + k1_11b["raw"] + k1_12a + k1_12b
+        + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
-            k1_mirror if kind == "quant16" else 0)
+            k1_mirror if kind == "quant16" else 0) + k1_13a_narrow[kind]
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
-        f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}; decode variants on the mesh (11a, 11b) "
+        f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
+        f"13b {k1_13b}; K1-delta8 over a recovered shard (13a) "
+        f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
         f"{ {k: (k1_11a[k], k1_11b[k]) for k in NARROW_KINDS} }, quant16 "
         f"through the mirror {k1_mirror}")
     table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",
         "replaces": "filodb_tpu/ops/fusedresident.py:282",
-        "launches": k2["launches"], "max_abs_err": k2["max_abs_err"],
+        "launches": k2["launches"] + sum(k2_13a.values()),
+        "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": None}, {

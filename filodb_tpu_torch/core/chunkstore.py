@@ -888,3 +888,11 @@ class SeriesStore:
         if isinstance(v, _Deferred):
             v = v.materialize()
         return self.ts_block(), v
+
+    def series_snapshot(self, part_id: int, column: str | None = None):
+        """Host copy of one series (tests and debugging; loops use
+        snapshot_arrays)."""
+        cnt = int(self.n_host[part_id])
+        t, v = self.snapshot_arrays(column)
+        return (t[part_id, :cnt].cpu().numpy(),
+                v[part_id, :cnt].cpu().numpy())

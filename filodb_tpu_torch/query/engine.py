@@ -22,8 +22,17 @@ validated against the shards' data epochs, the per-step fragment cache that
 extends a shifted range by executing only its new steps
 (``query/incremental.py``), and cost-based admission
 (``query/scheduler.py``). The metadata API (label values and names,
-series, raw samples) reads the local shards. Retention routing and the
-remote legs come with later slices.
+series, raw samples) reads the local shards; raw samples older than the
+resident rows page in from a shard's durable sink.
+
+Retention routing, as in the reference: with a ``RetentionRouter``
+installed (``engine.retention``, ``query/retention.py``), a range query
+whose step fits a downsample family and whose range lies behind the raw
+window goes to that family's engine, whole or stitched onto the raw tail
+at the horizon; ``resolution=`` forces a tier. A family engine runs the
+query with ``min_window_ms``: windows narrower than the family's resolution
+widen to cover it, and the floor rides every cache key. The remote legs
+come with a later slice.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from ..parallel.cluster import stitch_matrices
 from ..parallel.shardmapper import ShardMapper
 from ..promql import parser as promql
 from ..utils.metrics import (FILODB_QUERY_LATENCY_MS,
+                             FILODB_QUERY_WINDOWS_WIDENED,
                              FILODB_QUERY_NEGATIVE_CACHE_EVICTIONS,
                              FILODB_QUERY_NEGATIVE_CACHE_HITS,
                              FILODB_QUERY_RESULT_CACHE_EVICTIONS,
@@ -65,6 +75,7 @@ from .incremental import FragmentCache, plan_cacheable
 from .planner import QueryPlanner
 from .rangevector import (QueryError, QueryResult, QueryStats, RangeVectorKey,
                           ResultMatrix)
+from .retention import resolution_label, widen_windows
 from .scheduler import AdmissionController, AdmissionRejected
 
 # aggregation operators whose partial state crosses the mesh (the
@@ -394,6 +405,10 @@ class QueryEngine:
             cfg.fragment_cache_size, cfg.fragment_cache_bytes,
             cfg.fragment_max_steps, tags=tags)
             if cfg.fragment_cache_size else None)
+        # downsample-aware routing (query/retention.py RetentionRouter),
+        # installed on the RAW engine; family serving engines never carry
+        # one (no re-routing)
+        self.retention = None
         schema = memstore._dataset_schema.get(dataset)
         opts = schema.options if schema else None
         self.planner = (QueryPlanner(self.mapper, opts) if opts
@@ -405,29 +420,67 @@ class QueryEngine:
                             stale_ms=self.config.stale_sample_after_ms)
 
     def query_range(self, promql_text: str, start_ms: int, end_ms: int,
-                    step_ms: int, tenant: str | None = None) -> QueryResult:
-        """``tenant`` keys the caches and the admission quota."""
-        return self._query_traced(
+                    step_ms: int, tenant: str | None = None,
+                    resolution: str | None = None,
+                    _skip_routing: bool = False,
+                    min_window_ms: int | None = None) -> QueryResult:
+        """``tenant`` keys the caches and the admission quota.
+        ``resolution`` overrides the retention router's decision for the
+        whole range; it requires a router (unknown values fail with the
+        configured list). ``_skip_routing`` is the router's own raw-tail
+        leg. ``min_window_ms`` (the serving family's resolution) widens
+        windowed functions narrower than it, which would otherwise return
+        empty or wrong data on downsampled buckets."""
+        if self.retention is not None and not _skip_routing:
+            routed = self.retention.route_range(
+                self, promql_text, int(start_ms), int(end_ms), int(step_ms),
+                tenant, resolution)
+            if routed is not None:
+                return routed
+        elif resolution is not None and not _skip_routing:
+            raise QueryError(
+                "resolution override requires retention routing "
+                "(retention.routing + downsample.enabled); none configured")
+        res = self._query_traced(
             promql_text,
             lambda: promql.query_to_logical_plan(promql_text, start_ms,
                                                  end_ms, step_ms),
             range_key=(int(start_ms), int(end_ms), int(step_ms)),
-            tenant=tenant)
+            tenant=tenant, min_window_ms=min_window_ms)
+        if self.retention is not None and res.stats is not None \
+                and res.stats.resolution is None:
+            res.stats.resolution = "raw"   # routing ran and chose raw
+        return res
 
     def query_instant(self, promql_text: str, time_ms: int,
-                      tenant: str | None = None) -> QueryResult:
-        """Instant queries bypass the caches (they key on a range)."""
+                      tenant: str | None = None,
+                      resolution: str | None = None,
+                      min_window_ms: int | None = None) -> QueryResult:
+        """Instant queries bypass the caches (they key on a range) and
+        route only when ``resolution`` names a tier."""
+        if self.retention is not None:
+            routed = self.retention.route_instant(self, promql_text,
+                                                  int(time_ms), tenant,
+                                                  resolution)
+            if routed is not None:
+                routed.result_type = "vector"
+                return routed
+        elif resolution is not None:
+            raise QueryError(
+                "resolution override requires retention routing "
+                "(retention.routing + downsample.enabled); none configured")
         res = self._query_traced(
             promql_text,
             lambda: promql.query_to_logical_plan(promql_text, time_ms,
                                                  time_ms, 1),
-            tenant=tenant)
+            tenant=tenant, min_window_ms=min_window_ms)
         res.result_type = "vector"
         return res
 
     def _query_traced(self, promql_text: str, to_plan,
                       range_key: tuple | None = None,
-                      tenant: str | None = None) -> QueryResult:
+                      tenant: str | None = None,
+                      min_window_ms: int | None = None) -> QueryResult:
         """One root span per query, the end-to-end latency histogram and
         the slow-query ring, recorded in a finally (a query that raises
         still counts).
@@ -438,8 +491,9 @@ class QueryEngine:
         valid per-step columns and executes only the missing steps; then
         admitted execution, which stores into every cache against the
         epoch vector read BEFORE it ran, so a concurrent flush invalidates
-        the entry instead of racing it. The ``min_window`` slot of the
-        cache keys stays None until retention routing is ported."""
+        the entry instead of racing it. ``min_window_ms`` rides every cache
+        key: a routed family query's widened plan and a direct query of the
+        same text share text, not semantics."""
         ctx = self._ctx()
         t0 = time.perf_counter_ns()
         tctx = None
@@ -461,15 +515,17 @@ class QueryEngine:
                     epochs, elogs = self._epoch_state(
                         with_logs=frag is not None)
                 if range_key is not None and self.result_cache is not None:
-                    cache_key = (promql_text, *range_key, tenant, None)
+                    cache_key = (promql_text, *range_key, tenant,
+                                 min_window_ms)
                     hit = self._result_cache_probe(cache_key, epochs, ctx)
                     if hit is not None:
                         return hit
                 if frag is not None and epochs is not None:
-                    frag_key = (promql_text, range_key[2], tenant, None)
-                    served = self._fragment_serve(frag_key, promql_text,
-                                                  range_key, tenant, epochs,
-                                                  elogs, ctx)
+                    frag_key = (promql_text, range_key[2], tenant,
+                                min_window_ms)
+                    served = self._fragment_serve(
+                        frag_key, promql_text, range_key, tenant,
+                        min_window_ms, epochs, elogs, ctx)
                     if served is not None:
                         if cache_key is not None:
                             self.result_cache.put(
@@ -480,7 +536,10 @@ class QueryEngine:
                         return served
                 with span(SPAN_QUERY_PARSE), ctx.stats.stage("parse"):
                     plan = to_plan()
+                plan, widen_warn = self._widen_plan(plan, min_window_ms, ctx)
                 res = self._exec_admitted(plan, ctx, tenant)
+                if widen_warn is not None and widen_warn not in res.warnings:
+                    res.warnings.append(widen_warn)
                 if cache_key is not None:
                     self.result_cache.put(
                         cache_key,
@@ -537,18 +596,39 @@ class QueryEngine:
         res.exec_path = ctx.exec_path
         return res
 
+    def _widen_plan(self, plan: L.LogicalPlan, min_window_ms: int | None,
+                    ctx: QueryContext):
+        """Widen windowed functions narrower than the serving resolution
+        (retention-routed family queries: ``min_window_ms`` is the family's
+        resolution): a window that cannot cover one downsample bucket
+        returns empty or wrong data. Returns ``(plan, warning | None)``;
+        the count lands in QueryStats and the per-dataset metric."""
+        if not min_window_ms:
+            return plan, None
+        plan, n = widen_windows(plan, int(min_window_ms))
+        if not n:
+            return plan, None
+        label = resolution_label(int(min_window_ms))
+        ctx.stats.add("windows_widened", n)
+        registry.counter(FILODB_QUERY_WINDOWS_WIDENED,
+                         {"dataset": self.dataset,
+                          "resolution": label}).increment(n)
+        return plan, (f"{n} window(s) narrower than the {label} serving "
+                      "resolution were widened to cover it")
+
     def _build_range_plan(self, promql_text: str, start_ms: int, end_ms: int,
-                          step_ms: int, ctx: QueryContext) -> L.LogicalPlan:
-        """Parse one (sub-)range: the fragment path's delta legs build
-        their plans as the full execution does (the reference's widening
-        for a downsample family's resolution comes with retention
-        routing)."""
+                          step_ms: int, min_window_ms: int | None,
+                          ctx: QueryContext):
+        """Parse and widen one (sub-)range: the fragment path's delta legs
+        build their plans as the full execution does."""
         with span(SPAN_QUERY_PARSE), ctx.stats.stage("parse"):
-            return promql.query_to_logical_plan(promql_text, start_ms,
+            plan = promql.query_to_logical_plan(promql_text, start_ms,
                                                 end_ms, step_ms)
+        return self._widen_plan(plan, min_window_ms, ctx)
 
     def _fragment_serve(self, frag_key: tuple, promql_text: str,
-                        range_key: tuple, tenant: str | None, epochs, elogs,
+                        range_key: tuple, tenant: str | None,
+                        min_window_ms: int | None, epochs, elogs,
                         ctx: QueryContext) -> QueryResult | None:
         """Incremental (delta) evaluation off the fragment cache: reuse the
         entry's provably valid per-step columns, execute only the missing
@@ -567,8 +647,11 @@ class QueryEngine:
             warnings = list(hit.warnings)
             n_new = 0
             for lo, hi in hit.missing:
-                plan = self._build_range_plan(promql_text, lo, hi, step, ctx)
+                plan, widen_warn = self._build_range_plan(
+                    promql_text, lo, hi, step, min_window_ms, ctx)
                 sub = self._exec_admitted(plan, ctx, tenant)
+                if widen_warn is not None and widen_warn not in warnings:
+                    warnings.append(widen_warn)
                 for w in sub.warnings:
                     if w not in warnings:
                         warnings.append(w)
@@ -952,9 +1035,10 @@ class QueryEngine:
             matched_total = 0    # committed to ctx.stats only when the mesh
             for sh in shards:    # serves (the host path counts its own)
                 pids = sh.part_ids_from_filters(filters, from_ms, to_ms)
-                # the reference routes a selection that needs cold data to
-                # the host path here (needs_paging); the port's shards have
-                # no sink to page from until item 11, so none does
+                if sh.needs_paging(pids, from_ms):
+                    # cold data: the host path's on-demand paging serves it
+                    distributed.count_mesh_fallback("paging")
+                    return None
                 matched_total += len(pids)
                 g = np.full(sh.store.S, _EXCLUDED_GID, np.int32)
                 if len(pids):
@@ -1107,7 +1191,9 @@ class QueryEngine:
         their rows on the store's device (a compressed-resident store
         decodes its block once for the whole selection). The copy to the
         host waits until the lock is released: the gathered rows are a
-        copy, ordered on the stream before any later in-place write."""
+        copy, ordered on the stream before any later in-place write. A
+        selection older than its resident rows merges its cold chunks from
+        the durable sink (on-demand paging)."""
         for shard in self.memstore.shards_of(self.dataset):
             if shard.schema.is_histogram:
                 continue   # remote read carries scalar samples
@@ -1116,18 +1202,21 @@ class QueryEngine:
                                                    end_ms)
                 if len(pids) == 0 or shard.store is None:
                     continue
-                if shard.needs_paging(pids, start_ms):
-                    raise QueryError(
-                        "raw series older than the resident rows (paged "
-                        "from a durable sink) are not yet ported (ROADMAP "
-                        "queue 1 item 6)")
                 labels = [shard.index.labels_of(int(p)) for p in pids]
-                tsrc, vsrc = shard.store.snapshot_arrays()
-                rows = torch.from_numpy(pids.astype(np.int64)).to(tsrc.device)
-                ts_sel = tsrc.index_select(0, rows)
-                v_sel = vsrc.index_select(0, rows)
-                nh = shard.store.n_host[pids].copy()
-            ts_h, v_h = ts_sel.cpu().numpy(), v_sel.cpu().numpy()
+                paged = (shard.gather_resident_locked(pids)
+                         if shard.needs_paging(pids, start_ms) else None)
+                if paged is None:
+                    tsrc, vsrc = shard.store.snapshot_arrays()
+                    rows = torch.from_numpy(pids.astype(np.int64)).to(
+                        tsrc.device)
+                    ts_sel = tsrc.index_select(0, rows)
+                    v_sel = vsrc.index_select(0, rows)
+                    nh = shard.store.n_host[pids].copy()
+            if paged is not None:
+                cold = shard.read_cold_for(pids, start_ms, end_ms)
+                ts_h, v_h, nh = shard.merge_paged(pids, paged, cold)
+            else:
+                ts_h, v_h = ts_sel.cpu().numpy(), v_sel.cpu().numpy()
             for i, lbl in enumerate(labels):
                 t, v = ts_h[i, :nh[i]], v_h[i, :nh[i]]
                 keep = (t >= start_ms) & (t <= end_ms)

@@ -31,9 +31,13 @@ shard takes the engine's fused-hist route (query/engine.py) before the
 planner. Subqueries, ``@`` and chunk-metadata plans are host reshapes
 around the same kernels.
 
-A ``__col__`` over a downsample family raises ``QueryError(... not yet
-ported)`` — never another path; on-demand paging and remote legs come with
-the durable sink and the cluster layers.
+A selection that reaches behind a shard's resident rows pages its cold
+chunks in from the durable sink (on-demand paging, as in the reference):
+one batch when narrow, pid batches of ``ODP_BATCH`` when wide, each batch's
+distributive transformers applied before the batches merge as shard
+results do. A ``__col__`` that names no column of the dataset's schema
+selects the per-aggregate dataset of a downsample family
+(``ds:ds_1m:dAvg``). Remote legs come with the cluster layers.
 """
 
 from __future__ import annotations
@@ -48,12 +52,14 @@ from ..core.chunkstore import COHORT_GATE, TS_PAD, _Deferred
 from ..core.schemas import ColumnType
 from ..ops import (aggregators, binop, fusedgrid, fusedresident, gridfns,
                    instantfns, rangefns)
-from ..utils.tracing import SPAN_QUERY_LEAF, SPAN_QUERY_REDUCE, span
+from ..utils.tracing import (SPAN_QUERY_LEAF, SPAN_QUERY_ODP,
+                             SPAN_QUERY_REDUCE, span)
 from .rangevector import (QueryError, QueryResult, QueryStats,
                           RangeVectorKey, ResultMatrix, fmt_value, to_numpy)
 
 DEFAULT_SAMPLE_LIMIT = 1_000_000
 GATHER_THRESHOLD = 8192      # selections narrower than this gather rows up front
+ODP_BATCH = 4096             # wide on-demand paging proceeds in pid batches
 
 
 @dataclass
@@ -822,6 +828,25 @@ class CountValuesPartial:
     entries: dict                  # (gid, vstr) -> np[T]
 
 
+@dataclass
+class _WideODP:
+    """do_execute marker: the selection needs wide on-demand paging. The
+    leaf's execute() pages it in batches outside the long-held shard
+    lock."""
+    pids: np.ndarray
+
+
+@dataclass
+class _NarrowODP:
+    """do_execute marker: a narrow selection that needs paging, with its
+    keys and the resident rows gathered under the shard lock
+    (``TimeSeriesShard.gather_resident_locked``). execute() reads the cold
+    chunks and makes the host copy after the lock is released."""
+    pids: np.ndarray
+    keys: list
+    gathered: tuple
+
+
 def _merge_heterogeneous(results, op, params, by, without, device):
     """Merge a mixed list of aggregation partials (normalizing any member
     that fell back to a full matrix). Returns None when no partials are
@@ -1129,23 +1154,29 @@ class ExecPlan:
 def _shard_of_ctx(ctx, shard_num: int, column: str = ""):
     """(shard, store column) serving ``shard_num`` of the query's dataset,
     on the engine's device. A ``__col__`` naming a column of the dataset's
-    own schema selects that column of its store (ref: ``_shard_of_ctx``'s
-    first branch — ``{__col__="sum"}`` on prom-histogram); naming the one
-    value column of a single-column schema is the default selection
-    (None). Any other column targets a downsample family's dataset."""
-    try:
-        sh = ctx.memstore.shard(ctx.dataset, shard_num)
-    except KeyError:
-        raise QueryError(f"unknown dataset {ctx.dataset}") from None
-    col = None
+    own schema selects that column of its store (``{__col__="sum"}`` on
+    prom-histogram); naming the one value column of a single-column schema
+    is the default selection (None). Any other column targets the
+    per-aggregate dataset of a downsample family (``ds:ds_1m:dAvg``, the
+    layout before multi-column families)."""
+    sh = col = None
     if column:
-        if sh.schema.column_named(column) is None:
+        try:
+            own = ctx.memstore.shard(ctx.dataset, shard_num)
+        except KeyError:
+            own = None
+        if own is not None and own.schema.column_named(column) is not None:
+            sh = own
+            if own.schema.is_multi_column:
+                col = column
+    if sh is None:
+        ds = f"{ctx.dataset}:{column}" if column else ctx.dataset
+        try:
+            sh = ctx.memstore.shard(ds, shard_num)
+        except KeyError:
             raise QueryError(
-                f"__col__={column!r} is no column of the {sh.schema.name} "
-                "schema: a downsample family's columns are "
-                "not yet ported (ROADMAP queue 1 item 6, item 11)")
-        if sh.schema.is_multi_column:
-            col = column
+                f"unknown {'column ' + column + ' of ' if column else ''}"
+                f"dataset {ds}") from None
     if sh.device != ctx.device:
         raise QueryError(f"shard {shard_num} of {ctx.dataset} lives on "
                          f"{sh.device}, the engine on {ctx.device}")
@@ -1180,6 +1211,10 @@ class SelectRawPartitionsExec(ExecPlan):
     def execute(self, ctx: QueryContext):
         with span(SPAN_QUERY_LEAF, shard=self.shard):
             shard, _col = _shard_of_ctx(ctx, self.shard, self.column)
+            if shard.recovering:
+                # partial data: the root's negative cache must know an
+                # empty selection proves nothing
+                ctx.stats.add("recovering_shards")
             # step-varying scalar operands resolve BEFORE the lock: their
             # subplans take other shards' locks (nested acquisition would
             # ABBA-deadlock two concurrent mirror-image queries)
@@ -1192,14 +1227,105 @@ class SelectRawPartitionsExec(ExecPlan):
             # tensors in place
             with shard.lock:
                 data = self.do_execute(ctx)
-                for t in self.transformers[:n_store]:
-                    data = t.apply(data, ctx)
-                if isinstance(data, FusedWindowData):
-                    # a lazy window view must not escape the lock
-                    data = data.materialize()
+                if isinstance(data, (_WideODP, _NarrowODP)):
+                    n_store = 0       # paged data is the leaf's own copy
+                else:
+                    for t in self.transformers[:n_store]:
+                        data = t.apply(data, ctx)
+                    if isinstance(data, FusedWindowData):
+                        # a lazy window view must not escape the lock
+                        data = data.materialize()
+            if isinstance(data, _WideODP):
+                # batched paging runs outside the long-held lock: each batch
+                # re-locks only around its resident gather
+                return self._paged_batches(ctx, shard, data.pids, _col)
+            if isinstance(data, _NarrowODP):
+                data = self._paged_selection(shard, data.pids, data.keys,
+                                             data.gathered, column=_col)
             for t in self.transformers[n_store:]:
                 data = t.apply(data, ctx)
             return data
+
+    def _paged_selection(self, shard, pids, keys, gathered, cold=None,
+                         column=None) -> SeriesSelection:
+        """The paged selection of ``pids``: cold chunks from the sink (read
+        here unless given) merged with the rows gathered under the lock,
+        one host copy, back on the shard's device in f64. Call without the
+        shard lock."""
+        tier = ("remote" if getattr(shard.sink, "remote_tier", False)
+                else "local")
+        with span(SPAN_QUERY_ODP, shard=self.shard, series=len(pids),
+                  tier=tier):
+            if cold is None:
+                cold = shard.read_cold_for(pids, self.start_ms, self.end_ms)
+            ts_h, val_h, n_h = shard.merge_paged(pids, gathered, cold, column)
+        dev = shard.device
+        return SeriesSelection(torch.from_numpy(ts_h).to(dev),
+                               torch.from_numpy(val_h).to(dev),
+                               torch.from_numpy(n_h).to(dev), keys, None,
+                               None)
+
+    @staticmethod
+    def _batch_distributive(t) -> bool:
+        """True when applying ``t`` per pid batch then merging equals
+        applying it to the whole selection (row-wise transforms and the
+        aggregation map phase are; absent() and sort need the whole)."""
+        if isinstance(t, (PeriodicSamplesMapper, AggregateMapReduce,
+                          ScalarOperationMapper)):
+            return True
+        if isinstance(t, InstantVectorFunctionMapper):
+            return t.function != "absent"
+        return False
+
+    def _paged_batches(self, ctx, shard, pids, column=None):
+        """Wide on-demand paging in bounded memory: each pid batch pages
+        its cold chunks, runs the distributive prefix of the transformer
+        chain, and the batch results merge as shard results do at a reduce;
+        the rest of the chain applies to the merged whole (ref:
+        OnDemandPagingShard.scala:58 pages any width)."""
+        n_dist = 0
+        while (n_dist < len(self.transformers)
+               and self._batch_distributive(self.transformers[n_dist])):
+            n_dist += 1
+        prefix, suffix = self.transformers[:n_dist], self.transformers[n_dist:]
+        agg = next((t for t in prefix if isinstance(t, AggregateMapReduce)),
+                   None)
+        outs = []
+        for i in range(0, len(pids), ODP_BATCH):
+            sub = pids[i:i + ODP_BATCH]
+            ctx.stats.add("rows_paged_in", len(sub))
+            # the sink scan runs lock-free (append-only logs); only the keys
+            # and the resident gather need the lock, the host copy follows
+            # its release
+            cold = shard.read_cold_for(sub, self.start_ms, self.end_ms)
+            with shard.lock:
+                keys = [shard.rv_key_of(int(p)) for p in sub]
+                gathered = shard.gather_resident_locked(sub, column)
+            data = self._paged_selection(shard, sub, keys, gathered,
+                                         cold=cold, column=column)
+            for t in prefix:
+                data = t.apply(data, ctx)
+            if isinstance(data, FusedWindowData):
+                data = data.materialize()
+            outs.append(data)
+        merged = None
+        if agg is not None:
+            merged = _merge_heterogeneous(outs, agg.operator, agg.params,
+                                          agg.by, agg.without, ctx.device)
+        if merged is None:
+            mats = [_as_matrix(o).to_host() for o in outs]
+            nonempty = [m for m in mats if m.num_series]
+            if nonempty:
+                vals = np.concatenate([np.asarray(m.values)
+                                       for m in nonempty], axis=0)
+                keys = [k for m in nonempty for k in m.keys]
+                merged = ResultMatrix(nonempty[0].out_ts, vals, keys,
+                                      nonempty[0].bucket_les)
+            else:
+                merged = mats[0]
+        for t in suffix:
+            merged = t.apply(merged, ctx)
+        return merged
 
     def do_execute(self, ctx) -> SeriesSelection:
         shard, col = _shard_of_ctx(ctx, self.shard, self.column)
@@ -1215,6 +1341,15 @@ class SelectRawPartitionsExec(ExecPlan):
         if (col is not None
                 and shard.schema.column_named(col).ctype != ColumnType.HISTOGRAM):
             les = None
+        # on-demand paging: the query reaches behind the resident rows ->
+        # merge cold chunks from the sink (ref:
+        # OnDemandPagingShard.scanPartitions)
+        if les is None and shard.needs_paging(pids, self.start_ms):
+            if len(pids) > ODP_BATCH:
+                return _WideODP(pids)
+            ctx.stats.add("rows_paged_in", len(pids))
+            return _NarrowODP(pids, [shard.rv_key_of(int(p)) for p in pids],
+                              shard.gather_resident_locked(pids, col))
         if len(pids) > GATHER_THRESHOLD:
             # wide selection: defer key materialization (global aggregates
             # never read them)
@@ -1664,9 +1799,8 @@ class SelectChunkInfosExec(ExecPlan):
     """Chunk-metadata debug leaf (ref: SelectChunkInfosExec.scala — id,
     numRows, startTime, endTime, numBytes, readerKlazz per chunk). The
     store keeps ONE resident row per series (no chunk lists), so each row's
-    stats come back as labels on a synthetic series. ``_sinkChunks_``
-    counts a durable sink's persisted frames; the port has no sink yet, so
-    it is "0", as in the reference without one."""
+    stats come back as labels on a synthetic series, with the count of a
+    durable sink's persisted chunk frames (``_sinkChunks_``)."""
     shard: int = 0
     filters: tuple = ()
     start_ms: int = 0
@@ -1682,6 +1816,13 @@ class SelectChunkInfosExec(ExecPlan):
             return ResultMatrix(out_ts, np.zeros((0, 1)), [])
         pids = shard.part_ids_from_filters(list(self.filters), self.start_ms,
                                            self.end_ms, limit=self.MAX_PARTS)
+        sink_chunks: dict[int, int] = {}
+        if shard.sink is not None and hasattr(shard.sink, "read_chunksets"):
+            for _g, recs in shard.sink.read_chunksets(
+                    shard.dataset, self.shard, self.start_ms,
+                    self.end_ms) or ():
+                for r in recs:
+                    sink_chunks[r.part_id] = sink_chunks.get(r.part_id, 0) + 1
         st = shard.store
         keys, vals = [], []
         per_sample = 8 + st.column_array().dtype.itemsize * max(st.nbuckets, 1)
@@ -1697,7 +1838,7 @@ class SelectChunkInfosExec(ExecPlan):
                     "_endTime_": str(int(st.last_ts[p])) if n else "-1",
                     "_numBytes_": str(n * per_sample),
                     "_readerKlazz_": "SeriesStoreRow",
-                    "_sinkChunks_": "0",
+                    "_sinkChunks_": str(sink_chunks.get(p, 0)),
                 })
                 keys.append(RangeVectorKey.of(labels))
                 vals.append([float(n)])

@@ -120,14 +120,16 @@ class QueryStats:
     stage."""
 
     FIELDS = ("series_matched", "blocks_raw", "blocks_narrow",
-              "result_cells", "result_cache_hits", "negative_cache_hits",
-              "fused_kernels", "admission_shed", "subquery_inner_cells",
-              "fragment_steps_reused", "recovering_shards")
+              "rows_paged_in", "result_cells", "result_cache_hits",
+              "negative_cache_hits", "fused_kernels", "admission_shed",
+              "subquery_inner_cells", "fragment_steps_reused",
+              "windows_widened", "recovering_shards")
 
     def __init__(self):
         self.series_matched = 0        # series selected by leaf filters
         self.blocks_raw = 0            # raw f32/f64 store blocks read
         self.blocks_narrow = 0         # compressed-resident blocks streamed
+        self.rows_paged_in = 0         # series paged in by on-demand paging
         self.result_cells = 0          # final matrix series x steps
         self.result_cache_hits = 0     # answered from the result cache
         self.negative_cache_hits = 0   # empty selection served from the
@@ -137,10 +139,16 @@ class QueryStats:
         self.subquery_inner_cells = 0  # inner matrix cells subqueries slid over
         self.fragment_steps_reused = 0  # request steps served from the
                                         # incremental fragment cache
+        self.windows_widened = 0       # windowed functions widened to the
+                                       # serving family's resolution
         self.recovering_shards = 0     # leaf selects served by a shard
                                        # mid-recovery (an empty answer then
                                        # proves nothing: the negative cache
                                        # skips it)
+        # the serving resolution the retention router picked ("raw", "1m",
+        # "1h+raw" for a stitched range); None when routing is off. A
+        # label, not a counter: merge() keeps this object's value
+        self.resolution: str | None = None
         self.stage_ms: dict[str, float] = {}
         self._lock = threading.Lock()
 
@@ -172,6 +180,8 @@ class QueryStats:
     def to_dict(self) -> dict:
         with self._lock:
             out = {f: getattr(self, f) for f in self.FIELDS}
+            if self.resolution is not None:
+                out["resolution"] = self.resolution
             out["stage_ms"] = {k: round(v, 3)
                                for k, v in self.stage_ms.items()}
         return out
@@ -185,7 +195,8 @@ class QueryResult:
     warnings: list[str] = field(default_factory=list)
     # per-query accounting (None only for results built outside an engine)
     stats: "QueryStats | None" = None
-    # exec route taken for this query ("local" on the port's path)
+    # exec route taken for this query ("local", "mesh-*", "fused-hist",
+    # "result-cache[...]", "retention[<label>]:..." on the port's paths)
     exec_path: str | None = None
 
 

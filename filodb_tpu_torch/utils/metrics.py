@@ -5,8 +5,9 @@ Host copy of the parts of ``filodb_tpu/utils/metrics.py`` the port records:
 the query latency histogram, the fused-tier and mesh-route served/fallback
 counters, the residency-fallback counter, and the serving layer's metrics
 (result, negative and fragment caches, slow queries, admission, the
-per-tenant cardinality governor). Metric names are the reference's, so
-dashboards read both.
+per-tenant cardinality governor), and the durable and retention tiers
+(index recovery, paged-in and aged-out samples, routed queries, widened
+windows). Metric names are the reference's, so dashboards read both.
 """
 
 from __future__ import annotations
@@ -56,6 +57,27 @@ FILODB_QUERY_FRAGMENT_CACHE_BYTES = "filodb_query_fragment_cache_bytes"
 # per-tenant active series (a gauge) and births shed at the quota
 FILODB_TENANT_ACTIVE_SERIES = "filodb_tenant_active_series"
 FILODB_TENANT_SERIES_SHED = "filodb_tenant_series_shed"
+# gauge: wall milliseconds the last shard restart spent recovering the
+# part-key index (per dataset/shard): columnar load from persisted index.log
+# time buckets when available, else the per-key partkeys.log rebuild
+FILODB_INDEX_RECOVER_MS = "filodb_index_recover_ms"
+# counter: index time-bucket frames persisted to the durable tier
+# (CRC-verified appends to index.log)
+FILODB_INDEX_PERSISTED_BUCKETS = "filodb_index_persisted_buckets"
+# counter: samples paged in from the durable chunk tier by on-demand
+# paging, tagged tier=local|remote
+FILODB_RETENTION_ODP_ROWS = "filodb_retention_odp_rows"
+# counter: raw samples aged out of the durable tier (each pass also bumps
+# the shard's data_epoch so cached results invalidate)
+FILODB_RETENTION_AGED_OUT_ROWS = "filodb_retention_aged_out_rows"
+# counter: queries the retention router served from a downsample family
+# (tagged dataset + resolution; stitched raw+ds queries count under the
+# family's resolution)
+FILODB_RETENTION_ROUTED_QUERIES = "filodb_retention_routed_queries"
+# counter: windowed functions auto-widened on retention-routed queries
+# because their window was narrower than the serving family's resolution
+# (tagged dataset + resolution; also in per-query stats)
+FILODB_QUERY_WINDOWS_WIDENED = "filodb_query_windows_widened"
 
 
 class Counter:

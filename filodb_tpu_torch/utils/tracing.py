@@ -1,8 +1,9 @@
 """Tracing: in-process spans with a per-thread context stack.
 
 Host copy of the span recorder of ``filodb_tpu/utils/tracing.py``, limited
-to what the port's query path opens (the query's stages, admission, the
-fragment cache's delta evaluation, a subscription's increment): ``with span(SPAN_QUERY_EXECUTE, ...)``
+to what the port opens (the query's stages, admission, the fragment cache's
+delta evaluation, a subscription's increment, on-demand paging and
+retention routing): ``with span(SPAN_QUERY_EXECUTE, ...)``
 records one span into a bounded ring, parented under the innermost open span
 of the thread. Durations come from the monotonic clock; the wall clock is
 read once per span for its start timestamp. Cross-node propagation and the
@@ -30,6 +31,16 @@ SPAN_QUERY_REDUCE = "query.exec.reduce"
 SPAN_QUERY_ADMIT = "query.admission"
 SPAN_QUERY_FRAGMENT = "query.fragment"
 SPAN_QUERY_SUBSCRIBE = "query.subscribe"
+# on-demand page-in of cold chunks for one leaf batch (tags: shard, series,
+# tier)
+SPAN_QUERY_ODP = "query.odp"
+# durable-tier chunk scan of one ODP page-in batch (tags: shard,
+# tier=local|remote, rows)
+SPAN_ODP_DURABLE = "query.odp.durable"
+# downsample-aware routing of one query: the resolution decision and its
+# routed or stitched leg queries hang under it (tags: dataset, resolution,
+# stitched)
+SPAN_QUERY_RETENTION = "query.retention"
 
 
 @dataclass

@@ -147,15 +147,20 @@ def test_instant_query_matches_jax_engine(engines):
                                np.asarray(ref.matrix.values), rtol=1e-5)
 
 
-# what stays unported: __col__ over a downsample family. The other routes
-# this test listed answer now and are parity cases of
-# tests/test_torch_general_query.py, tests/test_torch_orderstats.py,
-# tests/test_torch_subquery.py and tests/test_torch_hist_general.py
+# the general routes are parity cases of tests/test_torch_general_query.py,
+# tests/test_torch_orderstats.py, tests/test_torch_subquery.py and
+# tests/test_torch_hist_general.py, __col__ over a downsample family of
+# tests/test_torch_downsample.py. With no family loaded, the column names a
+# dataset that does not exist: the reference's typed error
 UNPORTED = ('m{__col__="dAvg"}',)
 
 
 @pytest.mark.parametrize("q", UNPORTED)
 def test_unported_routes_raise_typed_errors(engines, q):
-    _, teng, _, _ = engines
-    with pytest.raises(QueryError, match="not yet ported"):
+    jeng, teng, _, _ = engines
+    with pytest.raises(QueryError, match="unknown column dAvg of dataset") \
+            as got:
         teng.query_range(q, START + 300_000, START + 990_000, 30_000)
+    with pytest.raises(Exception) as ref:
+        jeng.query_range(q, START + 300_000, START + 990_000, 30_000)
+    assert str(got.value) == str(ref.value)

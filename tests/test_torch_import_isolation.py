@@ -44,7 +44,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "query.logical", "query.rangevector", "parallel.distributed",
               "parallel.shardmapper", "utils.metrics", "utils.tracing",
               "core.cardinality", "query.incremental", "query.scheduler",
-              "parallel.cluster"):
+              "parallel.cluster", "memory.nibblepack", "memory.deltadelta",
+              "memory.intpack", "memory.hist", "memory.native", "core.store",
+              "ingest.bus", "core.downsample", "jobs.batch_downsampler",
+              "query.retention"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"

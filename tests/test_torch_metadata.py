@@ -152,9 +152,16 @@ def test_raw_series_types_and_the_paging_branch(engines, monkeypatch):
     assert lbl["inst"] == "i0"
     assert ts.dtype == np.int64 and vals.dtype == np.float64
     assert len(ts) == CELLS
-    # a selection that would need paged-out rows raises, never skips
+    # a selection that needs paged-out rows takes the paging branch: with
+    # nothing in a sink, it reads exactly the resident samples
+    resident = list(teng.raw_series([TF.Equals("_metric_", "m")], START,
+                                    START + 60 * IV))
     sh = teng.memstore.shards_of("meta")[0]
     monkeypatch.setattr(sh, "needs_paging", lambda pids, start: True)
-    with pytest.raises(QueryError, match="not yet ported"):
-        list(teng.raw_series([TF.Equals("_metric_", "m")], START,
-                             START + 60 * IV))
+    paged = list(teng.raw_series([TF.Equals("_metric_", "m")], START,
+                                 START + 60 * IV))
+    assert len(paged) == len(resident) > 0
+    for (pl, pt, pv), (rl, rt, rv) in zip(paged, resident):
+        assert pl == rl
+        np.testing.assert_array_equal(pt, rt)
+        np.testing.assert_array_equal(pv, rv)
