@@ -270,6 +270,39 @@ Phases, in order; every check asserts and any failure exits non-zero:
                index ms, chunk load and replay seconds, the cold and
                resident query ms and paged series/s, the routed query ms
                against raw, on the host clock, with the card.
+  14a. cluster small (run after 11b) — the reference's two-node fixture
+               (tests/test_remote_exec.py: 8 series of two metrics, a
+               2-shard dataset) as two in-process nodes, each a memstore
+               with one shard, a QueryEngine with the ShardManager and a
+               FiloHttpServer, on the card and again on the CPU: the 19
+               queries on either node bit for bit the one-node oracle on
+               the same device, the card within rtol 1e-5 of the CPU,
+               QueryStats equal; the metadata API federated; a 4-shard
+               split batched (one /exec POST a peer a query), the
+               co-located reduce (a node owning nothing ships the reduce
+               whole: one POST), replan-once after a peer's server stops;
+               one shard flushed through a ReplicatedColumnStore (RF 2)
+               over three StoreServers, the first holder stopped, the
+               shard recovered bit for bit. Prints K1 launches by step and
+               node.
+  14b. cluster scale (run after 14a, on 11b's shards as they are:
+               delta8-resident) — the 8 shards of 2^17 x 720 split 4/4
+               over nodes a and b, queried over HTTP through node a,
+               against one node's host loop over the same shards: M1
+               sum(rate), a grouped sum by (grp), topk(5, rate) and
+               quantile(0.9, rate), each answer bit for bit the host
+               loop's. Prints host ms p50, bytes on the wire a query, K1
+               launches by node (4 each for M1), the stage ms and M1 again
+               with the interpreter's switch interval at 0.5 ms.
+  14c. cluster processes — two fresh interpreters, each a node
+               (python -m filodb_tpu_torch.entry --cluster-node: a file
+               registrar, ClusterBootstrap.resolve_world, a Gloo process
+               group, MembershipMonitor publishing its HTTP endpoint, one
+               seeded 2^17 x 720 shard on the card); this process builds
+               both shards on one node as the oracle. M1 and topk through
+               either node bit for bit the oracle, each rank's all_reduce
+               of its partials equal to M1. Prints host ms (a first call,
+               then p50 over 3) and K1 launches by rank.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -295,6 +328,11 @@ bit for bit. Neither prints a result line.
 
 runs phases 13a and 13b alone (after the kernels' build) and prints no
 result line.
+
+    python3 chip_smoke.py --cluster
+
+runs phase 14 alone (after the kernels' build; 14b on 11b's shards built
+and made delta8-resident for it) and prints no result line.
 """
 
 import contextlib
@@ -2947,7 +2985,8 @@ def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
     quantiles bit for bit, every series counted once a step); p50 over 3
     runs each after a warm run; the 8 per-shard K1 times beside phase 4's
     single-shard K1 over the same 2^20 rows. Returns K1's launches on the
-    mesh runs by decode variant and the p50s."""
+    mesh runs by decode variant, the p50s, the per-shard K1 times and the
+    8 shards (delta8-resident since M6: phase 14b adopts them)."""
     QueryEngine = pkg[4]
 
     def sync():
@@ -2987,17 +3026,7 @@ def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
                                      * MESH_SHARDS, 1, 0.99)
             # every series counted once at every step
             assert (sketch.counts[0].sum(axis=0)[:T] == NUM_SERIES).all()
-            shards[0].config.compressed_residency = "gauge"
-            sync()
-            t0 = time.perf_counter()
-            for sh in shards:
-                sh.flush()
-            sync()
-            comp_s = time.perf_counter() - t0
-            for sh in shards:
-                nd = sh.store.narrow_operands()
-                assert nd is not None and nd[0] == "delta8" and nd[2].all(), \
-                    nd and nd[0]
+            comp_s = mesh_scale_delta8(torch, shards, dev)
         reps = MESH_REPS_BY.get(name, MESH_REPS)
         if reps > 1:
             mesh_eng.query_range(q, s, e, STEP_MS)   # warm
@@ -3051,7 +3080,25 @@ def phase_mesh_scale(torch, np, fg, card, pkg, k1_single_ms, dev="cuda"):
         f"{[round(x, 4) for x in per_shard]} ms, sum "
         f"{sum(per_shard):.4f} ms, beside phase 4's one launch over 2^20 "
         f"rows {k1_single_ms:.4f} ms")
-    return by_kind, lat, per_shard
+    return by_kind, lat, per_shard, shards
+
+
+def mesh_scale_delta8(torch, shards, dev="cuda") -> float:
+    """Seconds to turn phase 11b's shards delta8-resident at a flush (the
+    exact counters leave no pool row)."""
+    shards[0].config.compressed_residency = "gauge"
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sh in shards:
+        sh.flush()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    for sh in shards:
+        nd = sh.store.narrow_operands()
+        assert nd is not None and nd[0] == "delta8" and nd[2].all(), \
+            nd and nd[0]
+    return time.perf_counter() - t0
 
 
 def phase_mirror_scale(torch, np, fg, card, engine, shard):
@@ -4122,6 +4169,645 @@ def phase_durable_scale(torch, np, fg, card, pkg, dev="cuda", S=DUR_SERIES,
     return k1
 
 
+# -- phase 14: the cluster plane ---------------------------------------------
+
+# the reference's two-node fixture (tests/test_remote_exec.py:133-206): 8
+# series of two metrics a 2-shard dataset, 120 samples at 10 s
+CL_DS = "prometheus"
+CL_START = 1_000_000
+CL_IV = 10_000
+CL_N = 120
+CL_RANGE = (CL_START + 600_000, CL_START + 900_000, 30_000)
+CL_QUERIES = (
+    'sum(rate(m[2m]))', 'sum by (host) (rate(m[2m]))', 'avg by (dc) (m)',
+    'max(m)', 'min by (dc) (rate(m[2m]))', 'stddev(m)', 'count(m)',
+    'topk(3, m)', 'bottomk(2, rate(m[2m]))', 'quantile(0.5, m)',
+    'count_values("v", count(m) by (dc))', 'm + on(host, dc) m2',
+    'sum(rate(m[2m])) / sum(rate(m2[2m]))', 'abs(m) * 2',
+    'sort_desc(sum by (host) (m))', 'sum(rate(absent_metric[2m]))',
+    'm * scalar(sum(m2))', 'clamp_max(rate(m[2m]), 0.5)',
+    'm and on(host, dc) m2')
+CL_BATCHED = ('sum(rate(m[2m]))', 'avg by (dc) (m)', 'topk(3, m)', 'm')
+CL_COLOCATED = ('sum(rate(m[2m]))', 'avg by (dc) (m)', 'topk(3, m)',
+                'quantile(0.5, m)', 'm + on(host, dc) m2',
+                'sum(avg(max(min(count(m)))))')
+# phase 14b: phase 11b's 8 shards of 2^17 split 4/4 over two nodes
+CL_SCALE_QUERIES = {"M1": "sum(rate(m[5m]))",
+                    "G": "sum by (grp) (rate(m[5m]))",
+                    "T": "topk(5, rate(m[5m]))",
+                    "Q": "quantile(0.9, rate(m[5m]))"}
+CL_SCALE_REPS = {"M1": 3, "G": 1, "T": 3, "Q": 3}
+# phase 14c: two node processes of one 2^17 x 720 shard each
+CL_PROC_SERIES = 1 << 17
+CL_PROC_SEED = 23
+CL_PROC_QUERIES = ("sum(rate(m[5m]))", "topk(5, rate(m[5m]))")
+CL_PROC_REPS = 3
+
+
+def cl_answer(np, r) -> dict:
+    """Keys in order -> f64 values: what "bit for bit" compares."""
+    return {"keys": [k.labels for k in r.matrix.keys],
+            "ts": np.asarray(r.matrix.out_ts).tolist(),
+            "vals": np.asarray(r.matrix.values, np.float64)}
+
+
+def cl_same(np, a, b) -> bool:
+    return (a["keys"] == b["keys"] and a["ts"] == b["ts"]
+            and a["vals"].shape == b["vals"].shape
+            and np.array_equal(a["vals"], b["vals"], equal_nan=True))
+
+
+@contextlib.contextmanager
+def k1_by_node(fg, owner):
+    """Attribute K1's launches to nodes: ``owner(val)`` names the node a
+    launch over ``val`` (the block it streams) belongs to. Yields the
+    per-node counter; K1's own counts keep counting underneath."""
+    from collections import Counter
+    orig = fg.fused_grid_kernel
+    per = Counter()
+
+    def shim(fn, needs_sumsq, window_ms, interval_ms, val, *a, **kw):
+        per[owner(val)] += 1
+        return orig(fn, needs_sumsq, window_ms, interval_ms, val, *a, **kw)
+
+    # the wrapper counts through the module's name: the shim carries the
+    # counts while it stands in (the by-kind dict is shared)
+    shim.launches = orig.launches
+    shim.launches_by_kind = orig.launches_by_kind
+    fg.fused_grid_kernel = shim
+    try:
+        yield per
+    finally:
+        orig.launches = shim.launches
+        fg.fused_grid_kernel = orig
+
+
+def by_store(nodes: dict):
+    """owner(): the node holding the store block a launch streams (wide
+    selections stream the shard's own raw or narrow block)."""
+    ptrs = {}
+    for node, shards in nodes.items():
+        for sh in shards:
+            if sh.store.val is not None:
+                ptrs[sh.store.val.data_ptr()] = node
+            nd = sh.store.narrow_operands()
+            if nd is not None:
+                ptrs[nd[1][0].data_ptr()] = node
+    return lambda val: ptrs.get(val.data_ptr(), "?")
+
+
+def by_thread(state: dict):
+    """owner(): in-process nodes queried directly from this thread, whose
+    local legs launch here and whose peers' legs launch on the peers'
+    HTTP threads: ``state["caller"]`` on this thread, else
+    ``state["peer"]``."""
+    import threading
+    main = threading.current_thread()
+    return lambda val: (state["caller"] if threading.current_thread() is main
+                        else state["peer"])
+
+
+@contextlib.contextmanager
+def wire_bytes():
+    """Bytes on the wire of every cross-node /exec POST (request body +
+    response payload) while the block runs."""
+    from filodb_tpu_torch.query import wire
+    orig = wire._dispatch_post
+    tally = {"bytes": 0, "posts": 0}
+
+    def shim(endpoint, dataset, body, timeout_s, shards):
+        payload = orig(endpoint, dataset, body, timeout_s, shards)
+        tally["bytes"] += len(body) + len(payload)
+        tally["posts"] += 1
+        return payload
+
+    wire._dispatch_post = shim
+    try:
+        yield tally
+    finally:
+        wire._dispatch_post = orig
+
+
+def cl_populate(np, pkg, dev, shards, nshards):
+    """The fixture's memstore holding ``shards`` of an ``nshards`` dataset
+    on ``dev``: series i of each metric on shard i % nshards, f32 stores
+    on the 10 s grid (K1's route)."""
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, _qe = pkg
+    ms = TimeSeriesMemStore(device=dev)
+    for s in shards:
+        ms.setup(CL_DS, GAUGE, s, StoreConfig(
+            max_series_per_shard=32, samples_per_series=256,
+            flush_batch_size=10**9, device=dev))
+    ts = CL_START + np.arange(CL_N, dtype=np.int64) * CL_IV
+    for i in range(8):
+        if i % nshards not in shards:
+            continue
+        vals = 100.0 * (i + 1) + 10.0 * np.sin(np.arange(CL_N) / 7.0 + i)
+        for metric in ("m", "m2"):
+            b = RecordBuilder(GAUGE)
+            b.add_batch({"_ws_": "demo", "_ns_": "app", "_metric_": metric,
+                         "host": f"h{i}", "dc": f"dc{i % 2}"}, ts, vals)
+            ms.ingest(CL_DS, i % nshards, b.build())
+    ms.flush_all()
+    return ms
+
+
+def cl_cluster(np, pkg, dev, nshards, owner=None):
+    """(engines, servers, oracle, manager, endpoints): nodes a and b, each
+    a memstore on ``dev`` with its shards of an ``nshards`` dataset and a
+    FiloHttpServer; a one-node oracle holding every shard."""
+    from filodb_tpu_torch.http.api import FiloHttpServer
+    from filodb_tpu_torch.parallel.cluster import ShardManager
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    QueryEngine = pkg[4]
+    mgr = ShardManager()
+    mgr.add_node("a")
+    mgr.add_node("b")
+    mgr.add_dataset(CL_DS, nshards, claimed=owner)
+    owner = {s: mgr.node_of(CL_DS, s) for s in range(nshards)}
+    assert set(owner.values()) == {"a", "b"}, owner
+    eps: dict = {}
+    engines = {n: QueryEngine(
+        cl_populate(np, pkg, dev, [s for s in owner if owner[s] == n],
+                    nshards), CL_DS, ShardMapper(nshards), device=dev,
+        cluster=mgr, node=n, endpoint_resolver=eps.get) for n in "ab"}
+    servers = {n: FiloHttpServer({CL_DS: engines[n]}, port=0).start()
+               for n in "ab"}
+    eps.update({n: f"127.0.0.1:{s.port}" for n, s in servers.items()})
+    oracle = QueryEngine(cl_populate(np, pkg, dev, range(nshards), nshards),
+                         CL_DS, ShardMapper(nshards), device=dev)
+    return engines, servers, oracle, mgr, eps
+
+
+def cl_two_node(np, fg, pkg, dev) -> tuple:
+    """The 19 queries on either node of the two-node fixture on ``dev``,
+    each bit for bit the one-node oracle's on ``dev``; the metadata API
+    federated. Returns (answers, K1 launches by node)."""
+    from filodb_tpu_torch.core import filters as F
+    engines, servers, oracle, _mgr, _eps = cl_cluster(np, pkg, dev, 2)
+    out = {}
+    state = {}
+    try:
+        with k1_by_node(fg, by_thread(state)) as per:
+            for q in CL_QUERIES:
+                state.update(caller="oracle", peer="?")
+                want = oracle.query_range(q, *CL_RANGE)
+                for n in "ab":
+                    state.update(caller=n, peer="b" if n == "a" else "a")
+                    got = engines[n].query_range(q, *CL_RANGE)
+                    assert cl_same(np, cl_answer(np, got),
+                                   cl_answer(np, want)), (dev, n, q)
+                    assert got.stats.series_matched == \
+                        want.stats.series_matched, (dev, n, q)
+                    out[(n, q)] = got
+        for n in "ab":
+            e = engines[n]
+            assert e.label_values("host") == oracle.label_values("host")
+            assert e.label_names() == oracle.label_names()
+            f = [F.Equals("dc", "dc1")]
+            assert e.label_values("host", f) == oracle.label_values("host",
+                                                                    f)
+            key = lambda rows: sorted(tuple(sorted(r.items()))  # noqa: E731
+                                      for r in rows)
+            sel = [F.Equals("_metric_", "m")]
+            assert key(e.series(sel, CL_START, CL_START + CL_N * CL_IV)) == \
+                key(oracle.series(sel, CL_START, CL_START + CL_N * CL_IV))
+    finally:
+        for s in servers.values():
+            s.stop()
+    return out, dict(per)
+
+
+def cl_batched_colocated_replan(np, fg, pkg, dev) -> dict:
+    """On ``dev``: batched dispatch over a 4-shard dataset (one POST a peer
+    a query), the co-located reduce (one POST, the reduce node shipped),
+    and replan-once after a peer's server stops; every answer bit for bit
+    the one-node oracle's. Returns K1 launches by node."""
+    from filodb_tpu_torch.http.api import FiloHttpServer
+    from filodb_tpu_torch.parallel.cluster import ShardManager
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    from filodb_tpu_torch.promql import parser as promql
+    from filodb_tpu_torch.query import wire
+    from filodb_tpu_torch.query.exec import ReduceAggregateExec
+    QueryEngine = pkg[4]
+    launches = {}
+    engines, servers, oracle, _mgr, _eps = cl_cluster(np, pkg, dev, 4)
+    try:
+        want = {q: cl_answer(np, oracle.query_range(q, *CL_RANGE))
+                for q in CL_BATCHED}
+        with k1_by_node(fg, by_thread({"caller": "a", "peer": "b"})) as per:
+            for q in CL_BATCHED:
+                before = wire.breakers.total_requests()
+                got = engines["a"].query_range(q, *CL_RANGE)
+                assert wire.breakers.total_requests() - before == 1, q
+                assert cl_same(np, cl_answer(np, got), want[q]), \
+                    ("batched", q)
+        launches["batched"] = dict(per)
+    finally:
+        for s in servers.values():
+            s.stop()
+    # co-located: node c owns nothing, node b both shards
+    mgr = ShardManager()
+    mgr.add_node("b")
+    mgr.add_dataset(CL_DS, 2)
+    eng_b = QueryEngine(cl_populate(np, pkg, dev, (0, 1), 2), CL_DS,
+                        ShardMapper(2), device=dev, cluster=mgr, node="b")
+    srv = FiloHttpServer({CL_DS: eng_b}, port=0).start()
+    ep = f"127.0.0.1:{srv.port}"
+    eng_c = QueryEngine(pkg[1](device=dev), CL_DS, ShardMapper(2),
+                        device=dev, cluster=mgr, node="c",
+                        endpoint_resolver=lambda n: ep)
+    oracle2 = QueryEngine(cl_populate(np, pkg, dev, (0, 1), 2), CL_DS,
+                          ShardMapper(2), device=dev)
+    try:
+        plan = eng_c.planner.materialize(promql.query_to_logical_plan(
+            "sum(rate(m[2m]))", CL_START, CL_START + 60_000, 30_000))
+        assert isinstance(plan, wire.RemoteLeafExec) and isinstance(
+            plan.inner, ReduceAggregateExec), type(plan)
+        want = {q: cl_answer(np, oracle2.query_range(q, *CL_RANGE))
+                for q in CL_COLOCATED}
+        with k1_by_node(fg, by_thread({"caller": "c", "peer": "b"})) as per:
+            for q in CL_COLOCATED:
+                before = wire.breakers.total_requests()
+                got = eng_c.query_range(q, *CL_RANGE)
+                if q == "sum(rate(m[2m]))":
+                    assert wire.breakers.total_requests() - before == 1
+                assert cl_same(np, cl_answer(np, got), want[q]), \
+                    ("coloc", q)
+        launches["colocated"] = dict(per)
+    finally:
+        srv.stop()
+    # replan once: node a holds both shards' stores (a survivor after
+    # takeover); node b's server stops, the monitor removes b, the query
+    # re-plans onto a
+    mgr = ShardManager()
+    mgr.add_node("a")
+    mgr.add_node("b")
+    mgr.add_dataset(CL_DS, 2, claimed={0: "a", 1: "b"})
+    ms_b = cl_populate(np, pkg, dev, (1,), 2)
+    srv_b = FiloHttpServer({CL_DS: QueryEngine(
+        ms_b, CL_DS, ShardMapper(2), device=dev, cluster=mgr, node="b")},
+        port=0).start()
+    dead = f"127.0.0.1:{srv_b.port}"
+    srv_b.stop()
+    state = {"failed": False}
+
+    def resolver(node):
+        if node == "b" and not state["failed"]:
+            state["failed"] = True
+            mgr.remove_node("b")
+            return dead
+        return None
+
+    eng = QueryEngine(cl_populate(np, pkg, dev, (0, 1), 2), CL_DS,
+                      ShardMapper(2), device=dev, cluster=mgr, node="a",
+                      endpoint_resolver=resolver)
+    with k1_by_node(fg, by_thread({"caller": "a", "peer": "b"})) as per:
+        r = eng.query_range("sum(rate(m[2m]))", *CL_RANGE)
+    assert state["failed"] and r.exec_path == "local-replanned", r.exec_path
+    assert cl_same(np, cl_answer(np, r), cl_answer(
+        np, oracle2.query_range("sum(rate(m[2m]))", *CL_RANGE)))
+    launches["replanned"] = dict(per)
+    return launches
+
+
+def cl_durable(np, fg, pkg, dev, root) -> dict:
+    """One shard on ``dev`` flushes to a ReplicatedColumnStore (RF 2) over
+    three StoreServers; the server holding the first replica stops; a
+    fresh shard recovers through the survivors: its rows and its
+    sum(rate) bit for bit the pre-crash ones."""
+    from filodb_tpu_torch.core.diststore import (RemoteStore,
+                                                 ReplicatedColumnStore,
+                                                 StoreServer)
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+    servers = [StoreServer(os.path.join(root, f"node{i}")).start()
+               for i in range(3)]
+    addrs = [f"127.0.0.1:{s.port}" for s in servers]
+    q = "sum(rate(m[2m]))"
+    try:
+        def shard_on(sink):
+            ms = TimeSeriesMemStore(device=dev)
+            return ms, ms.setup(CL_DS, GAUGE, 0, StoreConfig(
+                max_series_per_shard=32, samples_per_series=256,
+                flush_batch_size=10**9, groups_per_shard=2, device=dev),
+                sink=sink)
+
+        ms, sh = shard_on(ReplicatedColumnStore(
+            [RemoteStore(a) for a in addrs], 2))
+        src = cl_populate(np, pkg, "cpu", (0,), 1).shard(CL_DS, 0)
+        ts_all = CL_START + np.arange(CL_N, dtype=np.int64) * CL_IV
+        b = RecordBuilder(GAUGE)
+        for pid in range(src.num_series):
+            labels = dict(src.index.labels_of(pid))
+            _t, v = src.store.series_snapshot(pid)
+            b.add_batch(labels, ts_all, np.asarray(v, np.float64))
+        sh.ingest(b.build(), offset=0)
+        sh.flush_all_groups()
+        eng = QueryEngine(ms, CL_DS, ShardMapper(1), device=dev)
+        with k1_by_node(fg, lambda _v: "before") as per:
+            before = cl_answer(np, eng.query_range(q, *CL_RANGE))
+        stores = [RemoteStore(a) for a in addrs]
+        holders = [i for i, st in enumerate(stores)
+                   if list(st.read_chunksets(CL_DS, 0))]
+        assert len(holders) == 2, holders
+        servers[holders[0]].stop()
+        ms2, sh2 = shard_on(ReplicatedColumnStore(
+            [RemoteStore(a, timeout_s=5.0, connect_timeout_s=1.0)
+             for a in addrs], 2))
+        sh2.recover()
+        assert sh2.num_series == sh.num_series == 16
+        for pid in range(sh.num_series):
+            t1, v1 = sh.store.series_snapshot(pid)
+            t2, v2 = sh2.store.series_snapshot(pid)
+            assert np.array_equal(t1, t2) and np.array_equal(v1, v2), pid
+        eng2 = QueryEngine(ms2, CL_DS, ShardMapper(1), device=dev)
+        with k1_by_node(fg, lambda _v: "after") as per2:
+            after = cl_answer(np, eng2.query_range(q, *CL_RANGE))
+        assert cl_same(np, before, after), "recovered answer differs"
+        return {**per, **per2}
+    finally:
+        for s in servers:
+            with contextlib.suppress(OSError):
+                s.stop()
+
+
+def phase_cluster_small(torch, np, fg, pkg):
+    """Phase 14a: the two-node fixture on the card and on the CPU (each
+    bit for bit its device's one-node oracle, the card within rtol 1e-5 of
+    the CPU), batched dispatch, the co-located reduce, replan-once, the
+    metadata federation, and recovery through the replicated store ring.
+    Returns K1's launches on the card by step and node."""
+    import tempfile
+    t0 = time.perf_counter()
+    card, k1_two = cl_two_node(np, fg, pkg, "cuda")
+    cpu, _ = cl_two_node(np, fg, pkg, "cpu")
+    for (n, q), g in card.items():
+        compare_result(np, q, g, cpu[(n, q)], False, route=None)
+    k1 = {"two-node": k1_two}
+    k1.update(cl_batched_colocated_replan(np, fg, pkg, "cuda"))
+    cl_batched_colocated_replan(np, fg, pkg, "cpu")
+    with tempfile.TemporaryDirectory(prefix="filodb-ring-") as tmp:
+        k1["ring"] = cl_durable(np, fg, pkg, "cuda", tmp)
+    with tempfile.TemporaryDirectory(prefix="filodb-ring-") as tmp:
+        cl_durable(np, fg, pkg, "cpu", tmp)
+    for step, per in k1.items():
+        assert all(v > 0 for v in per.values()) and per, (step, per)
+        assert "?" not in per, (step, per)
+    log(f"cluster small: {len(CL_QUERIES)} queries on either node of two "
+        f"(one shard each, HTTP /exec) bit for bit the one-node oracle on "
+        f"the card and on the CPU, the card within rtol 1e-5 of the CPU; "
+        f"batched dispatch one POST a peer, the co-located reduce one POST, "
+        f"replan-once after a peer's server stopped, the metadata API "
+        f"federated, a shard recovered through the store ring with one of "
+        f"three servers down bit for bit; K1 launches on the card by step "
+        f"and node {k1} ({time.perf_counter() - t0:.1f} s)")
+    return sum(v for per in k1.values() for v in per.values())
+
+
+def cl_http_query(ep, ds, q, s, e, step):
+    import urllib.parse
+    import urllib.request
+    params = urllib.parse.urlencode({"query": q, "start": s / 1000.0,
+                                     "end": e / 1000.0,
+                                     "step": f"{step}ms"})
+    url = f"http://{ep}/promql/{ds}/api/v1/query_range?{params}"
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return json.load(r)
+
+
+def cl_prom(res) -> dict:
+    """The JSON the HTTP API renders for a result, read back."""
+    from filodb_tpu_torch.http.api import matrix_to_prom_json
+    return json.loads(json.dumps(matrix_to_prom_json(res)))
+
+
+def adopt_shards(pkg, dev, dataset, shards):
+    """A memstore holding ``shards`` (set up elsewhere) without a copy."""
+    ms = pkg[1](device=dev)
+    for sh in shards:
+        ms._shards[(dataset, sh.shard_num)] = sh
+        ms._configs[dataset] = sh.config
+        ms._dataset_schema[dataset] = sh.schema
+    return ms
+
+
+def phase_cluster_scale(torch, np, fg, card, pkg, shards, dev="cuda"):
+    """Phase 14b: phase 11b's 8 shards of 2^17 x 720 (adopted as they
+    are, delta8-resident after M6) split 4/4 over nodes a and b in this
+    process, queried over HTTP through node a, against one node's host
+    loop over the same 8 shards: host ms p50, bytes on the wire a query,
+    K1 launches by node; every answer bit for bit the host loop's."""
+    from filodb_tpu_torch.http.api import FiloHttpServer
+    from filodb_tpu_torch.parallel.cluster import ShardManager
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    QueryEngine = pkg[4]
+    ds = "meshq"
+    n = len(shards)
+    half = {"a": shards[:n // 2], "b": shards[n // 2:]}
+    mgr = ShardManager()
+    mgr.add_node("a")
+    mgr.add_node("b")
+    mgr.add_dataset(ds, n, claimed={sh.shard_num: node
+                                    for node, shs in half.items()
+                                    for sh in shs})
+    eps: dict = {}
+    engines = {node: QueryEngine(adopt_shards(pkg, dev, ds, shs), ds,
+                                 ShardMapper(n), device=dev, cluster=mgr,
+                                 node=node, endpoint_resolver=eps.get)
+               for node, shs in half.items()}
+    servers = {node: FiloHttpServer({ds: e}, port=0).start()
+               for node, e in engines.items()}
+    eps.update({node: f"127.0.0.1:{s.port}" for node, s in servers.items()})
+    host = QueryEngine(adopt_shards(pkg, dev, ds, shards), ds,
+                       ShardMapper(n), device=dev)
+    s, e = range_variants(shards[0])[0]
+    kinds = {sh.store.narrow_operands()[0] if sh.store.narrow_operands()
+             else "raw" for sh in shards}
+    out, by_kind = {}, dict.fromkeys(fg.fused_grid_kernel.launches_by_kind, 0)
+    try:
+        for name, q in CL_SCALE_QUERIES.items():
+            reps = CL_SCALE_REPS[name]
+            if reps > 1:      # warm both routes
+                cl_http_query(eps["a"], ds, q, s, e, STEP_MS)
+                host.query_range(q, s, e, STEP_MS)
+            times, htimes = [], []
+            reset_k1(fg)
+            with k1_by_node(fg, by_store(half)) as per, wire_bytes() as wb:
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    got = cl_http_query(eps["a"], ds, q, s, e, STEP_MS)
+                    times.append((time.perf_counter() - t0) * 1000)
+            for k, v in fg.fused_grid_kernel.launches_by_kind.items():
+                by_kind[k] += v
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                want = host.query_range(q, s, e, STEP_MS)
+                np.asarray(want.matrix.values)
+                htimes.append((time.perf_counter() - t0) * 1000)
+            assert got["status"] == "success", got
+            assert got["data"] == cl_prom(want), (name, "not bit-equal")
+            assert got["stats"]["series_matched"] == NUM_SERIES, name
+            out[name] = {"p50": float(np.percentile(times, 50)),
+                         "stage_ms": got["stats"]["stage_ms"],
+                         "host_p50": float(np.percentile(htimes, 50)),
+                         "wire_bytes": wb["bytes"] / reps,
+                         "posts": wb["posts"] / reps,
+                         "k1": {k: v / reps for k, v in per.items()}}
+            if name == "M1" and torch.device(dev).type == "cuda":
+                assert out[name]["k1"] == {"a": 4, "b": 4}, out[name]["k1"]
+            if name == "M1":
+                # both nodes share this interpreter: the same calls with
+                # the GIL handed over every 0.5 ms instead of 5 ms say how
+                # much of the gap is threads waiting on each other
+                swi = sys.getswitchinterval()
+                sys.setswitchinterval(0.0005)
+                try:
+                    fast = []
+                    for _ in range(reps):
+                        t0 = time.perf_counter()
+                        cl_http_query(eps["a"], ds, q, s, e, STEP_MS)
+                        fast.append((time.perf_counter() - t0) * 1000)
+                finally:
+                    sys.setswitchinterval(swi)
+                out[name]["p50_switch_0.5ms"] = float(np.percentile(fast,
+                                                                    50))
+            assert out[name]["posts"] == 1, out[name]
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    for name, q in CL_SCALE_QUERIES.items():
+        r = out[name]
+        log(f"cluster scale [{card}]: {name} {q}: two nodes over HTTP p50 "
+            f"{r['p50']:.3f} ms (over {CL_SCALE_REPS[name]}), one node's "
+            f"host loop p50 {r['host_p50']:.3f} ms; {r['wire_bytes']:.0f} "
+            f"bytes on the wire in {r['posts']:g} POST; K1 ({sorted(kinds)}) "
+            f"launches by node {r['k1']}; bit-equal to the host loop; the "
+            f"last call's stage ms, both nodes summed {r['stage_ms']}"
+            + (f"; two nodes p50 {r['p50_switch_0.5ms']:.3f} ms with the "
+               f"interpreter's switch interval at 0.5 ms"
+               if "p50_switch_0.5ms" in r else ""))
+    return by_kind, out
+
+
+def phase_cluster_procs(torch, np, fg, card, pkg, dev="cuda"):
+    """Phase 14c: two fresh interpreters, each a cluster node
+    (``filodb_tpu_torch.entry --cluster-node``: file registrar, world,
+    Gloo process group, membership, one seeded 2^17 x 720 shard on the
+    card, HTTP); this process builds both shards on one node as the
+    oracle. Both nodes' M1 and topk equal each other's and the oracle's
+    bit for bit, and each rank's all_reduce of its partials gives M1.
+    Returns K1's launches in the nodes during the queries."""
+    import subprocess
+    import tempfile
+
+    from filodb_tpu_torch.entry import seeded_counter_shard
+    from filodb_tpu_torch.parallel.bootstrap import free_port
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    QueryEngine = pkg[4]
+    t_all = time.perf_counter()
+    s = BASE_TS + WINDOW_MS
+    e = BASE_TS + NUM_SAMPLES * INTERVAL_MS
+    with tempfile.TemporaryDirectory(prefix="filodb-nodes-") as tmp:
+        reg = os.path.join(tmp, "members")
+        port = free_port()
+        procs, logs = [], []
+        try:
+            for addr in (f"127.0.0.1:{port}", f"127.0.0.2:{port}"):
+                lg = os.path.join(tmp, addr.replace(":", "_") + ".log")
+                logs.append(lg)
+                with open(lg, "w") as fh:
+                    # output to a file: a chatty child must not block on a
+                    # full pipe and stall its heartbeats
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "filodb_tpu_torch.entry",
+                         "--cluster-node", "--registrar", reg, "--addr",
+                         addr, "--series", str(CL_PROC_SERIES), "--samples",
+                         str(NUM_SAMPLES), "--capacity", str(CAPACITY),
+                         "--seed", str(CL_PROC_SEED), "--device", dev,
+                         "--range", f"{s},{e},{STEP_MS}"],
+                        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                        stdout=fh, stderr=subprocess.STDOUT))
+
+            def lines(tag):
+                got = []
+                for p, lg in zip(procs, logs):
+                    with open(lg) as fh:
+                        text = fh.read()
+                    assert p.poll() in (None, 0), text[-3000:]
+                    got += [json.loads(ln[len(tag) + 1:])
+                            for ln in text.splitlines()
+                            if ln.startswith(tag + " ")]
+                return got
+
+            # the oracle builds while the nodes start
+            t0 = time.perf_counter()
+            oms = pkg[1](device=dev)
+            for sh in (0, 1):
+                seeded_counter_shard(oms, "prometheus", sh, CL_PROC_SERIES,
+                                     NUM_SAMPLES, CAPACITY, CL_PROC_SEED)
+            oracle = QueryEngine(oms, "prometheus", ShardMapper(2),
+                                 device=dev)
+            want = {q: oracle.query_range(q, s, e, STEP_MS)
+                    for q in CL_PROC_QUERIES}
+            oracle_s = time.perf_counter() - t0
+            deadline = time.monotonic() + 600
+            while len(lines("NODE")) < 2:
+                assert time.monotonic() < deadline, "nodes never came up"
+                time.sleep(0.5)
+            up_s = time.perf_counter() - t_all
+            nodes = sorted(lines("NODE"), key=lambda x: x["rank"])
+            assert [(x["rank"], x["world"]) for x in nodes] == [(0, 2),
+                                                                 (1, 2)]
+            (_k, _t, m1), = list(want[CL_PROC_QUERIES[0]].matrix
+                                 .iter_series())
+            lat = {}
+            for x in nodes:
+                assert x["allreduce"] == [float(v) for v in m1], x["rank"]
+                for q in CL_PROC_QUERIES:
+                    times = []
+                    for _ in range(1 + CL_PROC_REPS):     # one warm run
+                        t0 = time.perf_counter()
+                        got = cl_http_query(x["http"], "prometheus", q, s,
+                                            e, STEP_MS)
+                        times.append((time.perf_counter() - t0) * 1000)
+                        assert got["data"] == cl_prom(want[q]), \
+                            (x["rank"], q)
+                    lat[(x["rank"], q)] = (times[0], float(
+                        np.percentile(times[1:], 50)))
+            open(os.path.join(reg, "stop"), "w").close()
+            for p in procs:
+                assert p.wait(timeout=120) == 0
+            done = {x["rank"]: x["k1_launches"] for x in lines("DONE")}
+            k1 = {x["rank"]: done[x["rank"]] - x["k1_launches"]
+                  for x in nodes}
+        finally:
+            open(os.path.join(reg, "stop"), "a").close()
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+                    with contextlib.suppress(subprocess.TimeoutExpired):
+                        p.wait(timeout=20)
+                if p.poll() is None:
+                    p.kill()
+    if torch.device(dev).type == "cuda":
+        # M1 launches K1 once a node a call, through either node
+        assert k1 == {0: 2 * (1 + CL_PROC_REPS),
+                      1: 2 * (1 + CL_PROC_REPS)}, k1
+    log(f"cluster procs [{card}]: two node processes (Gloo world of 2, "
+        f"file registrar, membership) with one {CL_PROC_SERIES} x "
+        f"{NUM_SAMPLES} shard "
+        f"each on the card, up in {up_s:.1f} s (registration "
+        f"{[round(x['registration_s'], 1) for x in nodes]} s; the one-node "
+        f"oracle of both shards built in {oracle_s:.1f} s meanwhile); M1 "
+        f"and topk on both nodes bit for bit the oracle; each rank's Gloo "
+        f"all_reduce of its partials equals M1; host ms by (rank, query), "
+        f"the first call then the p50 over {CL_PROC_REPS} "
+        f"{ {f'{r}:{q}': (round(a, 3), round(b, 3)) for (r, q), (a, b) in lat.items()} }; "
+        f"K1 launches by rank {k1} ({time.perf_counter() - t_all:.1f} s)")
+    return sum(k1.values())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4167,6 +4853,21 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_durable_scale(torch, np, fg, card, pkg)
         log(f"durable scale: done in {time.perf_counter() - t0:.1f} s")
+        return 0
+    if sys.argv[1:2] == ["--cluster"]:
+        # not part of the smoke run: phase 14 alone, on phase 11b's shards
+        # built (and made delta8-resident) here
+        kernels.build()
+        phase_cluster_small(torch, np, fg, pkg)
+        _ms, shards, reg_s = build_mesh_scale(torch, np, pkg)
+        comp_s = mesh_scale_delta8(torch, shards)
+        log(f"cluster: 11b's shards registered in {reg_s:.1f} s, delta8 in "
+            f"{comp_s:.2f} s")
+        phase_cluster_scale(torch, np, fg, card, pkg, shards)
+        del _ms, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_cluster_procs(torch, np, fg, card, pkg)
         return 0
     log(f"build: card {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}")
@@ -4332,11 +5033,22 @@ def main() -> int:
         f"datasets with mesh=[\"cuda\"] match mesh=[\"cpu\"] * 8; K1 "
         f"launches by kind {k1_11a} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    k1_11b, _lat11b, _per_shard = phase_mesh_scale(torch, np, fg, card, pkg,
-                                                   k1["ms"])
+    k1_11b, _lat11b, _per_shard, mesh_shards = phase_mesh_scale(
+        torch, np, fg, card, pkg, k1["ms"])
+    log(f"mesh scale: done in {time.perf_counter() - t0:.1f} s")
+    t14 = time.perf_counter()
+    k1_14a = phase_cluster_small(torch, np, fg, pkg)
+    t0 = time.perf_counter()
+    k1_14b, _out14b = phase_cluster_scale(torch, np, fg, card, pkg,
+                                          mesh_shards)
+    del mesh_shards
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"mesh scale: done in {time.perf_counter() - t0:.1f} s")
+    log(f"cluster scale: done in {time.perf_counter() - t0:.1f} s")
+    k1_14c = phase_cluster_procs(torch, np, fg, card, pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"cluster: phase 14 done in {time.perf_counter() - t14:.1f} s")
     t0 = time.perf_counter()
     k1_13b = phase_durable_scale(torch, np, fg, card, pkg)
     gc.collect()
@@ -4366,19 +5078,25 @@ def main() -> int:
                      for kind in NARROW_KINDS}
     k1_13a_raw = sum(v for w, v in k1_13a.items() if "[" not in w) \
         - sum(k1_13a_narrow.values())
+    # phase 14: the cluster plane's nodes (14a raw in-process, 14b the
+    # adopted delta8 shards, 14c the node processes' raw shards)
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
-        + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b
+        + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b \
+        + k1_14a + k1_14b["raw"] + k1_14c
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
-            k1_mirror if kind == "quant16" else 0) + k1_13a_narrow[kind]
+            k1_mirror if kind == "quant16" else 0) + k1_13a_narrow[kind] \
+            + k1_14b[kind]
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
         f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
-        f"13b {k1_13b}; K1-delta8 over a recovered shard (13a) "
+        f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}; "
+        f"K1-delta8 over a recovered shard (13a) "
         f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
-        f"{ {k: (k1_11a[k], k1_11b[k]) for k in NARROW_KINDS} }, quant16 "
-        f"through the mirror {k1_mirror}")
+        f"and the two-node split (14b) "
+        f"{ {k: (k1_11a[k], k1_11b[k], k1_14b[k]) for k in NARROW_KINDS} }, "
+        f"quant16 through the mirror {k1_mirror}")
     table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",

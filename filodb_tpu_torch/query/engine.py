@@ -31,14 +31,26 @@ whose step fits a downsample family and whose range lies behind the raw
 window goes to that family's engine, whole or stitched onto the raw tail
 at the horizon; ``resolution=`` forces a tier. A family engine runs the
 query with ``min_window_ms``: windows narrower than the family's resolution
-widen to cover it, and the floor rides every cache key. The remote legs
-come with a later slice.
+widen to cover it, and the floor rides every cache key.
+
+The cluster plane, as in the reference: with a ``cluster`` (a
+``parallel/cluster.ShardManager``) and this engine's ``node``, a leaf for a
+shard another node owns ships to that node's ``/exec`` endpoint
+(``query/wire.py``): the peer runs the map phase on its own card (K1 for
+the fused aggregates) and only partials come back, merged here in the
+single node's order. A peer that dies mid-query re-plans once against the
+updated shard map. The serving caches validate against the peers' data
+epochs (``/api/v1/epochs``); the metadata API fans out to the peers with
+``local=1``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import logging
+import re
 import threading
 import time
 from collections import Counter, OrderedDict, deque
@@ -47,6 +59,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core import filters as F
 from ..core.memstore import TimeSeriesMemStore
 from ..device import resolve_device
 from ..ops import aggregators, fusedresident, gridfns, rangefns
@@ -77,6 +90,7 @@ from .rangevector import (QueryError, QueryResult, QueryStats, RangeVectorKey,
                           ResultMatrix)
 from .retention import resolution_label, widen_windows
 from .scheduler import AdmissionController, AdmissionRejected
+from .wire import RemoteLeafExec, RemotePeerError, _plan_shards
 
 # aggregation operators whose partial state crosses the mesh (the
 # ops/aggregators partial layout)
@@ -92,6 +106,51 @@ MESH_TOPK_MAX_GROUPS = 16
 # rows outside the selection: a group id no kernel's one-hot or scatter
 # ever matches (scatters drop it; one-hot comparisons never equal it)
 _EXCLUDED_GID = 1 << 30
+
+
+def _walk_plans(plan):
+    """Yield every node of an ExecPlan tree (children/lhs/rhs/inner/members
+    links)."""
+    stack = [plan]
+    while stack:
+        p = stack.pop()
+        yield p
+        for attr in ("children", "lhs", "rhs", "inner", "child", "members"):
+            v = getattr(p, attr, None)
+            if isinstance(v, list):
+                stack.extend(v)
+            elif v is not None and hasattr(v, "transformers"):
+                stack.append(v)
+    return
+
+
+def _sel_quote(v: str) -> str:
+    """PromQL double-quoted string: backslashes and quotes escape, so label
+    values containing either round-trip through the peer's parser instead of
+    silently failing the whole fan-out."""
+    return '"' + v.replace("\\", "\\\\").replace('"', '\\"') + '"'
+
+
+def _filters_to_selector(filters) -> str:
+    """Render column filters back into a PromQL selector string for peer
+    metadata fan-out (the inverse of http/api._selector_to_filters)."""
+    parts = []
+    for f in filters:
+        label = "__name__" if f.label == "_metric_" else f.label
+        if isinstance(f, F.Equals):
+            parts.append(f'{label}={_sel_quote(f.value)}')
+        elif isinstance(f, F.NotEquals):
+            parts.append(f'{label}!={_sel_quote(f.value)}')
+        elif isinstance(f, F.EqualsRegex):
+            parts.append(f'{label}=~{_sel_quote(f.pattern)}')
+        elif isinstance(f, F.NotEqualsRegex):
+            parts.append(f'{label}!~{_sel_quote(f.pattern)}')
+        elif isinstance(f, F.In):
+            # literal alternation: each member regex-escaped (an In value
+            # like "1.5" must not match "125")
+            alt = "|".join(re.escape(v) for v in f.values)
+            parts.append(f'{label}=~{_sel_quote(alt)}')
+    return "{" + ",".join(parts) + "}"
 
 
 def pool_correction(data, gids: np.ndarray, bad: np.ndarray, Gp: int,
@@ -367,13 +426,22 @@ class QueryEngine:
     def __init__(self, memstore: TimeSeriesMemStore, dataset: str,
                  shard_mapper: ShardMapper | None = None,
                  config: QueryConfig | None = None, device=None,
-                 mesh=None):
+                 mesh=None, cluster=None, node: str | None = None,
+                 endpoint_resolver=None, route_dataset: str | None = None):
         """``device`` is where this engine's shards live and its kernels
         run: ``"cuda"`` by default; raises when there is no card and the
         CPU was not asked for. A shard on another device fails its query.
         ``mesh`` (a list of devices, ``distributed.make_mesh``) routes the
         aggregates the mesh can run across all shards at once, shard ``i``
-        on ``mesh[i % len(mesh)]``; anything else takes the host path."""
+        on ``mesh[i % len(mesh)]``; anything else takes the host path.
+
+        ``cluster``/``node``: the ShardManager's shard -> node view and
+        this node's name; leaves for peer-owned shards dispatch remotely
+        (ref: PlanDispatcher.scala). ``endpoint_resolver(node) ->
+        "host:port" | None`` maps a node to its HTTP endpoint; None falls
+        back to the node name itself. ``route_dataset`` names the dataset
+        whose assignment routes this one (a downsample family's engine
+        routes by its raw dataset)."""
         self.memstore = memstore
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -385,6 +453,15 @@ class QueryEngine:
             pow2 *= 2
         self.mapper = shard_mapper or ShardMapper(pow2)
         self.config = config if config is not None else QueryConfig()
+        self.cluster = cluster
+        self.node = node
+        self.endpoint_resolver = endpoint_resolver
+        self.route_dataset = route_dataset or dataset
+        # a failed peer epoch probe arms this cooldown: until it passes the
+        # epoch state is unreadable without a scatter (every cache misses),
+        # so a blackholed peer stalls at most one query a window
+        self._epoch_probe_cooldown_s = 10.0
+        self._epoch_probe_down_until = 0.0
         # serving fast path (each off unless configured): the step-aligned
         # result cache, cost-based admission, the negative cache of empty
         # selections, the per-step fragment cache
@@ -411,8 +488,28 @@ class QueryEngine:
         self.retention = None
         schema = memstore._dataset_schema.get(dataset)
         opts = schema.options if schema else None
-        self.planner = (QueryPlanner(self.mapper, opts) if opts
-                        else QueryPlanner(self.mapper))
+        route = self._route_endpoint if cluster is not None else None
+        kw = dict(route_fn=route, dataset=dataset)
+        self.planner = (QueryPlanner(self.mapper, opts, **kw) if opts
+                        else QueryPlanner(self.mapper, **kw))
+
+    def _route_endpoint(self, shard: int) -> str | None:
+        """HTTP endpoint of the peer owning ``shard``, or None when this
+        node serves it (ref: queryengine2/QueryEngine.scala:506: co-locate
+        each leaf with its shard's node)."""
+        if self.cluster is None or self.node is None:
+            return None
+        try:
+            owner = self.cluster.node_of(self.route_dataset, shard)
+        except KeyError:
+            return None
+        if owner is None or owner == self.node:
+            return None
+        if self.endpoint_resolver is not None:
+            ep = self.endpoint_resolver(owner)
+            if ep:
+                return ep
+        return owner
 
     def _ctx(self) -> QueryContext:
         return QueryContext(self.memstore, self.dataset, self.device,
@@ -731,13 +828,16 @@ class QueryEngine:
 
     def estimate_cost(self, plan: L.LogicalPlan) -> float:
         """Admission-control cost estimate: the planner walks the logical
-        tree; this engine supplies the index probe (local series counts; a
-        narrow-resident store discounts its rows). The probe reads host
-        state only (index postings, the store's residency fields): no
-        device sync under the shard lock."""
+        tree; this engine supplies the index probe (local series counts,
+        scaled up by the owned-shard fraction when peers hold shards: the
+        admission path pays no cluster round trip; a narrow-resident store
+        discounts its rows). The probe reads host state only (index
+        postings, the store's residency fields): no device sync under the
+        shard lock."""
         def series_of(filters, from_ms, to_ms):
             total = narrow = 0
-            for sh in self.memstore.shards_of(self.dataset):
+            shards = self.memstore.shards_of(self.dataset)
+            for sh in shards:
                 with sh.lock:
                     pids = sh.part_ids_from_filters(list(filters), from_ms,
                                                     to_ms)
@@ -746,6 +846,9 @@ class QueryEngine:
                     # compressed residency (scalar or hist) halves the
                     # streamed bytes, and the fused tier reads it in place
                     narrow += len(pids)
+            if shards and self._has_remote_shards():
+                scale = len(self.mapper.all_shards()) / len(shards)
+                total, narrow = total * scale, narrow * scale
             return total, (narrow / total if total else 0.0)
 
         return self.planner.estimate_cost(
@@ -756,17 +859,20 @@ class QueryEngine:
         return any(sh.recovering
                    for sh in self.memstore.shards_of(self.dataset))
 
-    def _epoch_vector(self) -> tuple:
-        """The shards' data-epoch vector (see :meth:`_epoch_state`)."""
+    def _epoch_vector(self) -> tuple | None:
+        """The cluster's data-epoch vector (see :meth:`_epoch_state`)."""
         return self._epoch_state()[0]
 
     def _epoch_state(self, with_logs: bool = False):
         """``(vector, logs)``: the vector is every shard's ``data_epoch``
-        mutation counter; with ``with_logs`` each shard's recent (epoch,
-        min affected ts) bump log rides along, the substrate of per-step
-        fragment validity (``incremental.stable_before``). Every shard is
-        local until the port's remote legs land, so the vector is always
-        readable."""
+        mutation counter, local shards read directly, peer-owned ones
+        probed over ``/api/v1/epochs?local=1`` in one concurrent scatter;
+        with ``with_logs`` each shard's recent (epoch, min affected ts)
+        bump log rides along (``&log=1`` on the probe), the substrate of
+        per-step fragment validity (``incremental.stable_before``).
+        ``(None, None)`` when any peer fails to answer: every cache then
+        misses and nothing is stored; the failure arms a cooldown during
+        which the scatter is skipped."""
         vec = []
         logs: dict = {}
         for sh in self.memstore.shards_of(self.dataset):
@@ -776,6 +882,32 @@ class QueryEngine:
             else:
                 ep = sh.data_epoch
             vec.append(("local", sh.shard_num, ep))
+        if self._has_remote_shards():
+            if time.monotonic() < self._epoch_probe_down_until:
+                return None, None
+            import urllib.request
+            sfx = "&log=1" if with_logs else ""
+
+            def fetch(ep: str) -> dict:
+                url = (f"http://{ep}/promql/{self.dataset}/api/v1/epochs"
+                       f"?local=1{sfx}")
+                with urllib.request.urlopen(url, timeout=2.0) as r:
+                    return json.load(r).get("data") or {}
+
+            for ep, res in self.peer_scatter_join(
+                    self.peer_scatter_begin(fetch)):
+                if isinstance(res, Exception):
+                    self._epoch_probe_down_until = (
+                        time.monotonic() + self._epoch_probe_cooldown_s)
+                    return None, None
+                for k, v in sorted(res.items()):
+                    if isinstance(v, (list, tuple)):
+                        # log form: [epoch, [[epoch_i, min_ts_i], ...]]
+                        vec.append((ep, str(k), int(v[0])))
+                        logs[(ep, str(k))] = [(int(a), int(b))
+                                              for a, b in v[1]]
+                    else:
+                        vec.append((ep, str(k), int(v)))
         return tuple(sorted(vec, key=str)), logs
 
     def _note_query_done(self, promql_text: str, ctx: QueryContext,
@@ -824,15 +956,46 @@ class QueryEngine:
             if res is None:
                 res = self._try_fused_hist(plan, ctx)
             if res is None:
-                ctx.exec_path = "local"
-                with span(SPAN_QUERY_PLAN), ctx.stats.stage("plan"):
-                    exec_plan = self.planner.materialize(plan)
-                res = exec_plan.run(ctx)
+                res = self._exec_planned(plan, ctx)
         m = res.matrix
         ctx.stats.add("result_cells", m.num_series * len(m.out_ts))
         res.stats = ctx.stats
         res.exec_path = ctx.exec_path
         return res
+
+    def _exec_planned(self, plan: L.LogicalPlan,
+                      ctx: QueryContext) -> QueryResult:
+        """The general path: materialize and run the ExecPlan tree. A peer
+        that dies mid-query raises RemotePeerError; the plan is
+        re-materialized (the ShardManager may have reassigned its shards
+        to a survivor) and retried once, but only if every failed shard
+        now routes elsewhere: re-sending to the same dead endpoint would
+        only double the timeout."""
+        ctx.exec_path = "local"
+        with span(SPAN_QUERY_PLAN), ctx.stats.stage("plan"):
+            exec_plan = self.planner.materialize(plan)
+        try:
+            return exec_plan.run(ctx)
+        except RemotePeerError as e:
+            if self.cluster is None:
+                raise
+            failed = set(e.shards)
+            retry = self.planner.materialize(plan)
+            for node in _walk_plans(retry):
+                if (isinstance(node, RemoteLeafExec)
+                        and node.endpoint == e.endpoint
+                        and failed & set(_plan_shards(node.inner))):
+                    raise
+            ctx.exec_path = "local-replanned"
+            # the retry re-executes every leg, the successful ones whose
+            # peer stats already merged included: start the counts over
+            ctx.stats.reset_counters()
+            try:
+                return retry.run(ctx)
+            except QueryError as e2:
+                raise QueryError(
+                    f"retry after peer failure also failed: {e2} "
+                    f"(first failure: {e})") from e2
 
     def _try_fused_hist(self, plan: L.LogicalPlan,
                         ctx: QueryContext) -> QueryResult | None:
@@ -865,7 +1028,7 @@ class QueryEngine:
         if fn not in gridfns.HIST_GRID_FNS or raw.columns:
             return None
         shards = self.memstore.shards_of(self.dataset)
-        if len(shards) != 1:
+        if len(shards) != 1 or self._has_remote_shards():
             return None
         sh = shards[0]
         if sh.store is None or sh.bucket_les is None:
@@ -1139,47 +1302,164 @@ class QueryEngine:
             k, False, out_ts, group_keys, vals,
             key_ref.reshape(G, k, T), key_table))
 
-    # -- metadata queries (ref: QueryActor label-values / series paths); the
-    # local shards' legs (the peer fan-out comes with the remote legs) ------
+    # -- cross-node helpers ---------------------------------------------------
 
-    def label_value_counts(self, label: str, filters=None):
-        """value -> series count summed over the local shards (full
-        counts: pruning per shard could drop a value that wins by sum)."""
+    def _has_remote_shards(self) -> bool:
+        if self.cluster is None or self.node is None:
+            return False
+        return any(self._route_endpoint(s) is not None
+                   for s in self.mapper.all_shards())
+
+    def _peer_endpoints(self) -> list[str]:
+        """Distinct HTTP endpoints of peers owning shards of this dataset."""
+        eps: dict[str, None] = {}
+        for s in self.mapper.all_shards():
+            ep = self._route_endpoint(s)
+            if ep is not None:
+                eps.setdefault(ep)
+        return list(eps)
+
+    def peer_scatter_begin(self, fetch):
+        """Start ``fetch(ep)`` for every peer endpoint concurrently; returns
+        an opaque handle for :meth:`peer_scatter_join` (None when no peers).
+        Begin/join are split so callers can overlap their LOCAL work with the
+        peer round-trips (the shared scatter scaffold for metadata and
+        remote-read fan-outs)."""
+        from concurrent.futures import ThreadPoolExecutor
+        eps = self._peer_endpoints()
+        if not eps:
+            return None
+        # scatter legs run on pool threads: adopt the caller's trace context
+        # so their spans (and anything the peer records) join its trace
+        run = tracer.wrap(fetch)
+        pool = ThreadPoolExecutor(max_workers=min(len(eps), 16))
+        futs = [(ep, pool.submit(run, ep)) for ep in eps]
+        return (pool, futs)
+
+    @staticmethod
+    def peer_scatter_join(handle) -> list:
+        """[(endpoint, result-or-Exception)] for a begun scatter."""
+        if handle is None:
+            return []
+        pool, futs = handle
+        out = []
+        for ep, f in futs:
+            try:
+                out.append((ep, f.result()))
+            except Exception as e:  # noqa: BLE001 — caller decides severity
+                out.append((ep, e))
+        pool.shutdown(wait=False)
+        return out
+
+    def _peer_metadata(self, path: str) -> list:
+        """Fan a metadata request out to all peers concurrently (local=1
+        stops recursion); an unreachable peer is skipped — its shards are
+        mid-reassignment and metadata is best-effort (ref: the coordinator's
+        metadata scatter). Raw DATA reads are NOT best-effort — they use the
+        same scatter but raise on peer failure (promql/remote.py)."""
+        import urllib.request
+
+        def fetch(ep: str) -> list:
+            sep = "&" if "?" in path else "?"
+            url = f"http://{ep}/promql/{self.dataset}{path}{sep}local=1"
+            with urllib.request.urlopen(url, timeout=10.0) as r:
+                return json.load(r).get("data") or []
+
+        out: list = []
+        for ep, res in self.peer_scatter_join(self.peer_scatter_begin(fetch)):
+            if isinstance(res, Exception):
+                logging.getLogger("filodb_tpu_torch.query").warning(
+                    "metadata fan-out to peer %s failed; partial result", ep)
+            else:
+                out.extend(res)
+        return out
+
+    # -- metadata queries (ref: QueryActor label-values / series paths) -------
+
+    @staticmethod
+    def _match_suffix(filters) -> str:
+        if not filters:
+            return ""
+        from urllib.parse import quote
+        return "?match[]=" + quote(_filters_to_selector(filters))
+
+    def label_value_counts(self, label: str, filters=None, top_k=None,
+                           local_only: bool = False):
+        """value -> series count across local shards and (unless local_only)
+        peers — the substrate for cluster-wide top-k ranking. The peer leg
+        forwards ``top_k`` (each node prunes to its local top-k candidates)
+        and asks for counted pairs (``counts=1``), so the merge re-ranks by
+        SUMMED count instead of trusting any one node's ordering."""
         counts: Counter = Counter()
+        # local shards contribute FULL counts — pruning per shard here would
+        # reintroduce the dominance bug this method fixes cross-node (a value
+        # ranked k+1 in every shard can be #1 by summed count); only the
+        # remote leg prunes, per NODE, where exact merge is not free
         for shard in self.memstore.shards_of(self.dataset):
             for v, c in shard.label_value_counts(label, filters):
                 counts[v] += c
+        if not local_only:
+            sfx = self._match_suffix(filters)
+            sep = "&" if sfx else "?"
+            path = f"/api/v1/label/{label}/values{sfx}{sep}counts=1"
+            if top_k is not None:
+                path += f"&top_k={int(top_k)}"
+            for row in self._peer_metadata(path):
+                if isinstance(row, (list, tuple)) and len(row) == 2:
+                    counts[str(row[0])] += int(row[1])
+                elif isinstance(row, str):   # uncounted peer: presence only
+                    counts[row] += 1
         return counts
 
-    def label_values(self, label: str, filters=None,
-                     top_k=None) -> list[str]:
-        """Sorted distinct values of ``label``; with ``top_k``, the k
-        values with the most series, by count summed over the shards."""
+    def label_values(self, label: str, filters=None, top_k=None,
+                     local_only: bool = False) -> list[str]:
         if top_k is not None:
-            counts = self.label_value_counts(label, filters)
+            # the k limit re-applies AFTER the cross-node merge: per-node
+            # top-k lists are candidates, the summed counts decide
+            counts = self.label_value_counts(label, filters, top_k=top_k,
+                                             local_only=local_only)
             return [v for v, _ in counts.most_common(top_k)]
         vals: dict[str, None] = {}
         for shard in self.memstore.shards_of(self.dataset):
             for v in shard.label_values(label, filters):
                 vals[v] = None
+        if not local_only:
+            for v in self._peer_metadata(
+                    f"/api/v1/label/{label}/values"
+                    + self._match_suffix(filters)):
+                vals[v] = None
         return sorted(vals)
 
-    def label_names(self, filters=None) -> list[str]:
+    def label_names(self, filters=None, local_only: bool = False) -> list[str]:
         names: set[str] = set()
         for shard in self.memstore.shards_of(self.dataset):
             names.update(shard.label_names(filters))
+        if not local_only:
+            # peers answer on the Prometheus surface (__name__); fold back
+            # to the internal metric label so the merge stays canonical
+            names.update("_metric_" if n == "__name__" else n
+                         for n in self._peer_metadata(
+                             "/api/v1/labels" + self._match_suffix(filters)))
         return sorted(names)
 
-    def series(self, filters, start_ms: int,
-               end_ms: int) -> list[dict[str, str]]:
-        """Label sets of the series matching ``filters`` in the range."""
+    def series(self, filters, start_ms: int, end_ms: int,
+               local_only: bool = False) -> list[dict[str, str]]:
         out = []
         for shard in self.memstore.shards_of(self.dataset):
-            # ids and labels under one lock: a release reuses slots
+            # ids and labels under one lock: a concurrent purge reuses slots
             with shard.lock:
-                pids = shard.part_ids_from_filters(list(filters), start_ms,
-                                                   end_ms)
+                pids = shard.part_ids_from_filters(list(filters), start_ms, end_ms)
                 out.extend(shard.index.labels_of(int(p)) for p in pids)
+        if not local_only and self._has_remote_shards():
+            sfx = self._match_suffix(
+                filters or [F.EqualsRegex("_metric_", ".*")])
+            path = (f"/api/v1/series{sfx}"
+                    f"&start={start_ms / 1000.0}&end={end_ms / 1000.0}")
+            for d in self._peer_metadata(path):
+                if "__name__" in d:
+                    d = dict(d)
+                    d["_metric_"] = d.pop("__name__")
+                out.append(d)
         return out
 
     def raw_series(self, filters, start_ms: int, end_ms: int):

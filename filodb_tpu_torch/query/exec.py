@@ -37,7 +37,14 @@ one batch when narrow, pid batches of ``ODP_BATCH`` when wide, each batch's
 distributive transformers applied before the batches merge as shard
 results do. A ``__col__`` that names no column of the dataset's schema
 selects the per-aggregate dataset of a downsample family
-(``ds:ds_1m:dAvg``). Remote legs come with the cluster layers.
+(``ds:ds_1m:dAvg``).
+
+A fan-in node's remote children (``query/wire.py``: a leaf or a
+co-located reduce shipped to the peer that owns its shards, or a batch of
+one peer's leaves) run concurrently on a pool of at most 16 threads, the
+local ones on the calling thread; a batch's results splice back into its
+members' original child positions, so the merge order, and with it the
+bits, are the single node's.
 """
 
 from __future__ import annotations
@@ -455,11 +462,15 @@ class ScalarOperationMapper(Transformer):
     def apply(self, data, ctx):
         m = _as_matrix(data)
         s = self.scalar
+        vals = _tensor(m.values, ctx.device)
         if isinstance(s, ExecPlan):
             self.prepare(ctx)     # non-leaf chains have no lock to avoid
             s = torch.from_numpy(self._resolved).to(ctx.device)  # [T]
-        vals = binop.apply_scalar_op(self.operator, s,
-                                     _tensor(m.values, ctx.device),
+            # the step-varying scalar is f64 and so is the answer: it must
+            # not depend on whether the operand matrix crossed the wire
+            # (f64) or came off a local store (its dtype)
+            vals = vals.to(torch.float64)
+        vals = binop.apply_scalar_op(self.operator, s, vals,
                                      self.scalar_is_lhs)
         keys = m.keys
         op = self.operator.removesuffix("_bool")
@@ -1462,17 +1473,63 @@ def _pad_selection(dev, dtype, nbuckets, les=None) -> SeriesSelection:
         bucket_les=les)
 
 
+def _execute_children(children, ctx):
+    """Execute child plans, remote legs concurrently: peer round trips
+    overlap each other and the local shards' device work (ref:
+    NonLeafExecPlan dispatches children as parallel Observables). Local
+    children stay on the calling thread, which already serializes their
+    launches under the shard locks. A RemoteBatchExec child (one POST for a
+    peer's K leaves) returns a result list that splices back into its
+    members' original positions, so parents see one result per leaf in the
+    single node's order."""
+    remote = [c for c in children if getattr(c, "IS_REMOTE", False)]
+    if not remote or len(children) == 1:
+        results = [c.execute(ctx) for c in children]
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..utils.tracing import tracer
+
+        # remote legs run on pool threads with the query's trace context,
+        # so their dispatch spans join its trace
+        run_remote = tracer.wrap(lambda c: c.execute(ctx))
+        with ThreadPoolExecutor(max_workers=min(len(remote), 16)) as pool:
+            futs = {id(c): pool.submit(run_remote, c) for c in remote}
+            results = [futs[id(c)].result() if id(c) in futs
+                       else c.execute(ctx) for c in children]
+    batches = [c for c in children if getattr(c, "IS_BATCH", False)]
+    if not batches:
+        return results
+    n_total = (len(children) - len(batches)
+               + sum(len(b.members) for b in batches))
+    taken = {s for b in batches for s in b.slots}
+    free = (i for i in range(n_total) if i not in taken)
+    out = [None] * n_total
+    for c, r in zip(children, results):
+        if getattr(c, "IS_BATCH", False):
+            for slot, res in zip(c.slots, r):
+                out[slot] = res
+        else:
+            out[next(free)] = r
+    return out
+
+
 @dataclass
 class DistConcatExec(ExecPlan):
     """Concatenate child results (ref: DistConcatExec.scala — shard fan-in)."""
     children: list = field(default_factory=list)
 
     def do_execute(self, ctx):
-        all_mats = [_as_matrix(c.execute(ctx)).to_host() for c in self.children]
+        all_mats = [_as_matrix(r).to_host()
+                    for r in _execute_children(self.children, ctx)]
         mats = [m for m in all_mats if m.num_series]
         if not mats:
             return all_mats[0]
-        vals = np.concatenate([m.values for m in mats], axis=0)
+        # the host fan-in's dtype is f64, as the wire's matrices and the
+        # partial merges are: a child's dtype must not depend on whether
+        # it ran here or on a peer
+        vals = np.concatenate([np.asarray(m.values, np.float64)
+                               for m in mats], axis=0)
         return ResultMatrix(mats[0].out_ts, vals,
                             [k for m in mats for k in m.keys],
                             mats[0].bucket_les)
@@ -1567,7 +1624,7 @@ class ReduceAggregateExec(ExecPlan):
     children: list = field(default_factory=list)
 
     def do_execute(self, ctx):
-        results = [c.execute(ctx) for c in self.children]
+        results = _execute_children(self.children, ctx)
         with span(SPAN_QUERY_REDUCE, op=self.operator,
                   children=len(self.children)), ctx.stats.stage("reduce"):
             # the per-shard group cap is data-dependent, so a sibling may
@@ -1583,7 +1640,8 @@ class ReduceAggregateExec(ExecPlan):
             if not mats:
                 return ResultMatrix(np.zeros(0, np.int64), np.zeros((0, 0)),
                                     [])
-            vals = np.concatenate([m.values for m in mats], axis=0)
+            vals = np.concatenate([np.asarray(m.values, np.float64)
+                                   for m in mats], axis=0)
             return ResultMatrix(mats[0].out_ts, vals,
                                 [k for m in mats for k in m.keys])
 

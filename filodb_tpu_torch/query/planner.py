@@ -1,14 +1,22 @@
-"""LogicalPlan -> ExecPlan materializer, single node.
+"""LogicalPlan -> ExecPlan materializer.
 
-Port of the local half of ``filodb_tpu/query/planner.py`` (ref:
+Port of ``filodb_tpu/query/planner.py`` (ref:
 coordinator/.../queryengine2/QueryEngine.scala:106-375): picks target shards
 from shard-key filters, pushes the map phase down to the shard leaves and
 wires scatter-gather, joins, subqueries, ``@``, chunk-metadata leaves and
 the instant, sort, misc and scalar mappers on top; and the admission gate's
 cost estimate over the logical tree.
+
+With a ``route_fn`` (the engine's shard -> peer endpoint map), a leaf for a
+shard another node owns materializes as ``wire.RemoteLeafExec``, and the
+tree's cross-node fan-out collapses from per-shard to per-peer: a fan-in
+whose children all live on one peer ships whole (the co-located reduce),
+other same-peer siblings batch into one ``RemoteBatchExec``.
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 from ..core.filters import Equals
 from ..core.record import fnv1a64
@@ -30,9 +38,18 @@ _SET_OPS = {"and", "or", "unless"}
 
 class QueryPlanner:
     def __init__(self, shard_mapper: ShardMapper | None = None,
-                 options: DatasetOptions = DatasetOptions()):
+                 options: DatasetOptions = DatasetOptions(),
+                 route_fn=None, dataset: str = "",
+                 remote_timeout_s: float = 30.0):
+        """``route_fn(shard) -> "host:port" | None``: the HTTP endpoint of
+        the peer owning a shard, None for a shard served here (ref:
+        queryengine2/QueryEngine.scala:506 picks the shard-owning node's
+        dispatcher for every leaf)."""
         self.mapper = shard_mapper or ShardMapper(1)
         self.options = options
+        self.route_fn = route_fn
+        self.dataset = dataset
+        self.remote_timeout_s = remote_timeout_s
 
     # -- shard selection (ref: QueryEngine.shardsFromFilters :181-222) -------
 
@@ -47,15 +64,104 @@ class QueryPlanner:
     # -- materialization ------------------------------------------------------
 
     def materialize(self, plan: L.LogicalPlan) -> ExecPlan:
-        return self._walk(plan)
+        root = self._walk(plan)
+        if self.route_fn is not None:
+            root = self._collapse_remote(root)
+        return root
+
+    # -- per-peer dispatch shaping --------------------------------------------
+
+    def _collapse_remote(self, node: ExecPlan) -> ExecPlan:
+        """Collapse cross-node fan-out from per-shard to per-peer (ref:
+        ExecPlan.scala ``dispatchRemotePlan`` + the data-node reduce placement
+        in queryengine2/QueryEngine.scala:506). Two rewrites, applied bottom-
+        up over the materialized tree:
+
+        1. co-located reduce: when EVERY child of a ReduceAggregate/DistConcat
+           lives on one peer and the whole subtree is wire-able, the node
+           itself ships — the peer runs its own reduce (fused kernels and all)
+           and only the reduced partial/presented matrix returns.
+        2. batched dispatch: remaining same-endpoint sibling leaves group into
+           one RemoteBatchExec — a query spanning a peer's K shards costs one
+           ``/exec`` round-trip instead of K."""
+        from .wire import (NotWireable, RemoteBatchExec, RemoteLeafExec,
+                           serialize_plan)
+
+        # step-varying scalar operands hold their own materialized subplans
+        # (executed locally before dispatch): shape their fan-out too
+        for t in getattr(node, "transformers", ()):
+            if isinstance(getattr(t, "scalar", None), ExecPlan):
+                t.scalar = self._collapse_remote(t.scalar)
+        for attr in ("lhs", "rhs", "child"):
+            v = getattr(node, attr, None)
+            if isinstance(v, ExecPlan):
+                setattr(node, attr, self._collapse_remote(v))
+        if not isinstance(node, (DistConcatExec, ReduceAggregateExec)):
+            return node
+        node.children = [self._collapse_remote(c) for c in node.children]
+        ch = node.children
+        remotes = [c for c in ch if isinstance(c, RemoteLeafExec)]
+        endpoints = {c.endpoint for c in remotes}
+        if remotes and len(remotes) == len(ch) and len(endpoints) == 1:
+            # co-located reduce: fold each wrapper's transformer chain into
+            # its shipped subplan and ship the fan-in node itself; the node's
+            # own transformers (presenter etc.) ride on the new wrapper and
+            # ship as its wire-able prefix
+            inner = replace(
+                node,
+                transformers=[],
+                children=[replace(c.inner,
+                                  transformers=list(c.inner.transformers)
+                                  + list(c.transformers))
+                          for c in remotes])
+            try:
+                serialize_plan(inner)
+            except NotWireable:
+                pass          # e.g. a scalar-operand subplan: batch instead
+            else:
+                return RemoteLeafExec(
+                    transformers=list(node.transformers),
+                    endpoint=remotes[0].endpoint, dataset=self.dataset,
+                    inner=inner, timeout_s=self.remote_timeout_s)
+        # transport batching: one RemoteBatchExec per endpoint with >= 2
+        # leaves (a single leaf already costs exactly one round-trip)
+        groups: dict[str, list[int]] = {}
+        for i, c in enumerate(ch):
+            if isinstance(c, RemoteLeafExec):
+                groups.setdefault(c.endpoint, []).append(i)
+        batch_at: dict[int, ExecPlan] = {}
+        consumed: set[int] = set()
+        for ep, idxs in groups.items():
+            if len(idxs) < 2:
+                continue
+            batch_at[idxs[0]] = RemoteBatchExec(
+                endpoint=ep, dataset=self.dataset,
+                members=[ch[i] for i in idxs],
+                timeout_s=self.remote_timeout_s, slots=list(idxs))
+            consumed.update(idxs[1:])
+        if batch_at:
+            node.children = [batch_at.get(i, c) for i, c in enumerate(ch)
+                             if i not in consumed]
+        return node
+
+    def _route(self, leaf: ExecPlan) -> ExecPlan:
+        """Wrap a leaf for a peer-owned shard in a RemoteLeafExec; later
+        transformer push-downs land on the wrapper and ship as the plan's
+        wire prefix (query/wire.py)."""
+        ep = self.route_fn(leaf.shard) if self.route_fn else None
+        if ep is None:
+            return leaf
+        from .wire import RemoteLeafExec
+        return RemoteLeafExec(endpoint=ep, dataset=self.dataset, inner=leaf,
+                              timeout_s=self.remote_timeout_s)
 
     def _leaves(self, raw: L.RawSeries, psm: PeriodicSamplesMapper) -> list[ExecPlan]:
         return [
-            SelectRawPartitionsExec(
+            self._route(SelectRawPartitionsExec(
                 transformers=[psm], shard=s, filters=tuple(raw.filters),
                 start_ms=raw.range_selector.from_ms,
                 end_ms=raw.range_selector.to_ms,
-                column=raw.columns[0] if raw.columns else "")
+                column=raw.columns[0] if raw.columns else ""))
             for s in self.shards_for_filters(raw.filters)
         ]
 
@@ -117,10 +223,10 @@ class QueryPlanner:
                                 end_ms=p.end_ms)
         if isinstance(p, L.RawChunkMeta):
             return self._fan_in([
-                SelectChunkInfosExec(
+                self._route(SelectChunkInfosExec(
                     shard=s, filters=tuple(p.filters),
                     start_ms=p.range_selector.from_ms,
-                    end_ms=p.range_selector.to_ms, column=p.column)
+                    end_ms=p.range_selector.to_ms, column=p.column))
                 for s in self.shards_for_filters(list(p.filters))])
         raise QueryError(f"cannot materialize {type(p).__name__}")
 

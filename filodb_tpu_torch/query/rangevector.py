@@ -9,7 +9,9 @@ NaN marks absent points; presenters drop them at the edge.
 
 from __future__ import annotations
 
+import json
 import math
+import struct
 import threading
 import time
 from contextlib import contextmanager
@@ -119,7 +121,7 @@ class QueryStats:
     its serving layer keep. Thread-safe. ``stage_ms`` sums wall time per
     stage."""
 
-    FIELDS = ("series_matched", "blocks_raw", "blocks_narrow",
+    FIELDS = ("series_matched", "blocks_narrow", "blocks_raw",
               "rows_paged_in", "result_cells", "result_cache_hits",
               "negative_cache_hits", "fused_kernels", "admission_shed",
               "subquery_inner_cells", "fragment_steps_reused",
@@ -167,6 +169,15 @@ class QueryStats:
             with self._lock:
                 self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
 
+    def reset_counters(self) -> None:
+        """Zero the counters, keep the stage times: the replan-once retry
+        after a peer failure re-executes every leg, the ones whose peer
+        stats already merged included, so the first attempt's counts go
+        (stage times measure work done, across attempts)."""
+        with self._lock:
+            for f in self.FIELDS:
+                setattr(self, f, 0)
+
     def merge(self, other: "QueryStats | dict") -> None:
         """Fold another QueryStats' counters and stage times into this one;
         a dict in ``to_dict`` form (a cached result's stats) folds alike."""
@@ -202,3 +213,58 @@ class QueryResult:
 
 class QueryError(Exception):
     pass
+
+
+# ---- wire serialization (SerializableRangeVector equivalent) ----------------
+
+_MAGIC = 0x46545257  # 'FTRW': the header carries the histogram bucket count
+
+
+def serialize_matrix(m: ResultMatrix) -> bytes:
+    """Compact wire form for cross-node result transfer, byte for byte the
+    reference's (ref: RangeVector.scala SerializableRangeVector): one header
+    + columnar f64 block + label blob. Histogram-valued matrices ([P, T, B])
+    carry the bucket count and bucket bounds after the value block."""
+    host = m.to_host()
+    P, T = len(host.keys), len(host.out_ts)
+    vals = np.asarray(host.values, "<f8")
+    if vals.shape[0] > P:
+        # padded leaf output (pad rows, pow2-padded kernel rows): rows past
+        # the keyed prefix carry no series, and shipping them would desync
+        # the receiver's offsets
+        vals = vals[:P]
+    elif vals.shape[0] < P:
+        raise ValueError(
+            f"matrix has {len(host.keys)} keys but {vals.shape[0]} value "
+            "rows — refusing to ship a truncated result")
+    B = len(host.bucket_les) if host.bucket_les is not None else 0
+    if (vals.ndim == 3) != (B > 0) or (B and vals.shape[2] != B):
+        raise ValueError(
+            f"histogram matrix shape {vals.shape} inconsistent with "
+            f"{B} bucket bounds")
+    blob = json.dumps([k.labels for k in host.keys],
+                      separators=(",", ":")).encode()
+    head = struct.pack("<IIIII", _MAGIC, P, T, len(blob), B)
+    les = (np.asarray(host.bucket_les, "<f8").tobytes() if B else b"")
+    return (head + np.asarray(host.out_ts).astype("<i8").tobytes()
+            + vals.tobytes() + les + blob)
+
+
+def deserialize_matrix(buf: bytes) -> ResultMatrix:
+    magic, P, T, blob_len, B = struct.unpack_from("<IIIII", buf, 0)
+    if magic != _MAGIC:
+        raise ValueError("bad result matrix magic")
+    off = 20
+    out_ts = np.frombuffer(buf, "<i8", T, off).copy()
+    off += 8 * T
+    n_vals = P * T * (B or 1)
+    values = np.frombuffer(buf, "<f8", n_vals, off).copy()
+    off += 8 * n_vals
+    values = values.reshape((P, T, B) if B else (P, T))
+    les = None
+    if B:
+        les = np.frombuffer(buf, "<f8", B, off).copy()
+        off += 8 * B
+    keys = [RangeVectorKey(tuple(tuple(kv) for kv in k))
+            for k in json.loads(buf[off:off + blob_len])]
+    return ResultMatrix(out_ts, values, keys, les)

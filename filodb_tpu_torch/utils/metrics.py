@@ -7,7 +7,10 @@ counters, the residency-fallback counter, and the serving layer's metrics
 (result, negative and fragment caches, slow queries, admission, the
 per-tenant cardinality governor), and the durable and retention tiers
 (index recovery, paged-in and aged-out samples, routed queries, widened
-windows). Metric names are the reference's, so dashboards read both.
+windows), and the cluster plane (cross-node dispatches, their latency and
+circuit breakers, replica read failovers, the per-shard gauges a scrape
+refreshes). Metric names are the reference's, so dashboards read both;
+``MetricsRegistry.expose_prometheus`` renders the reference's text format.
 """
 
 from __future__ import annotations
@@ -78,6 +81,20 @@ FILODB_RETENTION_ROUTED_QUERIES = "filodb_retention_routed_queries"
 # because their window was narrower than the serving family's resolution
 # (tagged dataset + resolution; also in per-query stats)
 FILODB_QUERY_WINDOWS_WIDENED = "filodb_query_windows_widened"
+# counter: cross-node /exec dispatches per endpoint
+FILODB_PEER_EXEC_REQUESTS = "filodb_peer_exec_requests"
+# gauge: the last cross-node /exec round-trip latency per endpoint
+FILODB_PEER_EXEC_LATENCY_MS = "filodb_peer_exec_latency_ms"
+# gauge: 1 while the per-peer circuit breaker is open (dispatches shed fast
+# as 503)
+FILODB_PEER_BREAKER_OPEN = "filodb_peer_breaker_open"
+# counter: replicated-store reads that failed over past a failed or lagging
+# replica (tagged op)
+FILODB_RETENTION_REPLICA_FAILOVER = "filodb_retention_replica_failover"
+# gauges a /metrics scrape refreshes per dataset and shard
+FILODB_SHARD_NUM_SERIES = "filodb_shard_num_series"
+# counter: increments a streaming subscription delivered
+FILODB_QUERY_SUBSCRIBE_INCREMENTS = "filodb_query_subscribe_increments"
 
 
 class Counter:
@@ -155,6 +172,31 @@ class MetricsRegistry:
 
     def histogram(self, name: str, tags: dict | None = None) -> Histogram:
         return self._get(Histogram, name, tags)
+
+    def expose_prometheus(self) -> str:
+        """Prometheus text format 0.0.4, as the reference renders it."""
+        lines = []
+        with self._lock:
+            items = sorted(self._metrics.items(), key=lambda kv: kv[0])
+        for (name, tags), m in items:
+            tag_s = ",".join(f'{k}="{v}"' for k, v in tags)
+            tag_s = "{" + tag_s + "}" if tag_s else ""
+            if isinstance(m, Counter):
+                lines.append(f"{name}_total{tag_s} {m.value:g}")
+            elif isinstance(m, Gauge):
+                lines.append(f"{name}{tag_s} {m.value:g}")
+            elif isinstance(m, Histogram):
+                cum = 0
+                for b, c in zip(m.bounds, m.buckets):
+                    cum += c
+                    lt = (tag_s[:-1] + "," if tag_s else "{") \
+                        + f'le="{b}"' + "}"
+                    lines.append(f"{name}_bucket{lt} {cum}")
+                lt = (tag_s[:-1] + "," if tag_s else "{") + 'le="+Inf"}'
+                lines.append(f"{name}_bucket{lt} {m.count}")
+                lines.append(f"{name}_sum{tag_s} {m.sum:g}")
+                lines.append(f"{name}_count{tag_s} {m.count}")
+        return "\n".join(lines) + "\n"
 
 
 registry = MetricsRegistry()

@@ -2,17 +2,26 @@
 
 Host copy of the span recorder of ``filodb_tpu/utils/tracing.py``, limited
 to what the port opens (the query's stages, admission, the fragment cache's
-delta evaluation, a subscription's increment, on-demand paging and
-retention routing): ``with span(SPAN_QUERY_EXECUTE, ...)``
-records one span into a bounded ring, parented under the innermost open span
-of the thread. Durations come from the monotonic clock; the wall clock is
-read once per span for its start timestamp. Cross-node propagation and the
-Zipkin exporter come with the port's cluster slice.
+delta evaluation, a subscription's increment, on-demand paging,
+retention routing, and a query's cross-node dispatch and its peer-side
+serve): ``with span(SPAN_QUERY_EXECUTE, ...)`` records one span into a
+bounded ring, parented under the innermost open frame of the thread.
+Durations come from the monotonic clock; the wall clock is read once per
+span for its start timestamp.
+
+Context crosses threads and the wire as the reference's does:
+``current_context()`` is the wire-able form of the innermost frame (the
+``/exec`` POST carries it in its trace header), ``activate(ctx)`` adopts
+one on the receiving thread, and ``wrap(fn)`` binds the caller's frame to
+work handed to a pool. The sampling decision rides the frame, so a trace
+records on every node or on none. ``traces()`` assembles the ring parent
+to child for the debug page; ``export_zipkin_json`` is its Zipkin v2 form.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import random
 import threading
@@ -28,6 +37,11 @@ SPAN_QUERY_PLAN = "query.plan"
 SPAN_QUERY_EXECUTE = "query.execute"
 SPAN_QUERY_LEAF = "query.exec.leaf"
 SPAN_QUERY_REDUCE = "query.exec.reduce"
+# one cross-node /exec POST (tags: endpoint, shards)
+SPAN_QUERY_DISPATCH = "query.exec.dispatch"
+# the peer side of /exec: the subtree run on the shard-owning node (tags:
+# node, dataset)
+SPAN_QUERY_SERVE = "query.exec.serve"
 SPAN_QUERY_ADMIT = "query.admission"
 SPAN_QUERY_FRAGMENT = "query.fragment"
 SPAN_QUERY_SUBSCRIBE = "query.subscribe"
@@ -53,10 +67,24 @@ class SpanRecord:
     duration_us: int
     tags: dict = field(default_factory=dict)
 
+    def to_dict(self) -> dict:
+        return {"trace_id": self.trace_id, "span_id": self.span_id,
+                "parent_id": self.parent_id, "name": self.name,
+                "start_us": self.start_us, "duration_us": self.duration_us,
+                "tags": {k: str(v) for k, v in self.tags.items()}}
+
+    def to_zipkin(self) -> dict:
+        """Zipkin v2 JSON shape."""
+        return {"traceId": self.trace_id, "id": self.span_id,
+                "parentId": self.parent_id, "name": self.name,
+                "timestamp": self.start_us, "duration": self.duration_us,
+                "tags": {k: str(v) for k, v in self.tags.items()}}
+
 
 class Tracer:
-    """Process-global span recorder; ``current_context`` names the
-    innermost open span of the calling thread."""
+    """Process-global span recorder. The per-thread stack holds
+    ``(trace_id, span_id, sampled)`` frames; ``span()`` parents under the
+    innermost one, ``activate`` pushes a remote or cross-thread one."""
 
     def __init__(self, capacity: int = 4096):
         self.spans: deque[SpanRecord] = deque(maxlen=capacity)
@@ -82,8 +110,47 @@ class Tracer:
         st = self._stack()
         if not st:
             return None
-        trace_id, span_id = st[-1]
-        return {"trace_id": trace_id, "span_id": span_id, "sampled": True}
+        trace_id, span_id, sampled = st[-1]
+        return {"trace_id": trace_id, "span_id": span_id,
+                "sampled": bool(sampled)}
+
+    def wrap(self, fn):
+        """Bind the calling thread's innermost frame to ``fn``: the
+        returned callable activates it wherever it runs (every pool
+        fan-out hands its work over through this)."""
+        ctx = self.current_context()
+
+        def bound(*args, **kwargs):
+            with self.activate(ctx):
+                return fn(*args, **kwargs)
+        return bound
+
+    _ID_CHARS = frozenset("0123456789abcdef")
+
+    @classmethod
+    def _valid_id(cls, v) -> bool:
+        """Wire-supplied ids must be bounded lowercase hex: they land in
+        span records and debug JSON."""
+        return (isinstance(v, str) and 0 < len(v) <= 32
+                and set(v) <= cls._ID_CHARS)
+
+    @contextlib.contextmanager
+    def activate(self, ctx: dict | None):
+        """Adopt a remote or cross-thread parent frame on this thread. A
+        None or malformed context (non-hex ids from a peer) is a no-op:
+        the span below it roots a fresh trace."""
+        if not isinstance(ctx, dict) or not self._valid_id(
+                ctx.get("trace_id")) or not self._valid_id(
+                ctx.get("span_id")):
+            yield
+            return
+        st = self._stack()
+        st.append((ctx["trace_id"], ctx["span_id"],
+                   bool(ctx.get("sampled", True))))
+        try:
+            yield
+        finally:
+            st.pop()
 
     @contextlib.contextmanager
     def span(self, name: str, **tags):
@@ -91,30 +158,75 @@ class Tracer:
         outcome tags discovered mid-span."""
         stack = self._stack()
         if stack:
-            trace_id, parent_id = stack[-1]
+            trace_id, parent_id, sampled = stack[-1]
         elif not self.enabled:
             yield tags
             return
         else:
-            trace_id, parent_id = self._new_id(), None
-        span_id = self._new_id()
-        stack.append((trace_id, span_id))
-        t0_wall_us = int(time.time() * 1e6)
-        t0 = time.perf_counter_ns()
+            trace_id, parent_id, sampled = self._new_id(), None, True
+        # a sampled-out frame still propagates (children and peers inherit
+        # the decision) but records nothing
+        span_id = self._new_id() if sampled else "0"
+        stack.append((trace_id, span_id, sampled))
+        if sampled:
+            t0_wall_us = int(time.time() * 1e6)
+            t0 = time.perf_counter_ns()
         try:
             yield tags
         finally:
             stack.pop()
-            dur_us = (time.perf_counter_ns() - t0) // 1000
-            rec = SpanRecord(trace_id, span_id, parent_id, name, t0_wall_us,
-                             int(dur_us), tags)
-            with self._lock:
-                self.spans.append(rec)
-            self._span_counter.increment()
+            if sampled:
+                dur_us = (time.perf_counter_ns() - t0) // 1000
+                rec = SpanRecord(trace_id, span_id, parent_id, name,
+                                 t0_wall_us, int(dur_us), tags)
+                with self._lock:
+                    self.spans.append(rec)
+                self._span_counter.increment()
 
     def snapshot(self) -> list[SpanRecord]:
         with self._lock:
             return list(self.spans)
+
+    def traces(self, limit: int = 50,
+               trace_id: str | None = None) -> list[dict]:
+        """Recent traces assembled parent to child: newest trace first,
+        each trace's spans roots first, then depth first by parent links
+        (a span whose parent left the ring follows as a root)."""
+        by_trace: dict[str, list[SpanRecord]] = {}
+        order: list[str] = []
+        for s in self.snapshot():
+            if trace_id is not None and s.trace_id != trace_id:
+                continue
+            if s.trace_id not in by_trace:
+                order.append(s.trace_id)
+            by_trace.setdefault(s.trace_id, []).append(s)
+        out = []
+        for tid in reversed(order[-limit:] if trace_id is None else order):
+            members = by_trace[tid]
+            ids = {s.span_id for s in members}
+            children: dict[str | None, list[SpanRecord]] = {}
+            roots = []
+            for s in members:
+                if s.parent_id in ids:
+                    children.setdefault(s.parent_id, []).append(s)
+                else:
+                    roots.append(s)
+            ordered: list[SpanRecord] = []
+            stack = sorted(roots, key=lambda s: s.start_us, reverse=True)
+            while stack:
+                s = stack.pop()
+                ordered.append(s)
+                stack.extend(sorted(children.get(s.span_id, ()),
+                                    key=lambda c: c.start_us, reverse=True))
+            out.append({"trace_id": tid,
+                        "duration_us": max((s.duration_us for s in roots),
+                                           default=0),
+                        "spans": [s.to_dict() for s in ordered]})
+        return out
+
+    def export_zipkin_json(self, trace_id: str | None = None) -> str:
+        return json.dumps([s.to_zipkin() for s in self.snapshot()
+                           if trace_id is None or s.trace_id == trace_id])
 
 
 tracer = Tracer()

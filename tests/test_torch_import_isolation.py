@@ -47,7 +47,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "parallel.cluster", "memory.nibblepack", "memory.deltadelta",
               "memory.intpack", "memory.hist", "memory.native", "core.store",
               "ingest.bus", "core.downsample", "jobs.batch_downsampler",
-              "query.retention"):
+              "query.retention", "utils.netio", "query.wire", "http.api",
+              "core.diststore", "parallel.bootstrap", "entry"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
