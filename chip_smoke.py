@@ -303,6 +303,44 @@ Phases, in order; every check asserts and any failure exits non-zero:
                either node bit for bit the oracle, each rank's all_reduce
                of its partials equal to M1. Prints host ms (a first call,
                then p50 over 3) and K1 launches by rank.
+  15a. server small (run after 14) — two BrokerServer nodes (4
+               partitions, replication 2, min_insync 2, epoch fencing), a
+               FiloServer on the card with 4 shards (spread 2), a data_dir
+               sink, the gateway and a file registrar, and a CPU FiloServer
+               on the same brokers; 256 SyntheticStream counters x 64
+               samples through BrokerBus and 320 Influx lines through the
+               gateway. sum(rate), sum by (dc) (rate) and avg_over_time
+               over HTTP bit for bit a memstore on the card fed the
+               broker's containers directly, within rtol 1e-5 of the CPU
+               server; route "local" with QueryStats.fused_kernels 4 and
+               K1 once a shard leaf; K1 against its plain twin on the
+               server's own shard stores. Then the leader broker killed by
+               a FaultPlan mid-stream and started again (min_insync 2: the
+               survivor sheds until it rejoins), the pub-id audit (dense
+               offsets, unique ids, every acked id logged, both logs
+               identical), a restart of the server from its sink and the
+               broker's replay, and a live move of shard 3 to a second
+               FiloServer through POST /api/v1/cluster/rebalance: the
+               answers bit for bit the same after each. Last, 8
+               counters born mid-stream through the gateway (series
+               churn): their shards page the selection in from the sink,
+               off K1's route; held within rtol 1e-5 of the memstore,
+               printing rows paged in and K1's launches a query.
+  15b. server scale — 4 x 2^15 SyntheticStream counters x 64 samples
+               (8.4 M rows) through the same broker pair into a FiloServer
+               on the card. Prints publish and ingest rows/s, the seconds
+               from the last publish until every sample answers, the host
+               ms p50 over HTTP of sum(rate(m[5m])) over the 2^17 series
+               (K1 4 a query), the card's memory; the answer bit for bit a
+               memstore fed the same containers directly. Also the host
+               seconds of the ingest stages, the card's busy share over
+               the traced ingest window, K1's passes of one query by CUDA
+               events, and the traced queries' device ms and busy share.
+  15c. server processes — entry.dryrun_multichip's step 5 on the card: two
+               FiloServer processes (python -m filodb_tpu_torch.cli serve
+               --device cuda), one shard each, over one broker and a file
+               registrar, both answering bit for bit as one memstore of
+               both shards; prints the seconds until both answer.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -333,6 +371,10 @@ result line.
 
 runs phase 14 alone (after the kernels' build; 14b on 11b's shards built
 and made delta8-resident for it) and prints no result line.
+
+    python3 chip_smoke.py --server
+
+runs phase 15 alone (after the kernels' build) and prints no result line.
 """
 
 import contextlib
@@ -4808,6 +4850,885 @@ def phase_cluster_procs(torch, np, fg, card, pkg, dev="cuda"):
     return sum(k1.values())
 
 
+# phase 15: the standalone server and its ingest plane
+SV_DS = "prometheus"
+SV_SHARDS = 4
+SV_SERIES = 256                 # 15a: counters through the broker
+SV_SAMPLES = 64                 # a series, 10 s apart
+SV_BATCH = 8                    # samples a SyntheticStream batch
+SV_GW_SERIES = 32               # 15a: gateway series x SV_GW_SAMPLES lines
+SV_GW_SAMPLES = 10
+SV_QUERIES = ("sum(rate(m[5m]))", "sum by (dc) (rate(m[5m]))",
+              "avg_over_time(m[5m])")
+SV_FUSED = {"sum(rate(m[5m]))": True, "sum by (dc) (rate(m[5m]))": True,
+            "avg_over_time(m[5m])": False}
+SV_STEP = 30_000
+SV_RANGE = (BASE_TS + 300_000, BASE_TS + (SV_SAMPLES - 1) * 10_000)
+SV_CHURN_SERIES = 8              # 15a: gateway series born mid-stream
+SV_CHURN_FROM = SV_SAMPLES // 2  # their first sample
+SV_SCALE_SERIES = 1 << 15       # 15b: a shard (2^17 in all)
+SV_SCALE_BATCH = 16             # 15b: samples a SyntheticStream batch
+SV_SCALE_REPS = 5
+
+
+def sv_split(np, c, mapper, nshards):
+    """One SyntheticStream container -> {shard: container} by the server's
+    shard mapper (the routing a producer does: each series' samples go to
+    its shard's partition)."""
+    from filodb_tpu_torch.core.record import RecordContainer
+    keys, hashes = c.resolved_keys()
+    first = np.zeros(len(keys), np.int64)
+    first[c.part_idx[::-1]] = np.arange(len(c.part_idx))[::-1]
+    set_shard = mapper.shards_vector(c.shard_hash[first], c.part_hash[first])
+    row_shard = set_shard[c.part_idx]
+    out = {}
+    for s in range(nshards):
+        rows = np.nonzero(row_shard == s)[0]
+        if not len(rows):
+            continue
+        used = np.nonzero(set_shard == s)[0]
+        remap = np.full(len(keys), -1, np.int32)
+        remap[used] = np.arange(len(used), dtype=np.int32)
+        out[s] = RecordContainer(
+            c.schema, c.ts[rows], c.values[rows], c.part_hash[rows],
+            c.shard_hash[rows], remap[c.part_idx[rows]],
+            [c.label_sets[i] for i in used], None,
+            [keys[i] for i in used], hashes[used])
+    return out
+
+
+def sv_stream(np, mapper, n_series, n_samples, batch):
+    """The counters of ``SyntheticStream`` (FiloDB's TestTimeseriesProducer
+    counterpart) as metric m on BASE_TS's 10 s grid: a list of
+    {shard: container}, one a batch of ``batch`` samples a series."""
+    from filodb_tpu_torch.ingest.stream import SyntheticStream
+    stream = SyntheticStream(n_series=n_series, n_batches=n_samples // batch,
+                             samples_per_batch=batch, start_ms=BASE_TS,
+                             interval_ms=10_000, metric="m", kind="counter")
+    return [sv_split(np, c, mapper, SV_SHARDS) for _off, c in stream]
+
+
+def sv_brokers(tmp, plan=None):
+    """Two BrokerServer nodes: 4 partitions, replication 2, min_insync 2,
+    epoch fencing; node 0 (the leader of partitions 0 and 2) takes
+    ``plan``. Returns (addrs, [node0, node1], start(i)) — start(i) brings
+    node i (back) up on its port and directory."""
+    from filodb_tpu_torch.ingest.broker import BrokerServer
+    from filodb_tpu_torch.parallel.bootstrap import free_port
+    ports = [free_port(), free_port()]
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    nodes = [None, None]
+
+    def start(i, fault_plan=None):
+        nodes[i] = BrokerServer(os.path.join(tmp, f"broker{i}"), SV_SHARDS,
+                                port=ports[i], peers=addrs, node_index=i,
+                                replication=2, min_insync=2,
+                                epoch_fencing=True,
+                                fault_plan=fault_plan).start()
+        return nodes[i]
+
+    start(0, plan)
+    start(1)
+    return addrs, nodes, start
+
+
+def sv_config(addrs, **over):
+    """The FiloServer config of phase 15: 4 shards over the broker pair
+    (spread 2: a metric's series spread over all 4), the serving caches
+    off (every query executes, through K1 where it fuses)."""
+    from filodb_tpu_torch.config import Config, _deep_merge
+    base = {
+        "num_shards": SV_SHARDS, "spread": 2, "bus_addrs": addrs,
+        "ingest": {"partitions": SV_SHARDS, "replication": 2,
+                   "min_insync": 2, "epoch_fencing": True,
+                   "retry_backoff": "20ms", "publish_retries": 16},
+        "http": {"port": 0},
+        "query": {"result_cache_size": 0, "negative_cache_size": 0,
+                  "fragment_cache_size": 0},
+        "store": {"max_series_per_shard": 1024, "samples_per_series": 128,
+                  "flush_batch_size": 10**9, "groups_per_shard": 4},
+    }
+    return Config(_deep_merge(base, over))
+
+
+def sv_publisher(addrs, part):
+    from filodb_tpu_torch.ingest.broker import BrokerBus
+    return BrokerBus(addrs, part, publish_window=8, retry_backoff_ms=20,
+                     max_retries=16, epoch_fencing=True, track_acks=True)
+
+
+def sv_publish(buses, batches):
+    """Publish each batch's shard containers to their partitions (windowed,
+    acked); returns the rows published."""
+    rows = 0
+    for per_shard in batches:
+        for s, c in sorted(per_shard.items()):
+            buses[s].publish_batch([c])
+            rows += len(c)
+    return rows
+
+
+def sv_gateway_lines():
+    """Influx lines for metric m: SV_GW_SERIES counters x SV_GW_SAMPLES
+    samples on the stream's 10 s grid from its start (nanosecond
+    timestamps). On the grid, so the shards stay on K1's route; from the
+    start, because a series whose first resident sample is later than a
+    query's data start pages the shard's whole selection in from the sink
+    (core/memstore.py::needs_paging), at the sink's f64 precision, where
+    the direct memstore has no sink."""
+    out = []
+    for t in range(SV_GW_SAMPLES):
+        ts_ns = (BASE_TS + t * 10_000) * 1_000_000
+        for i in range(SV_GW_SERIES):
+            out.append(f"m,instance=gw-{i},dc=DC{i % 2},host=G{i % 4} "
+                       f"value={(i + 1) * (t + 1)}.0 {ts_ns}")
+    return out
+
+
+def sv_churn_lines():
+    """Influx lines for SV_CHURN_SERIES counters of metric m born at sample
+    SV_CHURN_FROM (series churn: a live node's new series start after a
+    query's data start)."""
+    out = []
+    for t in range(SV_CHURN_FROM, SV_SAMPLES):
+        ts_ns = (BASE_TS + t * 10_000) * 1_000_000
+        for i in range(SV_CHURN_SERIES):
+            out.append(f"m,instance=churn-{i},dc=DC{i % 2},host=C{i % 4} "
+                       f"value={(i + 1) * (t + 1)}.0 {ts_ns}")
+    return out
+
+
+def sv_send_lines(port, lines):
+    import socket
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.sendall(("\n".join(lines) + "\n").encode())
+
+
+def sv_oracle(np, pkg, dev, addrs, cfg):
+    """A port memstore on ``dev`` that ingested every partition's
+    containers straight from the broker (the same bytes the server
+    consumed), shard p from partition p; its engine."""
+    from filodb_tpu_torch.core.schemas import Schemas
+    from filodb_tpu_torch.ingest.broker import BrokerBus
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    StoreConfig, TimeSeriesMemStore, _rb, GAUGE, QueryEngine = pkg
+    ms = TimeSeriesMemStore(device=dev)
+    for s in range(SV_SHARDS):
+        ms.setup(SV_DS, GAUGE, s, cfg.store_config())
+        bus = BrokerBus(addrs, s)
+        try:
+            for off, c in bus.consume(Schemas()):
+                ms.ingest(SV_DS, s, c, off)
+        finally:
+            bus.close()
+    ms.flush_all()
+    return QueryEngine(ms, SV_DS, ShardMapper(SV_SHARDS, 2), device=dev)
+
+
+def sv_http(ep, q, rng=SV_RANGE):
+    return cl_http_query(ep, SV_DS, q, rng[0], rng[1], SV_STEP)
+
+
+def sv_wait(what, cond, timeout_s=120.0, poll_s=0.1):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            if cond():
+                return
+        except OSError:
+            pass                        # a node still coming up
+        assert time.monotonic() < deadline, f"{what}: timed out"
+        time.sleep(poll_s)
+
+
+def sv_want(oracle):
+    return {q: cl_prom(oracle.query_range(q, SV_RANGE[0], SV_RANGE[1],
+                                          SV_STEP)) for q in SV_QUERIES}
+
+
+def sv_check(fg, eps, want, what, dev="cuda") -> int:
+    """Every query on every endpoint over HTTP bit for bit ``want`` (the
+    JSON the oracle's result renders); K1 launched once a shard leaf for
+    the fused ones (4 a query, on the card). Returns K1's launches."""
+    total = 0
+    for ep in eps:
+        for q in SV_QUERIES:
+            reset_k1(fg)
+            body = sv_http(ep, q)
+            launched = fg.fused_grid_kernel.launches
+            total += launched
+            assert body["data"] == want[q], (what, ep, q)
+            fused = body["stats"]["fused_kernels"]
+            assert fused == (SV_SHARDS if SV_FUSED[q] else 0), \
+                (what, ep, q, fused)
+            if dev == "cuda":
+                assert launched == fused, (what, ep, q, launched, fused)
+    return total
+
+
+def sv_close(np, got, want, what) -> float:
+    """Two Prometheus JSON answers: the same series and steps, values within
+    rtol 1e-5 of the largest magnitude. Returns the largest |diff|."""
+    g = {json.dumps(r["metric"], sort_keys=True): r["values"]
+         for r in got["result"]}
+    w = {json.dumps(r["metric"], sort_keys=True): r["values"]
+         for r in want["result"]}
+    assert set(g) == set(w), what
+    worst = 0.0
+    for k, wv in w.items():
+        gv = g[k]
+        assert [t for t, _ in gv] == [t for t, _ in wv], (what, k)
+        a = np.array([float(v) for _, v in gv])
+        b = np.array([float(v) for _, v in wv])
+        scale = max(float(np.nanmax(np.abs(b))), 1e-30)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale,
+                                   equal_nan=True, err_msg=f"{what} {k}")
+        fin = np.isfinite(b)
+        if fin.any():
+            worst = max(worst, float(np.abs(a[fin] - b[fin]).max()))
+    return worst
+
+
+def sv_cpu_close(np, ep_cpu, want, what) -> float:
+    """The CPU server's answers within rtol 1e-5 of ``want``, waiting for
+    it to catch up (its consumers poll on their own cadence). Returns the
+    largest |diff|."""
+    def near():
+        try:
+            for q in SV_QUERIES:
+                sv_close(np, sv_http(ep_cpu, q)["data"], want[q], q)
+        except AssertionError:
+            return False
+        return True
+    sv_wait(what, near, 60, 0.2)
+    return max(sv_close(np, sv_http(ep_cpu, q)["data"], want[q],
+                        f"{what} {q}") for q in SV_QUERIES)
+
+
+@contextlib.contextmanager
+def sv_k1_args(fg, seen: list):
+    """Keep the arguments of every K1 pass the engine makes (for the
+    kernel-against-twin check on a server's own shard store)."""
+    real = fg.fused_grid_partials
+
+    def recording(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+
+    fg.fused_grid_partials = recording
+    try:
+        yield
+    finally:
+        fg.fused_grid_partials = real
+
+
+def sv_k1_vs_twin(torch, fg, server, ep, dev) -> float:
+    """One HTTP sum(rate) on ``server``; for each K1 pass it made, K1 again
+    on the same operands (the shard store's own block) against
+    ``fused_grid_aggregate_plain``: counts bit for bit, sums within rtol
+    1e-5 of the largest magnitude. Returns the largest |diff|."""
+    seen: list = []
+    with sv_k1_args(fg, seen):
+        sv_http(ep, SV_QUERIES[0])
+    assert len(seen) == SV_SHARDS, len(seen)
+    ptrs = {sh.store.val.data_ptr(): sh.shard_num
+            for sh in server.memstore.shards_of(SV_DS)}
+    worst = 0.0
+    before = fg.fused_grid_kernel.launches
+    for a, kw in seen:
+        fn, needs_sumsq, window_ms, interval_ms, val = a[:5]
+        assert val.data_ptr() in ptrs, "K1 streamed a block not the server's"
+        got = fg.fused_grid_partials(*a, **kw)
+        ref = fg.fused_grid_aggregate_plain(*a, **kw)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            g = g.double().cpu()
+            r = r.double().cpu()
+            if i == 1:
+                assert torch.equal(g, r), "K1 counts differ from the twin"
+            else:
+                scale = max(float(r.abs().max()), 1e-30)
+                d = float((g - r).abs().max())
+                assert d <= 1e-5 * scale, (d, scale)
+                worst = max(worst, d)
+    # the comparison launches are not the main path's
+    fg.fused_grid_kernel.launches = before
+    return worst
+
+
+def sv_churn(np, fg, srv, eps, settle_near, dev) -> dict:
+    """Series churn on a sink-backed server: SV_CHURN_SERIES counters born
+    mid-stream through the gateway. A shard whose selection holds a series
+    born after the query's data start pages that selection in from the
+    sink (core/memstore.py::needs_paging, the f64 paged route), so K1 does
+    not run on that leaf. The answers are held within rtol 1e-5 of a
+    sink-less memstore fed the broker directly (which runs K1 on every
+    shard); per query the rows paged in and K1's launches are returned."""
+    lines = sv_churn_lines()
+    g0 = srv.gateway._rows.value
+    sv_send_lines(srv.gateway.port, lines)
+    sv_wait("churn gateway", lambda: srv.gateway._rows.value
+            >= g0 + len(lines), 30, 0.02)
+    srv.gateway.bus_drain()
+    want = settle_near("churn", eps)
+    out = {"rows": len(lines), "max_diff": 0.0, "queries": {}}
+    for q in SV_QUERIES:
+        per = []
+        for ep in eps:
+            reset_k1(fg)
+            body = sv_http(ep, q)
+            launched = fg.fused_grid_kernel.launches
+            st = body["stats"]
+            if dev == "cuda":
+                assert launched == st["fused_kernels"], (q, ep, launched)
+            out["max_diff"] = max(out["max_diff"], sv_close(
+                np, body["data"], want[q], f"churn {q}"))
+            per.append({"rows_paged_in": st["rows_paged_in"],
+                        "fused_kernels": st["fused_kernels"],
+                        "k1": launched})
+        out["queries"][q] = per
+    paged = [p["rows_paged_in"] for p in out["queries"][SV_QUERIES[0]]]
+    assert sum(paged) > 0, "churn: no leaf paged in from the sink"
+    out["k1"] = sum(p["k1"] for per in out["queries"].values() for p in per)
+    return out
+
+
+@contextlib.contextmanager
+def sv_k1_events(torch, fg, pairs: list):
+    """CUDA events around every K1 pass the engine makes (on the server's
+    own threads), on the stream of the pass's device: (start, end) pairs
+    appended to ``pairs``. Touches no launch count."""
+    real = fg.fused_grid_partials
+
+    def timed(*a, **kw):
+        val = a[4]
+        if not val.is_cuda:
+            return real(*a, **kw)
+        stream = torch.cuda.current_stream(val.device)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(stream)
+        r = real(*a, **kw)
+        ev[1].record(stream)
+        pairs.append(ev)
+        return r
+
+    fg.fused_grid_partials = timed
+    try:
+        yield
+    finally:
+        fg.fused_grid_partials = real
+
+
+@contextlib.contextmanager
+def sv_stage_clocks(acc: dict):
+    """Host seconds, summed over threads, of the ingest path's stages: the
+    publisher's container encode (RecordContainer.to_bytes), the consumer's
+    decode (RecordContainer.from_bytes, on its decode-ahead thread) and the
+    shard's ingest (TimeSeriesShard.ingest, on the consumer thread)."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesShard
+    from filodb_tpu_torch.core.record import RecordContainer
+    for k in ("encode", "decode", "ingest"):
+        acc[k] = []
+    to_bytes = RecordContainer.to_bytes
+    from_bytes = RecordContainer.__dict__["from_bytes"]
+    ingest = TimeSeriesShard.ingest
+
+    def enc(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return to_bytes(self, *a, **kw)
+        finally:
+            acc["encode"].append(time.perf_counter() - t0)
+
+    def dec(cls, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return from_bytes.__func__(cls, *a, **kw)
+        finally:
+            acc["decode"].append(time.perf_counter() - t0)
+
+    def ing(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return ingest(self, *a, **kw)
+        finally:
+            acc["ingest"].append(time.perf_counter() - t0)
+
+    RecordContainer.to_bytes = enc
+    RecordContainer.from_bytes = classmethod(dec)
+    TimeSeriesShard.ingest = ing
+    try:
+        yield
+    finally:
+        RecordContainer.to_bytes = to_bytes
+        RecordContainer.from_bytes = from_bytes
+        TimeSeriesShard.ingest = ingest
+
+
+def sv_device_ms(torch, prof) -> float:
+    """Device time (ms) of every kernel and copy in a torch.profiler trace."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+
+
+def sv_audit(np, nodes, buses) -> dict:
+    """The pub-id audit over both broker nodes: per partition dense offsets,
+    unique pub-ids, every acked id logged, both nodes' logs and journals
+    identical. Returns {partition: frames}."""
+    out = {}
+    for p in range(SV_SHARDS):
+        items = [n._journals[p].items() for n in nodes]
+        assert items[0] == items[1], f"partition {p}: journals differ"
+        offs = [o for o, _ in items[0]]
+        ids = [i for _, i in items[0]]
+        assert offs == list(range(len(offs))), f"partition {p}: gaps"
+        assert len(set(ids)) == len(ids), f"partition {p}: duplicates"
+        assert set(buses[p].acked_ids) <= set(ids), f"partition {p}: lost"
+        f0 = [f for _o, f in nodes[0]._parts[p].frames_from(0)]
+        f1 = [f for _o, f in nodes[1]._parts[p].frames_from(0)]
+        assert f0 == f1, f"partition {p}: logs differ"
+        out[p] = len(offs)
+    return out
+
+
+def phase_server_small(torch, np, fg, pkg, dev="cuda") -> dict:
+    """Phase 15a: the server path at small size. Two BrokerServer nodes
+    (4 partitions, replication 2, min_insync 2, epoch fencing), a
+    FiloServer on ``dev`` with 4 shards, a data_dir sink, the gateway and a
+    file registrar, and a CPU FiloServer on the same brokers; SV_SERIES
+    SyntheticStream counters x SV_SAMPLES through BrokerBus and
+    SV_GW_SERIES x SV_GW_SAMPLES Influx lines through the gateway. The
+    queries over HTTP bit for bit a port memstore on ``dev`` fed the
+    broker's containers directly, within rtol 1e-5 of the CPU server;
+    K1 once a shard leaf and against its twin on the server's own store.
+    Then the leader broker killed mid-stream by a FaultPlan (and brought
+    back: min_insync 2), the pub-id audit, a restart of the server from its
+    sink and the broker's replay, and a live move of one shard to a second
+    FiloServer through POST /api/v1/cluster/rebalance: the answers stay
+    bit for bit the oracle's after each. Last, SV_CHURN_SERIES counters
+    born mid-stream through the gateway: the shards holding them page
+    their selections in from the sink (off K1's route), held within rtol
+    1e-5 of the oracle, with the rows paged in and K1's launches a query.
+    The gateway series and the stream's counters all start at the
+    stream's first sample, so that until then no leaf pages."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from filodb_tpu_torch.ingest.faults import FaultPlan, FaultRule
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    from filodb_tpu_torch.standalone import FiloServer
+    t_all = time.perf_counter()
+    out = {"k1": 0}
+    mapper = ShardMapper(SV_SHARDS, 2)
+    batches = sv_stream(np, mapper, SV_SERIES, SV_SAMPLES, SV_BATCH)
+    half = len(batches) // 2
+    kill = FaultRule("append", "kill_server", partition=0,
+                     at_offset=1 << 40)
+    plan = FaultPlan([kill])
+    servers: list = []
+    buses: dict = {}
+    with tempfile.TemporaryDirectory(prefix="filodb-server-") as tmp:
+        addrs, nodes, start_broker = sv_brokers(tmp, plan)
+        try:
+            reg = os.path.join(tmp, "members")
+            cluster = {"registrar": reg, "heartbeat_interval": "200ms",
+                       "stale_after": "10s", "min_members": 1,
+                       "join_timeout": "15s", "shard_fencing": True}
+            cfg_a = sv_config(addrs, data_dir=os.path.join(tmp, "data"),
+                              cluster=dict(cluster, self_addr="node-a"),
+                              ingest={"gateway_port": 0,
+                                      "gateway_flush_interval": "100ms"})
+            srv = FiloServer(cfg_a, device=dev).start()
+            servers.append(srv)
+            cpu = FiloServer(sv_config(addrs), device="cpu").start()
+            servers.append(cpu)
+            ep, ep_cpu = (f"127.0.0.1:{srv.http.port}",
+                          f"127.0.0.1:{cpu.http.port}")
+            buses.update({p: sv_publisher(addrs, p)
+                          for p in range(SV_SHARDS)})
+            rows = sv_publish(buses, batches[:half])
+            lines = sv_gateway_lines()
+            g0 = srv.gateway._rows.value
+            sv_send_lines(srv.gateway.port, lines)
+            # the gateway builds on its 100 ms cadence; its windowed
+            # publishers drain into the broker (acked) on bus_drain
+            sv_wait("gateway", lambda: srv.gateway._rows.value
+                    >= g0 + len(lines), 30, 0.02)
+            srv.gateway.bus_drain()
+
+            def converged(want, eps):
+                return all(sv_http(e, q)["data"] == want[q]
+                           for e in eps for q in SV_QUERIES)
+
+            def settle(what, eps):
+                # the oracle reads the broker as it is; the servers catch
+                # up within a poll or two
+                oracle = sv_oracle(np, pkg, dev, addrs, cfg_a)
+                want = sv_want(oracle)
+                sv_wait(what, lambda: converged(want, eps), 60, 0.2)
+                return oracle, want
+
+            def settle_near(what, eps):
+                # as settle, held at rtol 1e-5 (the paged route's f64)
+                want = sv_want(sv_oracle(np, pkg, dev, addrs, cfg_a))
+
+                def near():
+                    try:
+                        for e in eps:
+                            for q in SV_QUERIES:
+                                sv_close(np, sv_http(e, q)["data"], want[q],
+                                         q)
+                    except AssertionError:
+                        return False
+                    return True
+                sv_wait(what, near, 60, 0.2)
+                return want
+
+            oracle, want = settle("first half", [ep])
+            out["k1"] += sv_check(fg, [ep], want, "first half", dev)
+            out["max_cpu_diff"] = sv_cpu_close(np, ep_cpu, want, "cpu")
+            route = srv.engines[SV_DS].query_range(
+                SV_QUERIES[0], SV_RANGE[0], SV_RANGE[1], SV_STEP)
+            out["route"] = (route.exec_path, route.stats.fused_kernels)
+            assert route.exec_path == "local" \
+                and route.stats.fused_kernels == SV_SHARDS, out["route"]
+            out["k1_vs_twin"] = sv_k1_vs_twin(torch, fg, srv, ep, dev)
+
+            # the leader broker dies mid-stream: node 0 leads partition 0
+            kill.at_offset = nodes[0]._parts[0].end_offset + 2
+            t0 = time.perf_counter()
+            errs: list = []
+
+            def second_half():
+                try:
+                    sv_publish(buses, batches[half:])
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errs.append(e)
+
+            pub = threading.Thread(target=second_half, name="sv-publish")
+            pub.start()
+            sv_wait("kill", lambda: plan.fired, 60, 0.02)
+            # min_insync 2: the survivor sheds RETRY until the dead node
+            # comes back (REJOIN: its divergent tail truncated, caught up)
+            sv_wait("dead node down", lambda: nodes[0]._stopped
+                    and nodes[0]._thread is None, 30, 0.02)
+            start_broker(0)
+            pub.join(timeout=120)
+            assert not pub.is_alive() and not errs, errs
+            out["failover_s"] = time.perf_counter() - t0
+            out["failovers"] = {p: b.failover_count for p, b in buses.items()}
+            rows += sum(len(c) for per in batches[half:]
+                        for c in per.values())
+            out["rows"] = rows + len(lines)
+            sv_wait("rejoin", lambda: all(
+                nodes[0]._parts[p].end_offset == nodes[1]._parts[p].end_offset
+                for p in range(SV_SHARDS)), 60, 0.1)
+            out["frames"] = sv_audit(np, nodes, buses)
+            oracle, want = settle("after failover", [ep])
+            out["k1"] += sv_check(fg, [ep], want, "after failover", dev)
+            out["max_cpu_diff"] = max(out["max_cpu_diff"], sv_cpu_close(
+                np, ep_cpu, want, "cpu after failover"))
+
+            # restart the server from its sink and the broker's replay
+            t0 = time.perf_counter()
+            srv.shutdown()
+            servers.remove(srv)
+            srv = FiloServer(cfg_a, device=dev).start()
+            servers.append(srv)
+            ep = f"127.0.0.1:{srv.http.port}"
+            sv_wait("restart", lambda: converged(want, [ep]), 60, 0.2)
+            out["restart_s"] = time.perf_counter() - t0
+            out["k1"] += sv_check(fg, [ep], want, "after restart", dev)
+
+            # a live move of one shard to a second node
+            cfg_b = sv_config(addrs, data_dir=os.path.join(tmp, "data"),
+                              cluster=dict(cluster, self_addr="node-b"))
+            srv_b = FiloServer(cfg_b, device=dev).start()
+            servers.append(srv_b)
+            ep_b = f"127.0.0.1:{srv_b.http.port}"
+            sv_wait("b joined", lambda: "node-b" in srv.manager.nodes
+                    and srv._resolve_endpoint("node-b") is not None, 30)
+            assert srv_b.manager.shards_of_node(SV_DS, "node-b") == []
+            moved = SV_SHARDS - 1
+            t0 = time.perf_counter()
+            req = urllib.request.Request(
+                f"http://{ep}/api/v1/cluster/rebalance?dataset={SV_DS}"
+                f"&shard={moved}&to=node-b", method="POST", data=b"")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                reb = json.load(r)["data"]
+            assert reb["to"] == "node-b", reb
+            sv_wait("rebalance", lambda: converged(want, [ep, ep_b]), 60,
+                    0.2)
+            out["rebalance_s"] = time.perf_counter() - t0
+            assert srv.manager.node_of(SV_DS, moved) == "node-b"
+            assert srv_b.manager.node_of(SV_DS, moved) == "node-b"
+            assert moved in srv_b._fence.owned()
+            out["k1"] += sv_check(fg, [ep, ep_b], want, "after rebalance",
+                                  dev)
+
+            # series churn: counters born mid-stream page their shards'
+            # selections in from the sink, off K1's route
+            out["churn"] = sv_churn(np, fg, srv, [ep, ep_b], settle_near,
+                                    dev)
+            out["k1"] += out["churn"]["k1"]
+        finally:
+            for b in buses.values():
+                b.close()
+            for s in servers:
+                s.shutdown()
+            for n in nodes:
+                with contextlib.suppress(Exception):
+                    n.stop()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def phase_server_scale(torch, np, fg, card, pkg, dev="cuda") -> dict:
+    """Phase 15b: the server path at a deployment's size: 4 shards x
+    2^15 SyntheticStream counters (2^17 series) x 64 samples at 10 s, 8.4 M
+    samples through the two-node replicated broker into a FiloServer on
+    ``dev``. Prints publish rows/s, ingest rows/s (first publish to every
+    shard's consumer past the partition's end), the time from the last
+    publish until every sample answers, the host ms p50 over HTTP of
+    sum(rate(m[5m])) over all 2^17 series (K1 once a shard: 4 a query),
+    the card's memory in use; the answer bit for bit a port memstore fed
+    the same containers directly. On the card it also prints: the host
+    seconds of the ingest stages (encode, decode, shard ingest; summed
+    over threads), the card's busy share over the ingest window
+    (torch.profiler, device activity only, which traces that window),
+    CUDA events around K1's four passes of one query (the stream idles
+    between passes, so they hold each pass's host launch work too), and
+    from SV_SCALE_REPS traced queries K1's device time a launch, their
+    device ms and busy share of their host wall."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    from filodb_tpu_torch.standalone import FiloServer
+    StoreConfig, TimeSeriesMemStore, _rb, GAUGE, QueryEngine = pkg
+    t_all = time.perf_counter()
+    n_series = SV_SCALE_SERIES * SV_SHARDS
+    mapper = ShardMapper(SV_SHARDS, 2)
+    t0 = time.perf_counter()
+    batches = sv_stream(np, mapper, n_series, SV_SAMPLES, SV_SCALE_BATCH)
+    build_s = time.perf_counter() - t0
+    assert all(s in per for per in batches for s in range(SV_SHARDS))
+    cap = max(len(batches[0][s].label_sets) for s in range(SV_SHARDS))
+    rows = sum(len(c) for per in batches for c in per.values())
+    out: dict = {"rows": rows, "build_s": build_s}
+    servers: list = []
+    buses: dict = {}
+    with tempfile.TemporaryDirectory(prefix="filodb-server-scale-") as tmp:
+        addrs, nodes, _start = sv_brokers(tmp)
+        try:
+            cfg = sv_config(addrs, store={
+                "max_series_per_shard": cap, "samples_per_series": 128})
+            srv = FiloServer(cfg, device=dev).start()
+            servers.append(srv)
+            ep = f"127.0.0.1:{srv.http.port}"
+            buses.update({p: sv_publisher(addrs, p)
+                          for p in range(SV_SHARDS)})
+            on_card = torch.device(dev).type == "cuda"
+            stages: dict = {}
+            # the ingest window under torch.profiler (device activity
+            # only): the card's busy share while the broker feeds it
+            with contextlib.ExitStack() as trace:
+                prof = (trace.enter_context(profile(
+                    activities=[ProfilerActivity.CUDA])) if on_card
+                    else None)
+                trace.enter_context(sv_stage_clocks(stages))
+                t_pub0 = time.perf_counter()
+                sv_publish(buses, batches)
+                t_pub1 = time.perf_counter()
+                ends = {p: nodes[0]._parts[p].end_offset
+                        for p in range(SV_SHARDS)}
+                sv_wait("consumed", lambda: all(
+                    c._offset >= ends[c.shard.shard_num]
+                    for c in srv.consumers), 300, 0.01)
+                if on_card:
+                    torch.cuda.synchronize()
+                t_cons = time.perf_counter()
+            out["stages_s"] = {k: sum(v) for k, v in stages.items()}
+            out["stages_n"] = {k: len(v) for k, v in stages.items()}
+            if prof is not None:
+                out["ingest_device_ms"] = sv_device_ms(torch, prof)
+                out["ingest_busy"] = (out["ingest_device_ms"]
+                                      / ((t_cons - t_pub0) * 1e3))
+            full = f"sum(count_over_time(m[{SV_SAMPLES * 10}s]))"
+
+            def all_visible():
+                body = cl_http_query(ep, SV_DS, full, SV_RANGE[1],
+                                     SV_RANGE[1], SV_STEP)
+                res = body["data"]["result"]
+                return res and float(res[0]["values"][-1][1]) == rows
+            sv_wait("queryable", all_visible, 300, 0.05)
+            t_vis = time.perf_counter()
+            out.update(publish_s=t_pub1 - t_pub0,
+                       publish_rows_s=rows / (t_pub1 - t_pub0),
+                       ingest_rows_s=rows / (t_cons - t_pub0),
+                       visible_after_s=t_vis - t_pub1)
+            # the oracle: the same containers ingested directly
+            oms = TimeSeriesMemStore(device=dev)
+            for s in range(SV_SHARDS):
+                oms.setup(SV_DS, GAUGE, s, cfg.store_config())
+            for per in batches:
+                for s, c in per.items():
+                    oms.ingest(SV_DS, s, c)
+            oms.flush_all()
+            oracle = QueryEngine(oms, SV_DS, mapper, device=dev)
+            want = cl_prom(oracle.query_range(SV_QUERIES[0], *SV_RANGE[:2],
+                                              SV_STEP))
+            times = []
+            launched = []
+            for _ in range(1 + SV_SCALE_REPS):
+                reset_k1(fg)
+                t0 = time.perf_counter()
+                body = sv_http(ep, SV_QUERIES[0])
+                times.append((time.perf_counter() - t0) * 1000)
+                launched.append(fg.fused_grid_kernel.launches)
+                assert body["data"] == want, "scale answer differs"
+            if on_card:
+                assert launched == [SV_SHARDS] * len(launched), launched
+                out["mem_allocated"] = torch.cuda.memory_allocated()
+                out["mem_reserved"] = torch.cuda.memory_reserved()
+                # K1's passes of one query by CUDA events, then the card's
+                # busy share of SV_SCALE_REPS traced queries' host wall
+                pairs: list = []
+                reset_k1(fg)
+                with sv_k1_events(torch, fg, pairs):
+                    body = sv_http(ep, SV_QUERIES[0])
+                torch.cuda.synchronize()
+                assert body["data"] == want, "scale answer differs (timed)"
+                launched.append(fg.fused_grid_kernel.launches)
+                out["k1_ms"] = [s.elapsed_time(e) for s, e in pairs]
+                assert len(out["k1_ms"]) == SV_SHARDS, out["k1_ms"]
+                reset_k1(fg)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(SV_SCALE_REPS):
+                        body = sv_http(ep, SV_QUERIES[0])
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                assert body["data"] == want, "scale answer differs (traced)"
+                launched.append(fg.fused_grid_kernel.launches)
+                assert launched[-1] == SV_SHARDS * SV_SCALE_REPS, launched
+                out["query_device_ms"] = (sv_device_ms(torch, prof)
+                                          / SV_SCALE_REPS)
+                k1_rows = [e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and "fused_grid_map" in e.key]
+                n_k1 = sum(e.count for e in k1_rows)
+                out["k1_trace_ms"] = (sum(e.self_device_time_total
+                                          for e in k1_rows) / 1e3
+                                      / max(n_k1, 1))
+                out["k1_trace_n"] = n_k1
+                out["query_busy"] = (out["query_device_ms"] * SV_SCALE_REPS
+                                     / wall_ms)
+            out["k1"] = sum(launched)
+            out["first_ms"] = times[0]
+            out["p50_ms"] = float(np.percentile(times[1:], 50))
+            out["series"] = sum(sh.num_series
+                                for sh in srv.memstore.shards_of(SV_DS))
+            assert out["series"] == n_series, out["series"]
+        finally:
+            for b in buses.values():
+                b.close()
+            for s in servers:
+                s.shutdown()
+            for n in nodes:
+                with contextlib.suppress(Exception):
+                    n.stop()
+    out["seconds"] = time.perf_counter() - t_all
+    log(f"server scale [{card}]: {n_series} SyntheticStream counters x "
+        f"{SV_SAMPLES} samples ({rows} rows) over {SV_SHARDS} partitions "
+        f"(replication 2, min_insync 2) into a FiloServer on {dev}: "
+        f"containers built in {build_s:.2f} s; publish {out['publish_s']:.2f}"
+        f" s ({out['publish_rows_s']:.0f} rows/s), ingest "
+        f"{out['ingest_rows_s']:.0f} rows/s (first publish to every shard "
+        f"consumed), every sample queryable {out['visible_after_s']:.3f} s "
+        f"after the last publish; sum(rate(m[5m])) over HTTP: first "
+        f"{out['first_ms']:.3f} ms, p50 {out['p50_ms']:.3f} ms over "
+        f"{SV_SCALE_REPS}, K1 {SV_SHARDS} a query, bit for bit the direct "
+        f"memstore; card memory allocated {out.get('mem_allocated', 0)} B, "
+        f"reserved {out.get('mem_reserved', 0)} B "
+        f"({out['seconds']:.1f} s)")
+    st = out["stages_s"]
+    other = out["publish_s"] - st["encode"]
+    log(f"server scale stages [{card}]: host s summed over threads: "
+        f"containers built {build_s:.3f} (before the window); encode "
+        f"{st['encode']:.3f} ({out['stages_n']['encode']} containers), "
+        f"publish less encode {other:.3f} (the client's frames, the broker's "
+        f"append and replication), decode {st['decode']:.3f} "
+        f"({out['stages_n']['decode']}), shard ingest {st['ingest']:.3f} "
+        f"({out['stages_n']['ingest']}); ingest window "
+        f"{(t_cons - t_pub0):.3f} s")
+    if "k1_ms" in out:
+        log(f"server scale device [{card}]: ingest window device time "
+            f"{out['ingest_device_ms']:.3f} ms, busy share "
+            f"{out['ingest_busy']:.6f} (traced); sum(rate(m[5m])) over "
+            f"HTTP: CUDA events around K1's {SV_SHARDS} passes "
+            f"{[round(t, 4) for t in out['k1_ms']]} ms (sum "
+            f"{sum(out['k1_ms']):.4f}; the stream idles between, so they "
+            f"hold the pass's host launch work too); traced: K1 "
+            f"{out['k1_trace_ms']:.4f} ms a launch ({out['k1_trace_n']} "
+            f"launches), device time {out['query_device_ms']:.4f} ms a "
+            f"query, busy share {out['query_busy']:.4f} of "
+            f"{SV_SCALE_REPS} queries' host wall")
+    return out
+
+
+def phase_server_procs(card, dev="cuda") -> dict:
+    """Phase 15c: entry.dryrun_multichip's step 5 on ``dev``: two FiloServer
+    processes (python -m filodb_tpu_torch.cli serve), each owning one of
+    two shards, over one port broker and a file registrar; both answer the
+    spanning queries bit for bit as one memstore holding both shards."""
+    from filodb_tpu_torch.entry import two_process_query_check
+    r = two_process_query_check(dev)
+    log(f"server procs [{card}]: two FiloServer processes (cli serve "
+        f"--device {r['device']}) up and answering in {r['up_s']:.1f} s; "
+        f"sum(rate), count and topk over HTTP on both nodes bit for bit "
+        f"one memstore of both shards ({r['seconds']:.1f} s)")
+    return r
+
+
+def phase_server(torch, np, fg, card, pkg, dev="cuda") -> int:
+    """Phase 15 (15a, 15b, 15c). Returns K1's launches on its main paths."""
+    t0 = time.perf_counter()
+    a = phase_server_small(torch, np, fg, pkg, dev)
+    log(f"server small [{card}]: two broker nodes (4 partitions, "
+        f"replication 2, min_insync 2, epoch fencing), a FiloServer on "
+        f"{dev} with 4 shards, a data_dir sink and the gateway, a CPU "
+        f"FiloServer beside it; {a['rows']} rows ({SV_SERIES} counters x "
+        f"{SV_SAMPLES} through BrokerBus, {SV_GW_SERIES * SV_GW_SAMPLES} "
+        f"Influx lines); {len(SV_QUERIES)} queries over HTTP bit for bit a "
+        f"memstore fed the broker's containers directly, the CPU server "
+        f"within rtol 1e-5 (max |diff| {a['max_cpu_diff']:.3g}); route "
+        f"{a['route']}; K1 against its twin on the server's shard stores "
+        f"max |diff| {a['k1_vs_twin']:.3g}; leader killed at partition 0 "
+        f"and back in {a['failover_s']:.2f} s (client failovers "
+        f"{a['failovers']}), audit: frames {a['frames']}, 0 lost, 0 "
+        f"duplicated, the two logs identical; restart from the sink "
+        f"{a['restart_s']:.2f} s; shard {SV_SHARDS - 1} moved live in "
+        f"{a['rebalance_s']:.2f} s; every answer the same after each; K1 "
+        f"launches {a['k1']} ({a['seconds']:.1f} s)")
+    ch = a["churn"]
+    log(f"server churn [{card}]: {SV_CHURN_SERIES} counters born at sample "
+        f"{SV_CHURN_FROM} through the gateway ({ch['rows']} lines): the "
+        f"sink-backed nodes within rtol 1e-5 of the sink-less memstore "
+        f"(max |diff| {ch['max_diff']:.3g}); by query, per node "
+        f"(rows_paged_in, fused_kernels, K1 launches): "
+        + "; ".join(f"{q} " + str([(p['rows_paged_in'], p['fused_kernels'],
+                                    p['k1']) for p in per])
+                    for q, per in ch["queries"].items()))
+    b = phase_server_scale(torch, np, fg, card, pkg, dev)
+    phase_server_procs(card, dev)
+    log(f"server: phase 15 done in {time.perf_counter() - t0:.1f} s")
+    return a["k1"] + b["k1"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4853,6 +5774,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_durable_scale(torch, np, fg, card, pkg)
         log(f"durable scale: done in {time.perf_counter() - t0:.1f} s")
+        return 0
+    if sys.argv[1:2] == ["--server"]:
+        # not part of the smoke run: phase 15 alone
+        kernels.build()
+        phase_server(torch, np, fg, card, pkg)
         return 0
     if sys.argv[1:2] == ["--cluster"]:
         # not part of the smoke run: phase 14 alone, on phase 11b's shards
@@ -5049,6 +5975,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"cluster: phase 14 done in {time.perf_counter() - t14:.1f} s")
+    k1_15 = phase_server(torch, np, fg, card, pkg)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     k1_13b = phase_durable_scale(torch, np, fg, card, pkg)
     gc.collect()
@@ -5079,10 +6008,11 @@ def main() -> int:
     k1_13a_raw = sum(v for w, v in k1_13a.items() if "[" not in w) \
         - sum(k1_13a_narrow.values())
     # phase 14: the cluster plane's nodes (14a raw in-process, 14b the
-    # adopted delta8 shards, 14c the node processes' raw shards)
+    # adopted delta8 shards, 14c the node processes' raw shards); phase 15:
+    # the FiloServer's shard leaves over HTTP (15a, 15b)
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
         + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b \
-        + k1_14a + k1_14b["raw"] + k1_14c
+        + k1_14a + k1_14b["raw"] + k1_14c + k1_15
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
@@ -5091,7 +6021,8 @@ def main() -> int:
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
         f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
-        f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}; "
+        f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}, "
+        f"15 {k1_15}; "
         f"K1-delta8 over a recovered shard (13a) "
         f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
         f"and the two-node split (14b) "

@@ -301,8 +301,8 @@ def dryrun_multichip(n_devices: int = 8, device=None) -> dict:
     """The multi-device sharded query and ingest step on ``n_devices``
     shards, each on its own mesh device (every card of this process by
     default, round robin; ``device="cpu"``: ``["cpu"] * n_devices``).
-    Port of steps 1-4 of ``__graft_entry__._dryrun_impl`` (ref: the
-    multi-jvm specs' ingest -> churn -> recover -> query parity,
+    Port of ``__graft_entry__._dryrun_impl`` (ref: the multi-jvm specs'
+    ingest -> churn -> recover -> query parity,
     IngestionAndRecoverySpec.scala:41-59):
 
     1. 1024 series x 200 samples a shard, registered through the real
@@ -315,11 +315,11 @@ def dryrun_multichip(n_devices: int = 8, device=None) -> dict:
        histogram_quantile against one shard;
     4. a shard killed and recovered from its durable sink, then queried
        again on the mesh; eviction under slot pressure and an on-demand
-       page-in on a sink-backed store.
+       page-in on a sink-backed store;
+    5. two FiloServer processes over one broker and a file registrar, each
+       owning one of two shards (:func:`two_process_query_check`).
 
-    The reference's step 5 (two standalone servers over a broker) waits
-    for the port's standalone server and broker. Returns the routes and
-    checks; raises on any divergence."""
+    Returns the routes and checks; raises on any divergence."""
     import tempfile
 
     from .core.memstore import StoreConfig, TimeSeriesMemStore
@@ -503,7 +503,189 @@ def dryrun_multichip(n_devices: int = 8, device=None) -> dict:
         for i in range(len(pids)):
             np.testing.assert_allclose(val_a[i, :40], np.arange(40.0))
     out["evicted_paged"] = True
+
+    # two OS processes, each a full FiloServer owning half the shards, with
+    # cross-node plan dispatch answering spanning queries on both nodes
+    out["two_process"] = two_process_query_check(
+        "cpu" if devs[0].type == "cpu" else None)
     return out
+
+
+def _two_node_config(reg: str, self_addr: str, broker_addr: str) -> dict:
+    """One node of step 5: 2 shards over the broker, a file registrar of
+    two members, small stores."""
+    return {
+        "num_shards": 2, "bus_addr": broker_addr, "http": {"port": 0},
+        "cluster": {"registrar": reg, "self_addr": self_addr,
+                    "heartbeat_interval": "200ms", "stale_after": "10s",
+                    "min_members": 2, "join_timeout": "60s"},
+        "store": {"max_series_per_shard": 16, "samples_per_series": 64,
+                  "flush_batch_size": 10**9},
+    }
+
+
+def two_process_query_check(device=None, timeout_s: float = 240.0) -> dict:
+    """Step 5: spawn two FiloServer processes (``python -m
+    filodb_tpu_torch.cli serve --config ... --device ...``, fresh
+    interpreters: never a fork after CUDA started) sharing a port broker
+    and a file registrar, each owning one of two shards on ``device``
+    (``cuda`` when None). Publish distinct series to each partition; both
+    nodes must answer the spanning ``sum(rate)`` and ``count`` through
+    query_range and query over HTTP (each fetching the peer shard's
+    partials via /exec) bit for bit as one memstore holding both shards,
+    and ``topk`` must pick the same winners. Returns the seconds until
+    both nodes served and the answers."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import time
+    import urllib.parse
+    import urllib.request
+
+    from .core.memstore import StoreConfig, TimeSeriesMemStore
+    from .core.record import RecordBuilder
+    from .core.schemas import GAUGE
+    from .http.api import matrix_to_prom_json
+    from .ingest.broker import BrokerBus, BrokerServer
+    from .parallel.bootstrap import FileRegistrarDiscovery
+    from .parallel.shardmapper import ShardMapper
+    from .query.engine import QueryEngine
+
+    dev = resolve_device(device)
+    base = BASE_TS
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="filodb-two-node-") as tmp:
+        reg = os.path.join(tmp, "members")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        broker = None
+        procs: list = []
+        logs: list = []
+
+        def check_children():
+            """Raise with a dead child's log tail (child output goes to
+            files, never a pipe: a chatty child must not block on a full
+            pipe and stall its heartbeats)."""
+            for p, lg in zip(procs, logs):
+                if p.poll() is not None:
+                    with open(lg) as f:
+                        raise RuntimeError(
+                            f"two-node child died (rc={p.returncode}): "
+                            f"{f.read()[-3000:]}")
+
+        try:
+            broker = BrokerServer(os.path.join(tmp, "broker"),
+                                  num_partitions=2).start()
+            for name in ("node-a:1", "node-b:1"):
+                stem = os.path.join(tmp, name.replace(":", "_"))
+                with open(stem + ".json", "w") as f:
+                    json.dump(_two_node_config(
+                        reg, name, f"127.0.0.1:{broker.port}"), f)
+                logs.append(stem + ".log")
+                with open(stem + ".log", "w") as out:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "filodb_tpu_torch.cli",
+                         "serve", "--config", stem + ".json", "--device",
+                         str(dev)],
+                        cwd=repo, env=env, stdout=out,
+                        stderr=subprocess.STDOUT))
+            # endpoints come from the registrar heartbeats the servers publish
+            eps: dict = {}
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline and len(eps) < 2:
+                eps = FileRegistrarDiscovery(reg, stale_s=30).endpoints()
+                check_children()
+                time.sleep(0.2)
+            assert len(eps) == 2, f"endpoints never published: {eps}"
+            oms = TimeSeriesMemStore(device=dev)
+            for s in (0, 1):
+                oms.setup("prometheus", GAUGE, s, StoreConfig(
+                    max_series_per_shard=16, samples_per_series=64,
+                    flush_batch_size=10**9))
+            for s in (0, 1):
+                b = RecordBuilder(GAUGE)
+                for t in range(30):
+                    for i in range(2):
+                        b.add({"_metric_": "tm", "host": f"s{s}h{i}"},
+                              base + t * 10_000, float((s + 1) * t))
+                c = b.build()
+                prod = BrokerBus(f"127.0.0.1:{broker.port}", s)
+                try:
+                    prod.publish(c)
+                finally:
+                    prod.close()
+                oms.ingest("prometheus", s, c)
+            oms.flush_all()
+            oracle = QueryEngine(oms, "prometheus", ShardMapper(2),
+                                 device=dev)
+            rng = (base + 150_000, base + 290_000, 30_000)
+
+            def q(ep, query, kind="query_range"):
+                if kind == "query_range":
+                    params = urllib.parse.urlencode({
+                        "query": query, "start": rng[0] / 1000.0,
+                        "end": rng[1] / 1000.0, "step": "30s"})
+                else:
+                    params = urllib.parse.urlencode({
+                        "query": query, "time": rng[1] / 1000.0})
+                url = f"http://{ep}/promql/prometheus/api/v1/{kind}?{params}"
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    return json.load(r)["data"]["result"]
+
+            # wait until BOTH nodes answer the spanning count with all 4
+            # series (consumers poll every 0.5 s)
+            ready = set()
+            while time.monotonic() < deadline and len(ready) < 2:
+                check_children()
+                for ep in eps.values():
+                    try:
+                        res = q(ep, "count(tm)", "query")
+                    except OSError:
+                        continue        # still warming up
+                    if res and float(res[0]["value"][1]) == 4.0:
+                        ready.add(ep)
+                time.sleep(0.2)
+            assert len(ready) == 2, \
+                "spanning count(tm) never reached 4 on both nodes"
+            up_s = time.perf_counter() - t_all
+            answers = {}
+            for query in ("sum(rate(tm[2m]))", "count(tm)"):
+                want = matrix_to_prom_json(oracle.query_range(
+                    query, *rng))["result"]
+                for ep in sorted(eps.values()):
+                    got = q(ep, query)
+                    assert got == want, (ep, query, got, want)
+                answers[query] = want
+            (series,) = answers["sum(rate(tm[2m]))"]
+            assert all(abs(float(v) - 0.6) < 1e-3
+                       for _, v in series["values"]), series
+            want = matrix_to_prom_json(oracle.query_instant(
+                "sum(rate(tm[2m]))", rng[1]))["result"]
+            for ep in eps.values():
+                assert q(ep, "sum(rate(tm[2m]))", "query") == want, ep
+                # grouped spanning topk through TopKPartial over the wire
+                hosts = {r["metric"]["host"]
+                         for r in q(ep, "topk(2, rate(tm[2m]))")}
+                assert hosts == {"s1h0", "s1h1"}, (ep, hosts)
+            check_children()
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+            for p in procs:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=10)
+            if broker is not None:
+                broker.stop()
+    return {"device": str(dev), "up_s": up_s, "nodes": sorted(eps),
+            "answers": answers,
+            "seconds": time.perf_counter() - t_all}
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ node's card and its partials go back in the wire's tagged binary.
 Routes: query_range and query (``tenant``, ``resolution``), /exec (one
 envelope or a batch), /api/v1/epochs, labels, label values and series
 (``local=1`` marks a peer's fan-out leg), /metrics, /__health,
-/api/v1/cluster/status, the debug pages (traces, slow queries, the
-fragment cache) and /api/v1/subscribe. Errors map as the reference's do:
+/api/v1/cluster/status with the server's elasticity extras, the live
+shard moves (POST /api/v1/cluster/rebalance and /adopt), the debug pages
+(traces, slow queries, the sampling profiler, the fragment cache) and
+/api/v1/subscribe. Errors map as the reference's do:
 422 bad data, 503 with Retry-After on an admission shed, 503 when the
 scheduler or the peer-leg budget is saturated or a peer's breaker is open,
 504 on a timeout, 429 from the cardinality governor.
@@ -97,20 +99,27 @@ class FiloHttpServer:
 
     def __init__(self, engines: dict[str, QueryEngine], host="127.0.0.1",
                  port=8080, cluster=None, scheduler=None,
+                 cluster_ops: dict | None = None,
                  subscribe_poll_s: float = 0.1):
         """``scheduler``: optional QueryScheduler — query work runs through
         its priority lanes (ref: QueryActor priority mailbox) instead of
         directly on the HTTP handler thread. ``cluster``: the ShardManager
-        /api/v1/cluster/status reports."""
+        /api/v1/cluster/status reports.
+        ``cluster_ops``: optional elasticity hooks from the FiloServer —
+        ``extra()`` enriches /api/v1/cluster/status (membership table,
+        epochs, last failover), ``rebalance(dataset, shard, to)`` and
+        ``adopt(dataset, shard)`` drive live shard moves."""
         self.engines = engines
         self.cluster = cluster
         self.scheduler = scheduler
-        # hooks the reference's server fills from subsystems the port does
-        # not have yet: the rules evaluator (/api/v1/rules, /api/v1/alerts
-        # answer 404 while None) and the sampling profiler
-        # (/api/v1/debug/profile reports it stopped)
+        self.cluster_ops = cluster_ops or {}
+        # the rules evaluator's hook (/api/v1/rules, /api/v1/alerts answer
+        # 404 while None): the rules subsystem is not ported yet
         self.rules = None
+        # debug-plane profiler slot (/api/v1/debug/profile start/stop/
+        # report); FiloServer hands over its config-started SimpleProfiler
         self.profiler = None
+        self._profiler_lock = threading.Lock()
         # admission control for peer fan-out legs (/exec, read?local=1):
         # they must NOT queue behind the scheduler's QUERY lane (the root
         # request holds a QUERY worker blocked on this response — two
@@ -200,12 +209,20 @@ class FiloHttpServer:
 
     def stop(self):
         """Deterministic teardown: stop the acceptor, release the listening
-        socket, join the serve thread with a timeout."""
+        socket, join the serve thread with a timeout, and stop the debug
+        plane's profiler — a sampler started via /api/v1/debug/profile
+        lives only on this server and must not outlive it (stop() is
+        idempotent, so a config-started profiler the FiloServer also stops
+        is fine)."""
         self._server.shutdown()
         self._server.server_close()
         if self._thread is not None:
             self._thread.join(timeout=3)
             self._thread = None
+        with self._profiler_lock:
+            prof, self.profiler = self.profiler, None
+        if prof is not None:
+            prof.stop()
 
     def _sync_shard_stats(self) -> None:
         """Refresh per-shard ingest/eviction gauges on each scrape (ref:
@@ -288,6 +305,29 @@ class FiloHttpServer:
                 return
             data = (self.rules.rules_payload() if path.endswith("/rules")
                     else self.rules.alerts_payload())
+            h._send(200, {"status": "success", "data": data})
+            return
+        if path in ("/api/v1/cluster/rebalance", "/api/v1/cluster/adopt") \
+                and h.command == "POST":
+            # live shard moves (cluster/: flush→handoff→catch-up→cutover);
+            # rebalance POSTs to the current owner, adopt is its
+            # server-to-server receiving leg
+            which = path.rsplit("/", 1)[1]
+            hook = self.cluster_ops.get(which)
+            if hook is None:
+                h._send(404, {"status": "error",
+                              "error": f"no {which} hook on this server "
+                                       "(standalone cluster mode only)"})
+                return
+            try:
+                if which == "rebalance":
+                    data = hook(q["dataset"], int(q["shard"]), q["to"])
+                else:
+                    data = hook(q["dataset"], int(q["shard"]))
+            except KeyError as e:
+                raise QueryError(f"missing {which} parameter: {e}") from None
+            except ValueError as e:
+                raise QueryError(f"bad {which} parameter: {e}") from None
             h._send(200, {"status": "success", "data": data})
             return
         if path == "/api/v1/cluster/status" or path.startswith("/api/v1/cluster/"):
@@ -488,14 +528,31 @@ class FiloHttpServer:
                           "data": slow_query_log.entries(limit)})
             return
         if which == "profile":
-            # the sampling profiler is not ported: the page reports it
-            # stopped, and asking it to start is a client error
-            if q.get("action", "report") == "start":
-                h._send(404, {"status": "error",
-                              "error": "no profiler on this server"})
-                return
-            h._send(200, {"status": "success",
-                          "data": {"running": False, "report": None}})
+            action = q.get("action", "report")
+            with self._profiler_lock:
+                prof = self.profiler
+                if action == "start":
+                    if prof is None:
+                        from ..utils.profiler import SimpleProfiler
+                        iv = float(q.get("interval_s") or 0.1)
+                        prof = self.profiler = SimpleProfiler(iv).start()
+                    h._send(200, {"status": "success",
+                                  "data": {"running": True}})
+                    return
+                if action == "stop":
+                    report = None
+                    if prof is not None:
+                        prof.stop()
+                        report = prof.report()
+                        self.profiler = None
+                    h._send(200, {"status": "success",
+                                  "data": {"running": False,
+                                           "report": report}})
+                    return
+                h._send(200, {"status": "success",
+                              "data": {"running": prof is not None,
+                                       "report": prof.report()
+                                       if prof is not None else None}})
             return
         if which == "fragment_cache":
             # incremental-serving observability: per-engine stats + the
@@ -673,4 +730,11 @@ class FiloHttpServer:
                  "numSeries": s.num_series}
                 for ds, e in list(self.engines.items())
                 for s in e.memstore.shards_of(ds)]}
-        return self.cluster.status()
+        data = self.cluster.status()
+        extra = self.cluster_ops.get("extra")
+        if extra is not None:
+            # elasticity surface: membership table, epochs, known-bad
+            # windows, last failover — merged beside nodes/datasets so the
+            # legacy status consumers keep working
+            data = {**data, **extra()}
+        return data

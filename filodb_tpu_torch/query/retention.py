@@ -1,7 +1,7 @@
 """Retention subsystem: downsample-aware query routing over the tiered store.
 
-Host copy of ``filodb_tpu/query/retention.py``, with its own copy of the
-configuration's duration parser (``parse_duration_ms``). No device code.
+Host copy of ``filodb_tpu/query/retention.py``; durations parse through
+the configuration's ``parse_duration_ms``. No device code.
 
 Reference: the reference FiloDB serves long-term data from a separate
 downsample cluster reading the multi-resolution downsample datasets the
@@ -29,8 +29,8 @@ Decision rule (``RetentionPolicy.decide``):
 from __future__ import annotations
 
 import logging
-import re
 
+from ..config import parse_duration_ms
 from ..utils.metrics import FILODB_RETENTION_ROUTED_QUERIES, registry
 from ..utils.tracing import SPAN_QUERY_RETENTION, span
 from .rangevector import QueryError, QueryResult, QueryStats
@@ -38,19 +38,6 @@ from .rangevector import QueryError, QueryResult, QueryStats
 log = logging.getLogger(__name__)
 
 RAW = 0     # the sentinel resolution of the raw tier
-
-_DUR = {"ms": 1, "s": 1000, "m": 60_000, "h": 3_600_000, "d": 86_400_000}
-
-
-def parse_duration_ms(v) -> int:
-    """``"90s"`` / ``"1m"`` / ``"1.5h"`` / a number of ms -> ms (the
-    reference configuration's duration spelling)."""
-    if isinstance(v, (int, float)):
-        return int(v)
-    m = re.fullmatch(r"(\d+(?:\.\d+)?)(ms|[smhd])", str(v))
-    if not m:
-        raise ValueError(f"bad duration {v!r}")
-    return int(float(m.group(1)) * _DUR[m.group(2)])
 
 # range functions that need >= 2 samples in the window (the kernels' cnt>=2
 # presence rule): their widened floor is TWO downsample buckets; the

@@ -28,6 +28,14 @@ lock_debug = os.environ.get("FILODB_LOCK_DEBUG", "") == "1"
 _tls = threading.local()
 
 
+def enable(on: bool = True) -> None:
+    """Turn the caller-holds-lock assertions on or off (the server's
+    ``diagnostics.enabled``; process-global, so a later server in the same
+    process can turn it back off)."""
+    global enabled
+    enabled = on
+
+
 def _held_locks() -> list:
     held = getattr(_tls, "held", None)
     if held is None:

@@ -9,7 +9,11 @@ per-tenant cardinality governor), and the durable and retention tiers
 (index recovery, paged-in and aged-out samples, routed queries, widened
 windows), and the cluster plane (cross-node dispatches, their latency and
 circuit breakers, replica read failovers, the per-shard gauges a scrape
-refreshes). Metric names are the reference's, so dashboards read both;
+refreshes), and the ingest plane and the elastic cluster (rows the
+consumers and the gateway ingested, decode and parse errors, the broker
+clients' retries, failovers, sheds and publish latency, replication lag,
+gossip rounds, peer states, epochs, fenced writes, rebalances, rejoin
+truncations, the shard-status gauges). Metric names are the reference's, so dashboards read both;
 ``MetricsRegistry.expose_prometheus`` renders the reference's text format.
 """
 
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import threading
 from bisect import bisect_right
+from collections import defaultdict
 
 FILODB_QUERY_LATENCY_MS = "filodb_query_latency_ms"
 FILODB_QUERY_FUSED_SERVED = "filodb_query_fused_served"
@@ -95,6 +100,36 @@ FILODB_RETENTION_REPLICA_FAILOVER = "filodb_retention_replica_failover"
 FILODB_SHARD_NUM_SERIES = "filodb_shard_num_series"
 # counter: increments a streaming subscription delivered
 FILODB_QUERY_SUBSCRIBE_INCREMENTS = "filodb_query_subscribe_increments"
+# the ingest plane: rows the bus consumers ingested (dataset/shard), samples
+# the line-protocol gateway accepted and lines it dropped, decode faults of
+# the consumers' decode-ahead thread
+FILODB_INGESTED_ROWS = "filodb_ingested_rows"
+FILODB_GATEWAY_INGESTED_ROWS = "filodb_gateway_ingested_rows"
+FILODB_GATEWAY_PARSE_ERRORS = "filodb_gateway_parse_errors"
+FILODB_INGEST_DECODE_ERRORS = "filodb_ingest_decode_errors"
+# broker clients: re-sends after a RETRY shed or a reconnect, leader
+# failovers, publishes shed by a broker (tagged reason), and the publish
+# round-trip latency histogram (per partition)
+FILODB_INGEST_RETRIES = "filodb_ingest_retries"
+FILODB_INGEST_FAILOVERS = "filodb_ingest_failovers"
+FILODB_INGEST_PUBLISH_SHED = "filodb_ingest_publish_shed"
+FILODB_INGEST_PUBLISH_LATENCY_MS = "filodb_ingest_publish_latency_ms"
+# gauge: frames a follower is behind its partition's leader
+FILODB_INGEST_REPLICATION_LAG = "filodb_ingest_replication_lag"
+# counter: gateway lines carrying the reserved rules label, refused
+FILODB_RULES_SPOOF_REJECTS = "filodb_rules_spoof_rejects"
+# the elastic cluster: gossip probe rounds, the peer state a node sees
+# (gauge: 0 alive, 1 suspect, 2 dead), partition/shard epochs (gauge),
+# writes refused below the current epoch, live shard moves, and the frames
+# a rejoining broker truncated from its divergent tail
+FILODB_CLUSTER_GOSSIP_ROUNDS = "filodb_cluster_gossip_rounds"
+FILODB_CLUSTER_PEER_STATE = "filodb_cluster_peer_state"
+FILODB_CLUSTER_EPOCH = "filodb_cluster_epoch"
+FILODB_CLUSTER_FENCED_REJECTS = "filodb_cluster_fenced_rejects"
+FILODB_CLUSTER_REBALANCES = "filodb_cluster_rebalances"
+FILODB_CLUSTER_REJOIN_TRUNCATED = "filodb_cluster_rejoin_truncated"
+# gauge: shards of a dataset in each status (Active, Recovery, ...)
+FILODB_SHARD_STATUS = "filodb_shard_status"
 
 
 class Counter:
@@ -200,3 +235,21 @@ class MetricsRegistry:
 
 
 registry = MetricsRegistry()
+
+
+class ShardHealthStats:
+    """Ref: coordinator/.../ShardHealthStats.scala — gauges per dataset for
+    active/recovering/down shard counts fed from ShardManager snapshots."""
+
+    def __init__(self, dataset: str, reg: MetricsRegistry = registry):
+        self.dataset = dataset
+        self.reg = reg
+
+    def update(self, snapshot: dict) -> None:
+        counts = defaultdict(int)
+        for info in snapshot.values():
+            counts[info["status"]] += 1
+        for status in ("Active", "Assigned", "Recovery", "Down", "Unassigned"):
+            self.reg.gauge(FILODB_SHARD_STATUS,
+                           {"dataset": self.dataset, "status": status}
+                           ).update(counts.get(status, 0))

@@ -3,8 +3,10 @@
 Host copy of the span recorder of ``filodb_tpu/utils/tracing.py``, limited
 to what the port opens (the query's stages, admission, the fragment cache's
 delta evaluation, a subscription's increment, on-demand paging,
-retention routing, and a query's cross-node dispatch and its peer-side
-serve): ``with span(SPAN_QUERY_EXECUTE, ...)`` records one span into a
+retention routing, a query's cross-node dispatch and its peer-side
+serve, and the ingest plane: the broker's publish, append and
+replication, the consumer's drain, the gateway's publish and the cluster's
+gossip, epoch lead, rejoin and rebalance): ``with span(SPAN_QUERY_EXECUTE, ...)`` records one span into a
 bounded ring, parented under the innermost open frame of the thread.
 Durations come from the monotonic clock; the wall clock is read once per
 span for its start timestamp.
@@ -15,13 +17,16 @@ Context crosses threads and the wire as the reference's does:
 one on the receiving thread, and ``wrap(fn)`` binds the caller's frame to
 work handed to a pool. The sampling decision rides the frame, so a trace
 records on every node or on none. ``traces()`` assembles the ring parent
-to child for the debug page; ``export_zipkin_json`` is its Zipkin v2 form.
+to child for the debug page; ``export_zipkin_json`` is its Zipkin v2 form,
+and ``ZipkinReporter`` ships the ring to a collector on a cadence. The
+sampling decision is made once at a trace root (``sample_rate``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import random
 import threading
@@ -29,7 +34,9 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
-from .metrics import FILODB_TRACE_SPANS, registry
+from .metrics import FILODB_SWALLOWED_ERRORS, FILODB_TRACE_SPANS, registry
+
+log = logging.getLogger("filodb_tpu_torch.tracing")
 
 SPAN_QUERY = "query"
 SPAN_QUERY_PARSE = "query.parse"
@@ -55,6 +62,21 @@ SPAN_ODP_DURABLE = "query.odp.durable"
 # routed or stitched leg queries hang under it (tags: dataset, resolution,
 # stitched)
 SPAN_QUERY_RETENTION = "query.retention"
+# the ingest plane: a client's publish group, the broker's append, its
+# replication batch and the follower's serve of it, one consumer drain, and
+# one gateway flush
+SPAN_INGEST_PUBLISH = "ingest.publish"
+SPAN_BROKER_APPEND = "ingest.broker.append"
+SPAN_REPLICATE = "ingest.replicate"
+SPAN_REPLICATE_SERVE = "ingest.replicate.serve"
+SPAN_INGEST_CONSUME = "ingest.consume"
+SPAN_GATEWAY_PUBLISH = "ingest.gateway.publish"
+# the elastic cluster: one gossip probe round, an epoch claim, a deposed
+# broker's rejoin, a live shard move
+SPAN_CLUSTER_GOSSIP = "cluster.gossip"
+SPAN_CLUSTER_LEAD = "cluster.epoch.lead"
+SPAN_CLUSTER_REJOIN = "cluster.rejoin"
+SPAN_CLUSTER_REBALANCE = "cluster.rebalance"
 
 
 @dataclass
@@ -66,6 +88,9 @@ class SpanRecord:
     start_us: int
     duration_us: int
     tags: dict = field(default_factory=dict)
+    # monotonic record sequence (per tracer): exporters keep a watermark
+    # against it
+    seq: int = 0
 
     def to_dict(self) -> dict:
         return {"trace_id": self.trace_id, "span_id": self.span_id,
@@ -90,7 +115,10 @@ class Tracer:
         self.spans: deque[SpanRecord] = deque(maxlen=capacity)
         self._local = threading.local()
         self._lock = threading.Lock()
+        self._seq = 0
+        self.log_spans = False
         self.enabled = True
+        self.sample_rate = 1.0
         self._span_counter = registry.counter(FILODB_TRACE_SPANS)
 
     def _stack(self) -> list:
@@ -163,7 +191,9 @@ class Tracer:
             yield tags
             return
         else:
-            trace_id, parent_id, sampled = self._new_id(), None, True
+            trace_id, parent_id = self._new_id(), None
+            sampled = (self.sample_rate >= 1.0
+                       or self._local.rng.random() < self.sample_rate)
         # a sampled-out frame still propagates (children and peers inherit
         # the decision) but records nothing
         span_id = self._new_id() if sampled else "0"
@@ -180,12 +210,22 @@ class Tracer:
                 rec = SpanRecord(trace_id, span_id, parent_id, name,
                                  t0_wall_us, int(dur_us), tags)
                 with self._lock:
+                    self._seq += 1
+                    rec.seq = self._seq
                     self.spans.append(rec)
                 self._span_counter.increment()
+                if self.log_spans:
+                    log.info("span %s %.1fms %s", name, dur_us / 1000, tags)
 
     def snapshot(self) -> list[SpanRecord]:
         with self._lock:
             return list(self.spans)
+
+    def drain(self) -> list[SpanRecord]:
+        with self._lock:
+            out = list(self.spans)
+            self.spans.clear()
+            return out
 
     def traces(self, limit: int = 50,
                trace_id: str | None = None) -> list[dict]:
@@ -227,6 +267,73 @@ class Tracer:
     def export_zipkin_json(self, trace_id: str | None = None) -> str:
         return json.dumps([s.to_zipkin() for s in self.snapshot()
                            if trace_id is None or s.trace_id == trace_id])
+
+    def post_zipkin(self, endpoint: str,
+                    spans: list[SpanRecord] | None = None) -> int:
+        """POST spans (default: a non-destructive snapshot) to a Zipkin v2
+        collector; returns the span count shipped. Never drains the ring:
+        the debug plane reads the same ring."""
+        import urllib.request
+        spans = self.snapshot() if spans is None else spans
+        if not spans:
+            return 0
+        body = json.dumps([s.to_zipkin() for s in spans]).encode()
+        req = urllib.request.Request(
+            endpoint, data=body, method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=5.0) as r:
+            r.read()
+        return len(spans)
+
+
+class ZipkinReporter:
+    """Periodic Zipkin shipper (``trace.zipkin_endpoint``): snapshots the
+    tracer's ring on a cadence and POSTs the spans newer than its seq
+    watermark. A failed POST leaves the watermark, so those spans retry
+    next tick; export faults are counted and logged, never fatal."""
+
+    def __init__(self, tracer_: "Tracer", endpoint: str,
+                 interval_s: float = 5.0):
+        self.tracer = tracer_
+        self.endpoint = endpoint
+        self.interval_s = interval_s
+        self._watermark = 0
+        self._stop_ev = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "ZipkinReporter":
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="zipkin-reporter")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop_ev.set()
+        if self._thread is not None:
+            self._thread.join(timeout=3)
+            self._thread = None
+
+    def tick(self) -> int:
+        """One export pass: ship spans newer than the watermark, advance it
+        only on success. Returns the count shipped."""
+        fresh = [s for s in self.tracer.snapshot()
+                 if s.seq > self._watermark]
+        if not fresh:
+            return 0
+        n = self.tracer.post_zipkin(self.endpoint, fresh)
+        self._watermark = fresh[-1].seq
+        return n
+
+    def _run(self) -> None:
+        while not self._stop_ev.wait(self.interval_s):
+            try:
+                self.tick()
+            except Exception:  # noqa: BLE001 — a dead collector must not
+                # kill the reporter for the process lifetime
+                registry.counter(FILODB_SWALLOWED_ERRORS,
+                                 {"site": "zipkin-export"}).increment()
+                log.warning("zipkin export to %s failed", self.endpoint,
+                            exc_info=True)
 
 
 tracer = Tracer()

@@ -175,10 +175,19 @@ def test_assignment_equals_the_reference(shards, nodes):
 
 
 def test_dryrun_multichip_on_two_cpu_shards():
-    """The port's dry run (steps 1-4 of the reference's multi-device dry
-    run) on a mesh of two CPU devices: every route and check holds."""
+    """The port's dry run (the reference's multi-device dry run, step 5's
+    two server processes included) on a mesh of two CPU devices: every
+    route and check holds."""
     from filodb_tpu_torch.entry import dryrun_multichip
     out = dryrun_multichip(2, "cpu")
+    two = out.pop("two_process")
+    assert two["device"] == "cpu" and two["nodes"] == ["node-a:1",
+                                                       "node-b:1"]
+    assert set(two["answers"]) == {"sum(rate(tm[2m]))", "count(tm)"}
+    (series,) = two["answers"]["sum(rate(tm[2m]))"]
+    assert all(abs(float(v) - 0.6) < 1e-3 for _t, v in series["values"])
+    (count,) = two["answers"]["count(tm)"]
+    assert {v for _t, v in count["values"]} == {"4"}
     assert out == {"devices": ["cpu", "cpu"], "shards": 2,
                    "fused": "mesh-fused", "churned": "mesh-twostep",
                    "order_stats": ["mesh-topk", "mesh-sketch"],

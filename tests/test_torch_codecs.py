@@ -41,6 +41,33 @@ from filodb_tpu_torch.memory import intpack as tintpack
 from filodb_tpu_torch.memory import native as tnative
 from filodb_tpu_torch.memory import nibblepack as tnp_
 
+
+def _load_reference_native_libraries():
+    """Build and load the JAX package's native libraries (``memory/native``,
+    ``core/native``) once per process, under one exclusive lock every
+    process of the run shares. Their build scripts write the library in
+    place, so a test worker can load the file while another worker's build
+    is rewriting it; the loader then marks the library unavailable for
+    that process's lifetime and ``tests/test_native.py`` skips its six
+    tests there. Every worker imports this module while collecting, before
+    any test runs, so after this no test ever builds."""
+    import fcntl
+    import tempfile
+
+    from filodb_tpu.core import native as jcore_native
+    lock = os.path.join(tempfile.gettempdir(), "filodb-tpu-native-build.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            jnative.available()
+            jcore_native.available()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+_load_reference_native_libraries()
+
+
 BASE = 1_700_000_000_000
 IV = 10_000
 

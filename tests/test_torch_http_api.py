@@ -185,7 +185,15 @@ def test_debug_pages(servers):
     assert isinstance(_get(tsrv, "/api/v1/debug/slow_queries")["data"], list)
     assert _get(tsrv, "/api/v1/debug/fragment_cache")["data"] == {}
     assert _get(tsrv, "/api/v1/debug/profile")["data"]["running"] is False
-    assert _err(tsrv, "/api/v1/debug/profile", [("action", "start")])[0] == 404
+    # the sampling profiler: started, reported and stopped on this server
+    assert _get(tsrv, "/api/v1/debug/profile",
+                [("action", "start"), ("interval_s", "0.01")]
+                )["data"]["running"] is True
+    assert _get(tsrv, "/api/v1/debug/profile")["data"]["running"] is True
+    stopped = _get(tsrv, "/api/v1/debug/profile", [("action", "stop")])
+    assert stopped["data"]["running"] is False
+    assert stopped["data"]["report"].startswith("SimpleProfiler report")
+    assert tsrv.profiler is None
     assert _err(tsrv, "/api/v1/rules")[0] == 404
     assert _err(tsrv, "/api/v1/debug/nope")[0] == 404
 

@@ -48,7 +48,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "memory.intpack", "memory.hist", "memory.native", "core.store",
               "ingest.bus", "core.downsample", "jobs.batch_downsampler",
               "query.retention", "utils.netio", "query.wire", "http.api",
-              "core.diststore", "parallel.bootstrap", "entry"):
+              "core.diststore", "parallel.bootstrap", "entry", "config",
+              "standalone", "cli", "ingest.broker", "ingest.replication",
+              "ingest.gateway", "ingest.stream", "ingest.faults", "cluster",
+              "cluster.epoch", "cluster.gossip", "cluster.membership",
+              "rules", "rules.spec", "utils.profiler"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
