@@ -341,6 +341,39 @@ Phases, in order; every check asserts and any failure exits non-zero:
                --device cuda), one shard each, over one broker and a file
                registrar, both answering bit for bit as one memstore of
                both shards; prints the seconds until both answer.
+  16a. rules small (run after 15) — Prometheus remote write and read and
+               the rules subsystem on a FiloServer on the card (4 shards,
+               a sink, rules.groups at 1 s: sum(rate), sum by (job)
+               (rate), 2 x the first rule's output; alerts with for: 3s
+               and zero-for) and a CPU FiloServer over 15's broker pair,
+               and a webhook receiver. 64 counters x 600 samples and a
+               load counter by remote write (204; a spoofed __rule__ 422;
+               a malformed body 400), and an f64 card/CPU pair for the
+               429 edge and the stale marker's bits. A partition leader
+               killed while the rules publish and brought back; the
+               alert pending, the server restarted from its sink, then
+               firing with its first active_at, then resolved. Derived
+               samples bit for bit the card's own instant queries, the CPU
+               server within rtol 1e-5; every (rule, eval_ts) once in the
+               broker log; K1 once a shard leaf a fused rule evaluation;
+               rules.streaming's catch-up the instant path's rows; remote
+               read bit for bit and byte for byte the CPU's body; K1
+               against its twin on the server's stores.
+  16b. rules scale — (i, after 16a) 2^15 counters (six labels) as
+               2000-sample WriteRequests from 4 client threads into a
+               4-shard FiloServer on the card, in two cells: a backfill
+               (32 samples a series, a series' samples together) that
+               creates the series, then Prometheus's live shape (2 more
+               scrape rounds, one sample a series a request): accepted
+               samples/s, host CPU seconds by stage, seconds until every
+               sample answers. (ii, before phase 4, on its engine as
+               bench.py builds it) four recording rules and an alert over
+               2^20 series, 16 ticks at 60 s through run_group_once with
+               rules.streaming off and on: the rows bit for bit the same
+               in both, into two sibling datasets; ms and device ms a
+               tick, K1 launches. (iii) a remote read of 1024 series x 720
+               samples of phase 4's store over HTTP, bit for bit the
+               store's: ms, bytes, samples/s.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -375,15 +408,22 @@ and made delta8-resident for it) and prints no result line.
     python3 chip_smoke.py --server
 
 runs phase 15 alone (after the kernels' build) and prints no result line.
+
+    python3 chip_smoke.py --rules
+
+runs phase 16 alone (after the kernels' build; 16b(ii) and (iii) on
+phase 4's engine built for it) and prints no result line.
 """
 
 import contextlib
 import gc
+import itertools
 import json
 import os
 import re
 import shutil
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -5122,14 +5162,14 @@ def sv_k1_args(fg, seen: list):
         fg.fused_grid_partials = real
 
 
-def sv_k1_vs_twin(torch, fg, server, ep, dev) -> float:
-    """One HTTP sum(rate) on ``server``; for each K1 pass it made, K1 again
-    on the same operands (the shard store's own block) against
-    ``fused_grid_aggregate_plain``: counts bit for bit, sums within rtol
-    1e-5 of the largest magnitude. Returns the largest |diff|."""
+def sv_k1_vs_twin(torch, fg, server, ep, dev, rng=SV_RANGE) -> float:
+    """One HTTP sum(rate) over ``rng`` on ``server``; for each K1 pass it
+    made, K1 again on the same operands (the shard store's own block)
+    against ``fused_grid_aggregate_plain``: counts bit for bit, sums within
+    rtol 1e-5 of the largest magnitude. Returns the largest |diff|."""
     seen: list = []
     with sv_k1_args(fg, seen):
-        sv_http(ep, SV_QUERIES[0])
+        sv_http(ep, SV_QUERIES[0], rng)
     assert len(seen) == SV_SHARDS, len(seen)
     ptrs = {sh.store.val.data_ptr(): sh.shard_num
             for sh in server.memstore.shards_of(SV_DS)}
@@ -5729,6 +5769,1175 @@ def phase_server(torch, np, fg, card, pkg, dev="cuda") -> int:
     return a["k1"] + b["k1"]
 
 
+# -- phase 16: Prometheus remote read/write and the rules subsystem -------
+
+RU_SERIES = 64                  # 16a: counters of metric m (tenant "demo")
+# a series' samples, RU_STEP_MS apart on whole seconds, ending near now: the
+# rules' 1 s ticks and load's live samples land on the same grid, which K1's
+# route needs (core/chunkstore.py::_track_grid: one base and interval a
+# shard, no gap in a series)
+RU_SAMPLES = 600
+RU_STEP_MS = 1_000
+RU_JOBS = 4
+RU_REC = {"rec:m_rate": "sum(rate(m[5m]))",
+          "rec:m_rate_by_job": "sum by (job) (rate(m[5m]))",
+          # over the first rule's output (unfused: an instant selector)
+          "rec:m_rate_x2": "2 * rec:m_rate"}
+RU_ALERTS = {"LoadHigh": ("sum(rate(load[5s])) > 0.5", "3s"),
+             "MUp": ("sum(rate(m[5m])) > 0", "0s")}
+RU_FUSED = {"rec:m_rate": True, "rec:m_rate_by_job": True,
+            "rec:m_rate_x2": False, "LoadHigh": True, "MUp": True}
+RU_STREAM_TICKS = 6             # 16a: the stalled span re-evaluated
+RW_SERIES = 1 << 15             # 16b(i): counters a remote-write client sends
+RW_SAMPLES = 32                 # a series, 10 s apart
+RW_PER_REQ = 2000               # Prometheus's max_samples_per_send
+RW_THREADS = 4
+RW_LIVE_ROUNDS = 2              # 16b(i) live: scrape rounds a series
+RS_TICKS = 16                   # 16b(ii): rule ticks at 60 s
+RS_TICK_MS = 60_000
+RS_RULES = {"scale:rate_sum": "sum(rate(m[5m]))",
+            "scale:rate_avg": "avg(rate(m[5m]))",
+            "scale:rate_max": "max(rate(m[5m]))",
+            "scale:sot_sum": "sum(sum_over_time(m[5m]))"}
+RS_ALERT = ("ScaleRate", "sum(rate(m[5m])) > 0")
+RR_SERIES = 1024                # 16b(iii): series a remote read returns
+RR_HOSTS = r"h(\d|[1-9]\d|[1-9]\d\d|10[01]\d|102[0-3])"
+
+
+def ru_sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ru_post(ep, path, body, timeout=60):
+    """POST ``body``; (status, headers, response bytes)."""
+    import urllib.error
+    import urllib.request
+    rq = urllib.request.Request(f"http://{ep}{path}", data=body,
+                                method="POST")
+    try:
+        with urllib.request.urlopen(rq, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def ru_write_body(np, series) -> bytes:
+    """snappy(WriteRequest) of [(labels dict, ts array, values array)]
+    through the port's codec (the bytes a Prometheus client sends)."""
+    from filodb_tpu_torch.promql import remote_storage as pb
+    from filodb_tpu_torch.utils import snappy
+    req = pb.WriteRequest()
+    for labels, ts, vals in series:
+        s = req.timeseries.add()
+        for k, v in labels.items():
+            s.labels.add(name=k, value=v)
+        s.samples.extend_arrays(np.asarray(ts, np.int64),
+                                np.asarray(vals, np.float64))
+    return snappy.compress(req.SerializeToString())
+
+
+def ru_read(ep, matchers, start, end):
+    """POST a ReadRequest of one query; (status, body bytes, the decoded
+    ReadResponse or None)."""
+    from filodb_tpu_torch.promql import remote_storage as pb
+    from filodb_tpu_torch.utils import snappy
+    req = pb.ReadRequest()
+    q = req.queries.add()
+    q.start_timestamp_ms, q.end_timestamp_ms = int(start), int(end)
+    for t, k, v in matchers:
+        q.matchers.add(type=t, name=k, value=v)
+    code, _h, body = ru_post(ep, f"/promql/{SV_DS}/api/v1/read",
+                             snappy.compress(req.SerializeToString()))
+    resp = None
+    if code == 200:
+        resp = pb.ReadResponse()
+        resp.ParseFromString(snappy.decompress(body))
+    return code, body, resp
+
+
+def ru_series_arrays(resp) -> dict:
+    """{sorted label pairs: (ts, values)} of a ReadResponse's first
+    result."""
+    out = {}
+    for s in resp.results[0].timeseries:
+        key = tuple(sorted((lp.name, lp.value) for lp in s.labels))
+        out[key] = s.samples.arrays()
+    return out
+
+
+def ru_same_samples(np, got: dict, want: dict, what) -> int:
+    """Every series of ``want`` in ``got`` with the same timestamps and the
+    same value bits (NaN payloads included). Returns the samples."""
+    assert set(got) == set(want), (what, len(got), len(want))
+    n = 0
+    for k, (wt, wv) in want.items():
+        gt, gv = got[k]
+        assert np.array_equal(gt, wt), (what, k)
+        assert np.array_equal(np.asarray(gv, np.float64).view(np.uint64),
+                              np.asarray(wv, np.float64).view(np.uint64)), \
+            (what, k)
+        n += len(wt)
+    return n
+
+
+@contextlib.contextmanager
+def ru_k1_attribution(fg, tls, launches: dict):
+    """Attribute K1's launches to the rule evaluation the calling thread
+    has tagged in ``tls.tag`` (ru_tag_evaluator): ``launches[tag]`` is
+    what K1's own counter rose by inside that evaluation's fused passes.
+    The passes run one at a time while this is on, so a pass's rise is its
+    own; untagged passes (HTTP queries, the checks) add to
+    ``launches[None]``."""
+    real = fg.fused_grid_partials
+    lock = threading.Lock()
+
+    def counting(*a, **kw):
+        tag = getattr(tls, "tag", None)
+        with lock:
+            before = fg.fused_grid_kernel.launches
+            try:
+                return real(*a, **kw)
+            finally:
+                launches[tag] = launches.get(tag, 0) \
+                    + fg.fused_grid_kernel.launches - before
+
+    fg.fused_grid_partials = counting
+    try:
+        yield
+    finally:
+        fg.fused_grid_partials = real
+
+
+def ru_tag_evaluator(srv, tls, done: list, seq):
+    """Wrap the server's rule evaluator: each evaluation runs tagged with
+    (uid, eval_ts, the next number of ``seq``) in ``tls`` and, when it
+    returns, (uid, eval_ts, that number, rows) lands in ``done``."""
+    ev = srv.rules.evaluator
+    real = ev.evaluate_rule
+
+    def tagged(rule, eval_ts, interval_ms=None):
+        tag = (rule.uid, int(eval_ts), next(seq))
+        tls.tag = tag
+        try:
+            n = real(rule, eval_ts, interval_ms)
+        finally:
+            tls.tag = None
+        done.append((*tag, n))
+        return n
+
+    ev.evaluate_rule = tagged
+
+
+def ru_hook():
+    """A local webhook receiver: (server, url, events list)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    events: list = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length")
+                                       or 0))
+            events.append(json.loads(body))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, fmt, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    threading.Thread(target=srv.serve_forever, daemon=True,
+                     name="ru-hook").start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}/hook", events
+
+
+def ru_rules_config(url):
+    """rules.* of 16a: a recording group and an alert group at 1 s; a
+    catch-up of up to 8 ticks, so that a restart leaves no gap in a
+    derived series."""
+    return {"groups": [
+        {"name": "rec", "interval": "1s", "rules": [
+            {"record": r, "expr": e} for r, e in RU_REC.items()]},
+        {"name": "alerts", "interval": "1s", "rules": [
+            {"alert": a, "expr": e, "for": f}
+            for a, (e, f) in RU_ALERTS.items()]}],
+        "webhook_url": url, "webhook_backoff": "50ms", "max_catchup": 8}
+
+
+def ru_backfill(np, end_ms):
+    """16a's remote-write data: RU_SERIES counters of m over RU_JOBS jobs,
+    RU_SAMPLES samples RU_STEP_MS apart, the last one RU_STEP_MS before
+    ``end_ms`` (a whole second), integer-valued (an f32 store holds them
+    exactly), and one flat counter ``load`` over the same span."""
+    rng = np.random.default_rng(16)
+    ts = end_ms - RU_SAMPLES * RU_STEP_MS + np.arange(RU_SAMPLES) \
+        * RU_STEP_MS
+    out = []
+    for i in range(RU_SERIES):
+        inc = rng.integers(0, 50, RU_SAMPLES)
+        out.append(({"__name__": "m", "job": f"job-{i % RU_JOBS}",
+                     "instance": f"10.0.{i // 256}.{i % 256}:9100",
+                     "_ws_": "demo", "_ns_": "App-0"}, ts,
+                    np.cumsum(inc).astype(np.float64)))
+    out.append(({"__name__": "load", "instance": "10.1.0.1:9100",
+                 "_ws_": "demo", "_ns_": "App-0"}, ts,
+                np.full(RU_SAMPLES, 7.0)))
+    return out
+
+
+def ru_audit_log(np, nodes, addrs) -> dict:
+    """The broker pair's logs: per partition dense offsets, unique pub-ids,
+    both nodes' journals and frames identical; every derived row (a
+    container row carrying the rules label) keyed (labels, ts) with its
+    value and count. Returns {"frames": {p: n}, "rows": {...}}."""
+    from filodb_tpu_torch.core.schemas import Schemas
+    from filodb_tpu_torch.ingest.broker import BrokerBus
+    from filodb_tpu_torch.rules import RULE_LABEL
+    out = {"frames": {}, "rows": {}}
+    for p in range(SV_SHARDS):
+        items = [n._journals[p].items() for n in nodes]
+        assert items[0] == items[1], f"partition {p}: journals differ"
+        offs = [o for o, _ in items[0]]
+        ids = [i for _, i in items[0]]
+        assert offs == list(range(len(offs))), f"partition {p}: gaps"
+        assert len(set(ids)) == len(ids), f"partition {p}: duplicates"
+        f0 = [f for _o, f in nodes[0]._parts[p].frames_from(0)]
+        f1 = [f for _o, f in nodes[1]._parts[p].frames_from(0)]
+        assert f0 == f1, f"partition {p}: logs differ"
+        out["frames"][p] = len(offs)
+        bus = BrokerBus(addrs, p)
+        try:
+            for _off, c in bus.consume(Schemas()):
+                for j in range(len(c)):
+                    labels = c.label_sets[int(c.part_idx[j])]
+                    if RULE_LABEL not in labels:
+                        continue
+                    key = (json.dumps(sorted(labels.items())),
+                           int(c.ts[j]))
+                    v, n = out["rows"].get(key, (None, 0))
+                    out["rows"][key] = (float(c.values[j]), n + 1)
+        finally:
+            bus.close()
+    return out
+
+
+def ru_instant(eng, q, ts) -> dict:
+    """{sorted labels json: value} of an instant query on an engine."""
+    res = eng.query_instant(q, int(ts))
+    return {json.dumps(sorted(dict(k.labels).items())): float(v[-1])
+            for k, _t, v in res.matrix.iter_series()}
+
+
+def ru_derived_key(rule, labels: dict) -> str:
+    """The derived row's labels for one output series of ``rule`` (as the
+    evaluator builds them: the metric renamed, provenance, defaults)."""
+    from filodb_tpu_torch.rules import RULE_LABEL
+    d = dict(labels)
+    d.pop("_metric_", None)
+    d["_metric_"] = rule
+    d[RULE_LABEL] = f"rec/{rule}"
+    d.setdefault("_ws_", "default")
+    d.setdefault("_ns_", "default")
+    return json.dumps(sorted(d.items()))
+
+
+def ru_stale_pair(np, dev) -> dict:
+    """16a's f64 leg: a FiloServer on ``dev`` and one on the CPU, f64
+    stores, direct ingest, a tenant quota of 2 series. A write of two
+    series holding Prometheus's stale marker answers 204; a write of the
+    two and a new one answers 429 with Retry-After and the two series'
+    samples land; a remote read returns every written sample bit for bit
+    (the stale marker's payload included), and the card server's body is
+    the CPU server's, byte for byte."""
+    from filodb_tpu_torch.config import Config
+    from filodb_tpu_torch.standalone import FiloServer
+    stale = np.frombuffer(bytes.fromhex("020000000000f07f"), np.float64)[0]
+    ts0 = BASE_TS
+    ts = ts0 + np.arange(8) * 10_000
+    vals = np.arange(8, dtype=np.float64) * 0.1
+    vals1 = vals + 1
+    vals[5] = vals1[5] = stale
+    lab = [{"__name__": "stale_m", "host": f"s{i}", "_ws_": "q",
+            "_ns_": "App-0"} for i in range(3)]
+    first = ru_write_body(np, [(lab[0], ts, vals), (lab[1], ts, vals1)])
+    ts2 = ts0 + 80_000 + np.arange(2) * 10_000
+    second = ru_write_body(np, [(lab[0], ts2, np.array([0.5, stale])),
+                                (lab[1], ts2, np.array([1.5, 2.5])),
+                                (lab[2], ts2, np.array([3.5, 4.5]))])
+    want = {tuple(sorted(lab[0].items())): (
+                np.concatenate([ts, ts2]),
+                np.concatenate([vals, [0.5, stale]])),
+            tuple(sorted(lab[1].items())): (
+                np.concatenate([ts, ts2]),
+                np.concatenate([vals1, [1.5, 2.5]]))}
+    out = {"codes": {}, "bodies": {}}
+    for d in (dev, "cpu"):
+        srv = FiloServer(Config({
+            "num_shards": 1, "http": {"port": 0},
+            "index": {"max_series_per_tenant": 2,
+                      "quota_retry_after": "5s"},
+            "store": {"max_series_per_shard": 16, "samples_per_series": 64,
+                      "flush_batch_size": 10**9, "dtype": "float64"}}),
+            device=d).start()
+        try:
+            ep = f"127.0.0.1:{srv.http.port}"
+            path = f"/promql/{SV_DS}/api/v1/write"
+            c1 = ru_post(ep, path, first)
+            c2 = ru_post(ep, path, second)
+            assert c1[0] == 204, c1
+            assert c2[0] == 429 and int(c2[1]["Retry-After"]) >= 5 \
+                and json.loads(c2[2])["errorType"] == "too_many_series", c2
+            code, body, resp = ru_read(ep, [(0, "__name__", "stale_m")],
+                                       ts0, ts0 + 200_000)
+            assert code == 200, code
+            out["samples"] = ru_same_samples(np, ru_series_arrays(resp),
+                                             want, f"stale pair {d}")
+            out["codes"][d] = (c1[0], c2[0])
+            out["bodies"][d] = body
+        finally:
+            srv.shutdown()
+    assert out["bodies"][dev] == out["bodies"]["cpu"], \
+        "stale pair: the card's ReadResponse differs from the CPU's"
+    out["body_bytes"] = len(out["bodies"]["cpu"])
+    return out
+
+
+def phase_rules_small(torch, np, fg, pkg, dev="cuda") -> dict:
+    """Phase 16a: remote write and read, and the rules subsystem, on a
+    FiloServer on ``dev`` with 4 shards, a data_dir sink and rules.groups
+    over phase 15's broker pair (replication 2, min_insync 2, epoch
+    fencing), a CPU FiloServer on the same brokers (no rules), and a
+    webhook receiver. RU_SERIES counters of m (and a flat counter load)
+    come in by remote write, timestamped up to the wall clock: 204, a
+    spoofed __rule__ label 422, a malformed body 400 (and the f64 leg's
+    429 and stale marker, ru_stale_pair). Rule groups at 1 s: three
+    recording rules (sum(rate), sum by (job) (rate), and 2 x the first
+    rule's output) and two alerts (for: 3s over load's rate, zero-for over
+    m's). Through the live window: a partition leader killed and brought
+    back while rules publish; LoadHigh driven pending by load writes, the
+    server restarted from its sink while it is pending, then firing with
+    its first active_at, then resolved when load goes flat, with the
+    webhook's events. Checks: every derived sample after the data landed
+    bit for bit the card's own instant query of its rule at its eval_ts
+    (the rule over a rule: bit for bit its expression at its eval_ts or at
+    a tick before it, whose input had landed), the CPU server within rtol
+    1e-5; every (rule, eval_ts) once in the broker log and every completed
+    evaluation there; K1 once a shard leaf for each fused rule's
+    evaluation (0 for the rule over a rule); rules.streaming's catch-up of
+    a stalled span the same rows as the instant path; the remote read of
+    m bit for bit the written samples and byte for byte the CPU server's
+    body; K1 against its twin on the server's shard stores."""
+    import tempfile
+
+    from filodb_tpu_torch.core import filters as F
+    from filodb_tpu_torch.ingest.faults import FaultPlan, FaultRule
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    from filodb_tpu_torch.rules import (DerivedSeriesPublisher, RULE_LABEL,
+                                        RulesManager)
+    from filodb_tpu_torch.standalone import FiloServer
+    _sc, _ms, _rb, GAUGE, _qe = pkg
+    t_all = time.perf_counter()
+    out: dict = {"k1": 0}
+    kill = FaultRule("append", "kill_server", partition=0,
+                     at_offset=1 << 40)
+    plan = FaultPlan([kill])
+    servers: list = []
+    hook, url, events = ru_hook()
+    tls = threading.local()
+    seq = itertools.count()
+    done: list = []
+    per_eval: dict = {}
+    stop_load = threading.Event()
+    with tempfile.TemporaryDirectory(prefix="filodb-rules-") as tmp, \
+            ru_k1_attribution(fg, tls, per_eval):
+        addrs, nodes, start_broker = sv_brokers(tmp, plan)
+        try:
+            out["stale"] = ru_stale_pair(np, dev)
+            cfg = sv_config(addrs, data_dir=os.path.join(tmp, "data"),
+                            rules=ru_rules_config(url),
+                            store={"samples_per_series": 1024})
+            reset_k1(fg)
+            srv = FiloServer(cfg, device=dev).start()
+            servers.append(srv)
+            ru_tag_evaluator(srv, tls, done, seq)
+            cpu = FiloServer(sv_config(addrs, store={
+                "samples_per_series": 1024}), device="cpu").start()
+            servers.append(cpu)
+            ep, ep_cpu = (f"127.0.0.1:{srv.http.port}",
+                          f"127.0.0.1:{cpu.http.port}")
+            wpath = f"/promql/{SV_DS}/api/v1/write"
+            now = int(time.time()) * 1000
+            data = ru_backfill(np, now)
+            t0 = time.perf_counter()
+            for k in range(0, len(data), 16):
+                code, _h, _b = ru_post(ep, wpath, ru_write_body(
+                    np, data[k:k + 16]))
+                assert code == 204, code
+            spoof = ru_write_body(np, [({"__name__": "forged",
+                                         RULE_LABEL: "rec/x"},
+                                        [now], [1.0])])
+            code, _h, body = ru_post(ep, wpath, spoof)
+            assert code == 422 and b"reserved for recording-rule" in body, \
+                (code, body)
+            assert ru_post(ep, wpath, b"\x05\x00not-snappy")[0] == 400
+            # the window [t - span, t] holds every sample and starts at the
+            # first (an earlier start would page the sink-backed leaf)
+            rows = RU_SERIES * RU_SAMPLES
+            span_s = (RU_SAMPLES - 1) * RU_STEP_MS // 1000
+
+            def landed(e):
+                got = ru_instant(e, f"sum(count_over_time(m[{span_s}s]))",
+                                 now - RU_STEP_MS)
+                return got and list(got.values())[0] == rows
+            sv_wait("written", lambda: landed(srv.engines[SV_DS])
+                    and landed(cpu.engines[SV_DS]), 60, 0.05)
+            out["write_s"] = time.perf_counter() - t0
+            # the rows every check below reads are fixed from here on
+            t_fixed = (int(time.time() * 1000) // 1000 + 1) * 1000
+            # a fused rule launches K1 once a shard leaf holding its metric
+            # (load, in the last write, may land after m)
+            def holding():
+                return {name: sum(1 for sh in srv.memstore.shards_of(SV_DS)
+                                  if len(sh.part_ids_from_filters(
+                                      [F.Equals("_metric_", name)], 0,
+                                      1 << 62)))
+                        for name in ("m", "load")}
+            held = {"m": SV_SHARDS, "load": 1}
+            sv_wait("load landed", lambda: holding() == held, 30, 0.02)
+            sv_wait("rules past the data", lambda: srv.rules.state.watermark(
+                "rec") >= t_fixed + 2000, 30, 0.05)
+
+            # a partition leader dies while the rules publish: a partition
+            # node 0 leads that the derived rows route to
+            mapper = ShardMapper(SV_SHARDS, 2)
+            pubr = DerivedSeriesPublisher(GAUGE, mapper, None)
+            parts = sorted({pubr.route(dict(json.loads(k))) % SV_SHARDS
+                            for k in [
+                ru_derived_key("rec:m_rate_by_job", {"job": f"job-{j}"})
+                for j in range(RU_JOBS)] + [
+                ru_derived_key("rec:m_rate", {})]})
+            part = next(p for p in parts if p % 2 == 0)
+            kill.partition = part
+            kill.at_offset = nodes[0]._parts[part].end_offset + 2
+            t0 = time.perf_counter()
+            sv_wait("kill", lambda: plan.fired, 60, 0.02)
+            sv_wait("dead node down", lambda: nodes[0]._stopped
+                    and nodes[0]._thread is None, 30, 0.02)
+            start_broker(0)
+            sv_wait("rejoin", lambda: all(
+                nodes[0]._parts[p].end_offset == nodes[1]._parts[p].end_offset
+                for p in range(SV_SHARDS)), 60, 0.05)
+            out["failover_s"] = time.perf_counter() - t0
+            out["kill_partition"] = part
+
+            # load climbs (through the CPU server's writer: the card server
+            # restarts below): LoadHigh goes pending. One sample a whole
+            # second, none skipped, as the grid wants
+            load_errs: list = []
+
+            def drive_load():
+                v = 7.0
+                t = now
+                while not stop_load.is_set():
+                    if climb.is_set():
+                        v += 1.0
+                    code, _h, _b = ru_post(ep_cpu, wpath, ru_write_body(
+                        np, [(data[-1][0], [t], [v])]))
+                    if code != 204:
+                        load_errs.append(code)
+                    t += RU_STEP_MS
+                    stop_load.wait(max(t / 1000.0 - time.time(), 0.0))
+            climb = threading.Event()
+            climb.set()
+            loader = threading.Thread(target=drive_load, name="ru-load")
+            loader.start()
+
+            def load_state():
+                for a in srv.rules.alerts.active_alerts():
+                    if a["labels"]["alertname"] == "LoadHigh":
+                        return a
+                return None
+            sv_wait("LoadHigh pending", lambda: load_state() is not None,
+                    30, 0.02)
+            pending = load_state()
+            assert pending["state"] == "pending", pending
+            active_at = pending["activeAt"]
+            # restart from the sink while the timer runs
+            t0 = time.perf_counter()
+            srv.shutdown()
+            servers.remove(srv)
+            srv = FiloServer(cfg, device=dev).start()
+            servers.append(srv)
+            ru_tag_evaluator(srv, tls, done, seq)
+            ep = f"127.0.0.1:{srv.http.port}"
+            restored = load_state()
+            assert restored is not None \
+                and restored["activeAt"] == active_at, (restored, active_at)
+            out["restart_s"] = time.perf_counter() - t0
+            sv_wait("LoadHigh firing", lambda: (load_state() or {}).get(
+                "state") == "firing", 30, 0.02)
+            assert load_state()["activeAt"] == active_at
+            climb.clear()           # load goes flat: the rate falls to 0
+            sv_wait("LoadHigh resolved", lambda: any(
+                e["event"] == "resolved" and e["rule"] == "alerts/LoadHigh"
+                for e in list(events)), 30, 0.05)
+            stop_load.set()
+            loader.join()
+            assert not load_errs, load_errs
+            srv.rules.notifier.drain()
+            evs = [(e["event"], e["rule"]) for e in events]
+            assert ("firing", "alerts/MUp") in evs, evs
+            lh = [e for e in events if e["rule"] == "alerts/LoadHigh"]
+            assert [e["event"] for e in lh] == ["firing", "resolved"], lh
+            assert lh[0]["active_at"] == int(active_at * 1000), lh
+            out["events"] = evs
+            rules_health = [r["health"] for g in
+                            srv.rules.rules_payload()["groups"]
+                            for r in g["rules"]]
+            assert rules_health == ["ok"] * 5, rules_health
+
+            # the rule threads stop here: the checks below read a quiet
+            # server, and the streaming catch-up's launches are its own
+            srv.rules.stop()
+            # exactly-once: the broker log against the evaluations
+            audit = ru_audit_log(np, nodes, addrs)
+            out["frames"] = audit["frames"]
+            dup = [k for k, (_v, n) in audit["rows"].items() if n != 1]
+            assert not dup, f"derived rows landed twice: {dup[:4]}"
+            logged = {(dict(json.loads(k))[RULE_LABEL], ts)
+                      for k, ts in audit["rows"]}
+            completed = {(uid, ts) for uid, ts, _q, n in done if n}
+            assert completed <= logged, sorted(completed - logged)[:4]
+            out["derived_rows"] = len(audit["rows"])
+            out["evaluations"] = len(done)
+
+            # K1 once a shard leaf for each fused rule's evaluation
+            eng = srv.engines[SV_DS]
+            want_k1 = {f"{g}/{r}": (held["load" if r == "LoadHigh" else "m"]
+                                    if RU_FUSED[r] else 0)
+                       for g, names in (("rec", RU_REC), ("alerts",
+                                                          RU_ALERTS))
+                       for r in names}
+            for uid, n in want_k1.items():
+                got = {per_eval.get((u, ts, q), 0) for u, ts, q, _n in done
+                       if u == uid and ts >= t_fixed + 2000}
+                assert got == {n}, (uid, got, n)
+            out["k1_per_eval"] = want_k1
+            # the kernels line counts the rule evaluations' launches; the
+            # checks' queries (the data landed, K1's grid) apart
+            out["k1_checks"] = per_eval.pop(None, 0)
+            out["k1_rule_passes"] = sum(per_eval.values())
+            out["k1"] = out["k1_rule_passes"]
+
+            # every derived sample of the fixed window: bit for bit the
+            # card's instant query of its rule at its eval_ts, the CPU
+            # server within rtol 1e-5
+            reset_k1(fg)
+            by_ts: dict = {}
+            for (key, ts), (v, _n) in audit["rows"].items():
+                if ts >= t_fixed + 2000:
+                    by_ts.setdefault(ts, {})[key] = v
+            worst = 0.0
+            lags: dict = {}
+            ticks = sorted(by_ts)
+            for ts in ticks:
+                for rule, expr in RU_REC.items():
+                    mine = {k: v for k, v in by_ts[ts].items()
+                            if dict(json.loads(k))["_metric_"] == rule}
+                    if not mine:
+                        continue
+                    if rule == "rec:m_rate_x2":
+                        lag = None
+                        for back in range(0, 11):
+                            t2 = ts - back * 1000
+                            q = {ru_derived_key(rule, dict(json.loads(k))):
+                                 v for k, v in ru_instant(eng, expr,
+                                                          t2).items()}
+                            if q and q == mine:
+                                lag = back
+                                break
+                        assert lag is not None, (rule, ts, mine)
+                        lags[lag] = lags.get(lag, 0) + 1
+                        continue
+                    q = {ru_derived_key(rule, dict(json.loads(k))): v
+                         for k, v in ru_instant(eng, expr, ts).items()}
+                    assert q == mine, (rule, ts, q, mine)
+                    qc = {ru_derived_key(rule, dict(json.loads(k))): v
+                          for k, v in ru_instant(cpu.engines[SV_DS], expr,
+                                                 ts).items()}
+                    assert set(qc) == set(mine), (rule, ts)
+                    for k, v in mine.items():
+                        d = abs(qc[k] - v)
+                        assert d <= 1e-5 * max(abs(v), 1e-30), (rule, ts, d)
+                        worst = max(worst, d)
+            assert len(ticks) >= 5, ticks
+            out["checked_ticks"] = len(ticks)
+            out["max_cpu_diff"] = worst
+            out["x2_lags"] = lags
+            out["k1_checks"] += fg.fused_grid_kernel.launches
+
+            # rules.streaming: a stalled span's catch-up as one range query
+            # a rule gives the instant path's rows
+            group = [g for g in srv.rules.groups if g.name == "rec"]
+            stream_ticks = [ticks[-1] - k * 1000
+                            for k in range(RU_STREAM_TICKS)][::-1]
+            assert stream_ticks[0] >= t_fixed + 2000, stream_ticks
+            rows_by_mode = {}
+            k1_by_mode = {}
+            for streaming in (False, True):
+                captured: list = []
+
+                def capture(shard, container, pub_id):
+                    for j in range(len(container)):
+                        labels = container.label_sets[
+                            int(container.part_idx[j])]
+                        captured.append((json.dumps(sorted(labels.items())),
+                                         int(container.ts[j]),
+                                         float(container.values[j]), pub_id))
+                mgr = RulesManager(
+                    group, eng, publisher=DerivedSeriesPublisher(
+                        GAUGE, mapper, capture), dataset=SV_DS,
+                    max_catchup=RU_STREAM_TICKS, streaming=streaming)
+                mgr.state.set_watermark("rec", stream_ticks[0] - 1000)
+                pend = mgr.scheduler.pending_ticks(group[0],
+                                                   stream_ticks[-1] + 500)
+                assert pend == stream_ticks, (pend, stream_ticks)
+                reset_k1(fg)
+                mgr.evaluator.prefetch(group[0], pend)
+                assert all(mgr.scheduler.run_group_once(group[0], t)
+                           for t in pend)
+                k1_by_mode[streaming] = fg.fused_grid_kernel.launches
+                out["k1"] += k1_by_mode[streaming]
+                rows_by_mode[streaming] = sorted(captured)
+            assert rows_by_mode[True] == rows_by_mode[False], \
+                "streaming catch-up differs from the instant path"
+            # the live ticks' rows in the log (the rule over a rule aside:
+            # live, it may have read its input a tick late)
+            live_ts = {ts for _k, ts in audit["rows"] if ts in stream_ticks}
+            assert live_ts, stream_ticks
+            live = sorted((k, ts, v) for (k, ts), (v, _n)
+                          in audit["rows"].items()
+                          if ts in live_ts and "rec:m_rate_x2" not in k)
+            assert live == sorted((k, ts, v) for k, ts, v, _p
+                                  in rows_by_mode[False]
+                                  if ts in live_ts
+                                  and "rec:m_rate_x2" not in k), \
+                "the catch-up's rows differ from the live ticks'"
+            out["stream_rows"] = len(rows_by_mode[True])
+            out["stream_k1"] = k1_by_mode
+
+            # remote read of m: the written samples bit for bit, the card's
+            # body the CPU server's byte for byte
+            want = {tuple(sorted(lab.items())): (ts, vals)
+                    for lab, ts, vals in data if lab["__name__"] == "m"}
+            bodies = []
+            for e in (ep, ep_cpu):
+                code, body, resp = ru_read(e, [(0, "__name__", "m")],
+                                           now - 3_600_000, now - 1)
+                assert code == 200, code
+                out["read_samples"] = ru_same_samples(
+                    np, ru_series_arrays(resp), want, f"read {e}")
+                bodies.append(body)
+            assert bodies[0] == bodies[1], "read body: card != CPU"
+            out["read_bytes"] = len(bodies[0])
+
+            # K1 against its twin on the server's own shard stores
+            out["k1_vs_twin"] = sv_k1_vs_twin(
+                torch, fg, srv, ep, dev, rng=(now - 240_000, now))
+        finally:
+            stop_load.set()
+            for s in servers:
+                s.shutdown()
+            for n in nodes:
+                with contextlib.suppress(Exception):
+                    n.stop()
+            hook.shutdown()
+            hook.server_close()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def rw_labels() -> list:
+    """16b(i)'s series: RW_SERIES counters, six labels each."""
+    codes = ("200", "404", "500", "503")
+    return [{"__name__": "http_requests_total", "job": f"api-{i % 32}",
+             "instance": f"10.{i >> 16 & 255}.{i >> 8 & 255}.{i & 255}:9100",
+             "code": codes[i % 4], "_ws_": "demo", "_ns_": f"App-{i % 16}"}
+            for i in range(RW_SERIES)]
+
+
+def rw_requests(np, labels, ts, vals, time_major: bool):
+    """A remote-write client's bodies for the samples ``vals[i, k]`` at
+    ``ts[k]``. As a Prometheus remote-write queue does, series are sharded
+    over RW_THREADS senders (series i to sender i mod RW_THREADS) and each
+    sender cuts its stream of samples into WriteRequests of RW_PER_REQ
+    samples. ``time_major``: the stream goes round by round, so a request
+    holds RW_PER_REQ series with one sample each (a queue that keeps up
+    with its scrapes: Prometheus's live traffic). Otherwise series by
+    series, a series' samples together and a series possibly continued in
+    the sender's next request (a backfill: a queue catching up after an
+    outage, or a bulk import). Returns (bodies by sender, the encode
+    seconds)."""
+    t0 = time.perf_counter()
+    rounds = len(ts)
+    bodies: list = [[] for _ in range(RW_THREADS)]
+    for j in range(RW_THREADS):
+        mine = range(j, RW_SERIES, RW_THREADS)
+        runs = ([(i, k, k + 1) for k in range(rounds) for i in mine]
+                if time_major else [(i, 0, rounds) for i in mine])
+        cur: list = []
+        n = 0
+        for i, k, stop in runs:
+            while k < stop:
+                take = min(stop - k, RW_PER_REQ - n)
+                cur.append((labels[i], ts[k:k + take], vals[i, k:k + take]))
+                n += take
+                k += take
+                if n == RW_PER_REQ:
+                    bodies[j].append(ru_write_body(np, cur))
+                    cur, n = [], 0
+        if cur:
+            bodies[j].append(ru_write_body(np, cur))
+    return bodies, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def rw_stage_clocks(acc: dict):
+    """Host CPU seconds (the calling thread's, time.thread_time: a wait for
+    the interpreter lock is not counted), summed over threads, of the
+    remote-write path's stages: snappy's decompress, the WriteRequest's
+    decode, the whole of write_governed (whose rest is the containers'
+    build) and the shard's ingest."""
+    from filodb_tpu_torch.core.memstore import TimeSeriesShard
+    from filodb_tpu_torch.promql import remote
+    from filodb_tpu_torch.promql import remote_storage as pb
+    from filodb_tpu_torch.utils import snappy
+    for k in ("decompress", "decode", "governed", "ingest"):
+        acc[k] = []
+    saved = [(snappy, "decompress", snappy.decompress, "decompress"),
+             (pb.WriteRequest, "ParseFromString",
+              pb.WriteRequest.ParseFromString, "decode"),
+             (remote, "write_governed", remote.write_governed, "governed"),
+             (TimeSeriesShard, "ingest", TimeSeriesShard.ingest, "ingest")]
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.thread_time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key].append(time.thread_time() - t0)
+        return run
+
+    for owner, name, fn, key in saved:
+        setattr(owner, name, timed(fn, key))
+    try:
+        yield
+    finally:
+        for owner, name, fn, _key in saved:
+            setattr(owner, name, fn)
+
+
+def rw_window(port: int, bodies: list) -> dict:
+    """POST each sender's bodies in order from a client thread of its own,
+    one connection a sender, every answer 204. Returns the window (first
+    POST to the last 204), the time of the last 204 and the server's
+    stages' host CPU seconds summed over threads (rw_stage_clocks)."""
+    import http.client
+    path = f"/promql/{SV_DS}/api/v1/write"
+    codes: list = []
+    last: list = []
+
+    def send(mine):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            for body in mine:
+                conn.request("POST", path, body=body)
+                r = conn.getresponse()
+                r.read()
+                codes.append(r.status)
+            last.append(time.perf_counter())
+        finally:
+            conn.close()
+
+    stages: dict = {}
+    with rw_stage_clocks(stages):
+        threads = [threading.Thread(target=send, args=(b,),
+                                    name=f"rw-client-{j}")
+                   for j, b in enumerate(bodies)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    n_req = sum(len(b) for b in bodies)
+    assert codes == [204] * n_req, sorted(set(codes))
+    st = {k: sum(v) for k, v in stages.items()}
+    return {"window_s": max(last) - t0, "t_last": max(last), "stages_s": {
+        "decompress": st["decompress"], "decode": st["decode"],
+        "build": st["governed"] - st["decompress"] - st["decode"],
+        "ingest": st["ingest"]}}
+
+
+def phase_rules_write_scale(torch, np, fg, card, dev="cuda") -> dict:
+    """Phase 16b(i): Prometheus remote write at a Prometheus user's size
+    into a 4-shard FiloServer on ``dev`` with direct ingest: RW_SERIES
+    counters (six labels a series) in RW_PER_REQ-sample WriteRequests from
+    RW_THREADS client threads (rw_requests), in two cells one after the
+    other on one server. "backfill": RW_SAMPLES samples a series, packed
+    series by series (a series' samples together); it creates the series.
+    "live": RW_LIVE_ROUNDS more scrape rounds of every series, packed
+    round by round (one sample a series a request, Prometheus's live
+    shape), appended to the series that exist. The bodies are encoded
+    before each window (the client's work). Prints for each cell accepted
+    samples/s (first POST to the last 204), the host CPU seconds of the
+    server's stages summed over threads (snappy decompress, decode,
+    container build, shard ingest), and the seconds from the last 204
+    until every sample answers; sum(count_over_time) and the sum of the
+    last values equal the written ones exactly. K1 runs only in those
+    checks' queries (``k1_checks``): ingest launches no kernel."""
+    from filodb_tpu_torch.config import Config
+    from filodb_tpu_torch.standalone import FiloServer
+    t_all = time.perf_counter()
+    rounds = RW_SAMPLES + RW_LIVE_ROUNDS
+    rng = np.random.default_rng(161)
+    vals = np.cumsum(rng.integers(0, 20, (RW_SERIES, rounds)),
+                     axis=1).astype(np.float64)
+    ts = BASE_TS + np.arange(rounds, dtype=np.int64) * INTERVAL_MS
+    labels = rw_labels()
+    out: dict = {"cells": {}, "k1_checks": 0}
+    srv = FiloServer(Config({
+        "num_shards": SV_SHARDS, "spread": 2, "http": {"port": 0},
+        "query": {"result_cache_size": 0, "negative_cache_size": 0,
+                  "fragment_cache_size": 0},
+        "store": {"max_series_per_shard": RW_SERIES // 2,
+                  "samples_per_series": 64, "flush_batch_size": 10**9}}),
+        device=dev).start()
+    try:
+        eng = srv.engines[SV_DS]
+        for name, lo, hi, time_major in (
+                ("backfill", 0, RW_SAMPLES, False),
+                ("live", RW_SAMPLES, rounds, True)):
+            bodies, enc_s = rw_requests(np, labels, ts[lo:hi],
+                                        vals[:, lo:hi], time_major)
+            cell = {"requests": sum(len(b) for b in bodies),
+                    "body_bytes": sum(len(x) for b in bodies for x in b),
+                    "encode_s": enc_s, "samples": RW_SERIES * (hi - lo)}
+            cell.update(rw_window(srv.http.port, bodies))
+            cell["samples_s"] = cell["samples"] / cell["window_s"]
+            t_end = int(ts[hi - 1])
+            win = hi * INTERVAL_MS // 1000
+            reset_k1(fg)
+
+            def all_visible(_t=t_end, _w=win, _n=RW_SERIES * hi):
+                got = ru_instant(eng, "sum(count_over_time("
+                                 f"http_requests_total[{_w}s]))", _t)
+                return got and list(got.values())[0] == _n
+            sv_wait(f"remote write visible ({name})", all_visible, 120, 0.01)
+            cell["visible_after_s"] = time.perf_counter() - cell.pop("t_last")
+            got = ru_instant(eng, "sum(http_requests_total)", t_end)
+            assert list(got.values()) == [float(vals[:, hi - 1].sum())], got
+            out["k1_checks"] += fg.fused_grid_kernel.launches
+            out["cells"][name] = cell
+        out["series"] = sum(sh.num_series
+                            for sh in srv.memstore.shards_of(SV_DS))
+        assert out["series"] == RW_SERIES, out["series"]
+    finally:
+        srv.shutdown()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def phase_rules_scale(torch, np, fg, card, engine, dev="cuda") -> dict:
+    """Phase 16b(ii): a RulesManager at full width over phase 4's engine
+    (2^20 series x 720 samples, f32 raw, one shard): recording rules
+    RS_RULES and the alert RS_ALERT at 60 s, RS_TICKS ticks inside the
+    store's range through run_group_once, once with rules.streaming off
+    (every tick an instant query a rule: K1 once a fused rule) and once on
+    (the catch-up prefetched as one range query a rule). The derived rows
+    go to a sibling dataset a mode on the same memstore (phase 4's store is
+    not touched) and must be bit for bit the same in both modes, in the
+    rows published and in the sibling stores. Prints ms a tick, K1
+    launches, and on the card the device ms a tick (CUDA events around the
+    tick: the stream idles while the host works, so they hold the host's
+    time too), K1's ms a pass (CUDA events around each pass), and from the
+    instant mode run again under torch.profiler the device time a tick and
+    the busy share."""
+    from filodb_tpu_torch.core.memstore import StoreConfig
+    from filodb_tpu_torch.core.schemas import GAUGE
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.rules import (DerivedSeriesPublisher, RulesManager,
+                                        load_groups)
+    ms = engine.memstore
+    on_card = torch.device(dev).type == "cuda"
+    eng = QueryEngine(ms, engine.dataset, device=dev)    # caches off
+    groups = load_groups([{"name": "scale", "interval": "60s", "rules": [
+        {"record": r, "expr": e} for r, e in RS_RULES.items()] + [
+        {"alert": RS_ALERT[0], "expr": RS_ALERT[1]}]}], RS_TICK_MS)
+    # on the group's 60 s grid (the scheduler's ticks), an hour into the
+    # store's two
+    first = -(-(BASE_TS + 3_600_000) // RS_TICK_MS) * RS_TICK_MS
+    ticks = [first + k * RS_TICK_MS for k in range(RS_TICKS)]
+    out: dict = {"k1": 0, "modes": {},
+                 "series": sum(sh.num_series
+                               for sh in ms.shards_of(engine.dataset))}
+    rows: dict = {}
+    stores: dict = {}
+    for streaming in (False, True):
+        sib = f"{engine.dataset}:rules_{'stream' if streaming else 'instant'}"
+        ms.setup(sib, GAUGE, 0, StoreConfig(
+            max_series_per_shard=64, samples_per_series=64,
+            flush_batch_size=10**9, device=dev))
+        captured: list = []
+
+        def publish(shard_num, container, pub_id, _sib=sib, _cap=captured):
+            for j in range(len(container)):
+                labels = container.label_sets[int(container.part_idx[j])]
+                _cap.append((json.dumps(sorted(labels.items())),
+                             int(container.ts[j]),
+                             float(container.values[j]), pub_id))
+            ms.ingest(_sib, shard_num, container)
+
+        mgr = RulesManager(groups, eng, publisher=DerivedSeriesPublisher(
+            GAUGE, ShardMapper(1), publish, dataset=sib), dataset=sib,
+            max_catchup=RS_TICKS, streaming=streaming)
+        g = mgr.groups[0]
+        mgr.state.set_watermark(g.name, ticks[0] - RS_TICK_MS)
+        assert mgr.scheduler.pending_ticks(g, ticks[-1]) == ticks
+        pairs: list = []
+        ru_sync(torch, dev)
+        reset_k1(fg)
+        with sv_k1_events(torch, fg, pairs):
+            ev = ([torch.cuda.Event(enable_timing=True)
+                   for _ in range(RS_TICKS + 2)] if on_card else None)
+            t0 = time.perf_counter()
+            if ev:
+                ev[0].record()
+            mgr.evaluator.prefetch(g, ticks)
+            if ev:
+                ev[1].record()
+            for k, t in enumerate(ticks):
+                assert mgr.scheduler.run_group_once(g, t), t
+                if ev:
+                    ev[k + 2].record()
+            ru_sync(torch, dev)
+            wall = time.perf_counter() - t0
+        launched = fg.fused_grid_kernel.launches
+        out["k1"] += launched
+        mode = {"ms_tick": wall * 1e3 / RS_TICKS, "k1": launched,
+                "rows": len(captured)}
+        if ev:
+            mode["device_ms_tick"] = ev[0].elapsed_time(ev[-1]) / RS_TICKS
+            mode["prefetch_device_ms"] = ev[0].elapsed_time(ev[1])
+            mode["tick_device_ms"] = [ev[k + 1].elapsed_time(ev[k + 2])
+                                      for k in range(RS_TICKS)]
+            mode["k1_ms"] = [s.elapsed_time(e) for s, e in pairs]
+        st = mgr.alerts.snapshot()[f"scale/{RS_ALERT[0]}"]
+        assert [s["state"] for s in st.values()] == ["firing"], st
+        assert all(s["active_at"] == ticks[0] for s in st.values()), st
+        health = {r: s["health"] for r, s in mgr.evaluator.status.items()}
+        assert set(health.values()) == {"ok"}, health
+        ms.shard(sib, 0).flush()
+        stores[streaming] = {
+            json.dumps(sorted(lbl.items())): (t.tolist(), v.tolist())
+            for lbl, t, v in QueryEngine(ms, sib, device=dev).raw_series(
+                [], 0, 1 << 62)}
+        rows[streaming] = sorted(captured)
+        out["modes"]["stream" if streaming else "instant"] = mode
+    if on_card:
+        # the instant mode again under torch.profiler (device activity
+        # only; the rows are dropped): the card's time a tick and its busy
+        # share of the ticks' host wall
+        from torch.profiler import ProfilerActivity, profile
+        mgr = RulesManager(groups, eng, publisher=DerivedSeriesPublisher(
+            GAUGE, ShardMapper(1), lambda *_a: None), max_catchup=RS_TICKS)
+        g = mgr.groups[0]
+        reset_k1(fg)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in ticks:
+                assert mgr.scheduler.run_group_once(g, t), t
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["k1"] += fg.fused_grid_kernel.launches
+        dev_ms = sv_device_ms(torch, prof)
+        k1_rows = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "fused_grid_map" in e.key]
+        n_k1 = sum(e.count for e in k1_rows)
+        out["traced"] = {
+            "device_ms_tick": dev_ms / RS_TICKS, "busy": dev_ms / wall_ms,
+            "ms_tick": wall_ms / RS_TICKS, "k1_n": n_k1,
+            "k1_ms": sum(e.self_device_time_total for e in k1_rows) / 1e3
+            / max(n_k1, 1)}
+    assert rows[False] == rows[True], "streaming rows differ from instant"
+    assert len(rows[False]) == len(RS_RULES) * RS_TICKS, len(rows[False])
+    assert stores[False] == stores[True], "sibling stores differ"
+    assert all(len(t) == RS_TICKS for t, _v in stores[False].values())
+    out["values"] = {dict(json.loads(k))["_metric_"]: v[-1]
+                     for k, (_t, v) in stores[False].items()}
+    return out
+
+
+def phase_rules_read_scale(torch, np, fg, card, engine, shard,
+                           dev="cuda") -> dict:
+    """Phase 16b(iii): a remote read of RR_SERIES series x 720 samples from
+    phase 4's store over HTTP (__name__="m", host=~RR_HOSTS): the
+    samples bit for bit the store's rows; prints the POST's ms, the body's
+    bytes and samples/s, and the client's decode ms."""
+    from filodb_tpu_torch.core import filters as F
+    from filodb_tpu_torch.http.api import FiloHttpServer
+    from filodb_tpu_torch.promql import remote_storage as pb
+    from filodb_tpu_torch.query.engine import QueryEngine
+    from filodb_tpu_torch.utils import snappy
+    eng = QueryEngine(engine.memstore, engine.dataset, device=dev)
+    end = BASE_TS + (NUM_SAMPLES - 1) * INTERVAL_MS
+    req = pb.ReadRequest()
+    q = req.queries.add()
+    q.start_timestamp_ms, q.end_timestamp_ms = BASE_TS, end
+    q.matchers.add(type=pb.LabelMatcher.EQ, name="__name__", value="m")
+    q.matchers.add(type=pb.LabelMatcher.RE, name="host", value=RR_HOSTS)
+    body = snappy.compress(req.SerializeToString())
+    srv = FiloHttpServer({engine.dataset: eng}, port=0).start()
+    try:
+        ep = f"127.0.0.1:{srv.port}"
+        t0 = time.perf_counter()
+        code, _h, got = ru_post(ep, f"/promql/{engine.dataset}/api/v1/read",
+                                body, timeout=600)
+        post_s = time.perf_counter() - t0
+        assert code == 200, code
+    finally:
+        srv.stop()
+    t0 = time.perf_counter()
+    resp = pb.ReadResponse()
+    resp.ParseFromString(snappy.decompress(got))
+    decode_s = time.perf_counter() - t0
+    series = {dict((lp.name, lp.value) for lp in s.labels)["host"]:
+              s.samples.arrays() for s in resp.results[0].timeseries}
+    assert len(series) == RR_SERIES, len(series)
+    pids = shard.part_ids_from_filters(
+        [F.Equals("_metric_", "m"), F.EqualsRegex("host", RR_HOSTS)],
+        BASE_TS, end)
+    hosts = [shard.index.labels_of(int(p))["host"] for p in pids]
+    rows = torch.from_numpy(np.asarray(pids, np.int64)).to(
+        shard.store.val.device)
+    ts_w = shard.store.ts.index_select(0, rows)[:, :NUM_SAMPLES].cpu().numpy()
+    v_w = shard.store.val.index_select(0, rows)[:, :NUM_SAMPLES].double() \
+        .cpu().numpy()
+    for i, h in enumerate(hosts):
+        gt, gv = series[h]
+        assert np.array_equal(gt, ts_w[i]), h
+        assert np.array_equal(gv.view(np.uint64), v_w[i].view(np.uint64)), h
+    n = RR_SERIES * NUM_SAMPLES
+    return {"series": len(series), "samples": n, "ms": post_s * 1e3,
+            "body_bytes": len(got), "samples_s": n / post_s,
+            "decode_ms": decode_s * 1e3}
+
+
+def phase_rules_on_bench(torch, np, fg, card, engine, shard,
+                         dev="cuda") -> dict:
+    """Phase 16b(ii) and (iii), on phase 4's engine as bench.py builds it
+    (run before phase 4: no phase has touched its store yet)."""
+    t0 = time.perf_counter()
+    r = phase_rules_scale(torch, np, fg, card, engine, dev)
+    for name, m in r["modes"].items():
+        dev_part = (f"; device {m['device_ms_tick']:.4f} ms a tick by CUDA "
+                    f"events around the ticks (prefetch "
+                    f"{m['prefetch_device_ms']:.4f} ms), K1 "
+                    f"{[round(x, 4) for x in m['k1_ms'][:6]]} ms a pass"
+                    if "device_ms_tick" in m else "")
+        log(f"rules scale [{card}]: {len(RS_RULES)} recording rules and 1 "
+            f"alert over {r['series']} series x {NUM_SAMPLES}, {RS_TICKS} "
+            f"ticks at {RS_TICK_MS // 1000} s through run_group_once, "
+            f"streaming {name}: {m['ms_tick']:.3f} ms a tick, K1 launches "
+            f"{m['k1']} ({m['rows']} derived rows){dev_part}")
+    log(f"rules scale [{card}]: the rows of both modes bit for bit the "
+        f"same, in the published containers and in the two sibling "
+        f"datasets; last values {r['values']}")
+    if "traced" in r:
+        tr = r["traced"]
+        log(f"rules scale device [{card}]: the instant mode traced "
+            f"(torch.profiler): {tr['ms_tick']:.3f} ms a tick, device time "
+            f"{tr['device_ms_tick']:.4f} ms a tick, busy share "
+            f"{tr['busy']:.4f} of the ticks' host wall; K1 "
+            f"{tr['k1_ms']:.4f} ms a launch ({tr['k1_n']} launches)")
+    rr = phase_rules_read_scale(torch, np, fg, card, engine, shard, dev)
+    log(f"remote read scale [{card}]: {rr['series']} series x "
+        f"{NUM_SAMPLES} samples of phase 4's store over HTTP in "
+        f"{rr['ms']:.3f} ms, body "
+        f"{rr['body_bytes']} B, {rr['samples_s']:.0f} samples/s; the "
+        f"client's decompress and decode {rr['decode_ms']:.3f} ms; every "
+        f"sample bit for bit the store's")
+    r["read"] = rr
+    r["seconds"] = time.perf_counter() - t0
+    log(f"rules scale: 16b(ii) and (iii) done in {r['seconds']:.1f} s")
+    return r
+
+
+def phase_rules_server(torch, np, fg, card, pkg, dev="cuda") -> dict:
+    """Phase 16a and 16b(i) (run after phase 15). Returns their results;
+    ``k1`` is K1's launches on the rule path (16a's rule evaluations and
+    streaming catch-ups; the checks' queries apart)."""
+    t0 = time.perf_counter()
+    a = phase_rules_small(torch, np, fg, pkg, dev)
+    st = a["stale"]
+    log(f"rules small [{card}]: a FiloServer on {dev} (4 shards, a sink, "
+        f"rules.groups: {list(RU_REC)} at 1 s, alerts {list(RU_ALERTS)}) "
+        f"and a CPU FiloServer over two broker nodes (replication 2, "
+        f"min_insync 2, epoch fencing); remote write of {RU_SERIES} "
+        f"counters x {RU_SAMPLES} and a load counter: 204, a spoofed "
+        f"__rule__ 422, a malformed body 400, landed in both servers in "
+        f"{a['write_s']:.2f} s; the f64 leg: 204, then 429 with "
+        f"Retry-After and the kept series' samples landed, "
+        f"{st['samples']} samples read back bit for bit with the stale "
+        f"marker, body {st['body_bytes']} B equal to the CPU's; leader of "
+        f"partition {a['kill_partition']} killed while the rules publish "
+        f"and back in {a['failover_s']:.2f} s; LoadHigh pending, the "
+        f"server restarted from its sink in {a['restart_s']:.2f} s with the "
+        f"timer kept, then firing and resolved; webhook events "
+        f"{a['events']}; audit: frames {a['frames']}, {a['derived_rows']} "
+        f"derived rows each once, every one of {a['evaluations']} "
+        f"completed evaluations in the log; {a['checked_ticks']} ticks' "
+        f"derived samples bit for bit the card's instant queries (the rule "
+        f"over a rule by lag in ticks {a['x2_lags']}), the CPU server "
+        f"within rtol 1e-5 (max |diff| {a['max_cpu_diff']:.3g}); K1 a "
+        f"rule evaluation {a['k1_per_eval']} ({a['k1_rule_passes']} rule "
+        f"passes; the checks' queries {a['k1_checks']}); streaming catch-up of {RU_STREAM_TICKS} ticks: "
+        f"{a['stream_rows']} rows the instant path's, K1 launches "
+        f"(instant, streaming) {tuple(a['stream_k1'].values())}; remote "
+        f"read {a['read_samples']} samples bit for bit, body "
+        f"{a['read_bytes']} B equal to the CPU's; K1 against its twin on "
+        f"the server's stores max |diff| {a['k1_vs_twin']:.3g}; K1 launches "
+        f"of the rule path {a['k1']} ({a['seconds']:.1f} s)")
+    w = phase_rules_write_scale(torch, np, fg, card, dev)
+    for name, c in w["cells"].items():
+        s = c["stages_s"]
+        shape = ("one sample a series a request, appended to the series "
+                 "that exist: Prometheus's live shape" if name == "live"
+                 else "a series' samples together, creating the series: a "
+                 "backfill's shape")
+        log(f"remote write scale [{card}] {name}: {RW_SERIES} counters x "
+            f"{c['samples'] // RW_SERIES} samples ({c['samples']} samples, "
+            f"six labels a series; {shape}) as {c['requests']} "
+            f"WriteRequests of up to {RW_PER_REQ} samples ({c['body_bytes']}"
+            f" B, encoded in {c['encode_s']:.2f} s before the window) from "
+            f"{RW_THREADS} client threads into a 4-shard FiloServer on "
+            f"{dev}: {c['window_s']:.3f} s, {c['samples_s']:.0f} samples/s "
+            f"accepted; host CPU s summed over threads: snappy decompress "
+            f"{s['decompress']:.3f}, decode {s['decode']:.3f}, container "
+            f"build {s['build']:.3f}, shard ingest {s['ingest']:.3f}; every "
+            f"sample answers {c['visible_after_s']:.3f} s after the last 204")
+    log(f"remote write scale [{card}]: {w['series']} series; K1 launches "
+        f"of the checks' queries {w['k1_checks']} (ingest launches none; "
+        f"not in the kernels line) ({w['seconds']:.1f} s)")
+    out = {"small": a, "write": w, "k1": a["k1"],
+           "seconds": time.perf_counter() - t0}
+    log(f"rules: 16a and 16b(i) done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5779,6 +6988,20 @@ def main() -> int:
         # not part of the smoke run: phase 15 alone
         kernels.build()
         phase_server(torch, np, fg, card, pkg)
+        return 0
+    if sys.argv[1:2] == ["--rules"]:
+        # not part of the smoke run: phase 16 alone, 16b(ii)/(iii) on
+        # phase 4's engine built here
+        kernels.build()
+        engine, shard, reg_s = bench.build_engine("cuda")
+        log(f"rules: phase 4's engine registered in {reg_s:.1f} s")
+        r16b = phase_rules_on_bench(torch, np, fg, card, engine, shard)
+        del engine, shard
+        gc.collect()
+        torch.cuda.empty_cache()
+        r16 = phase_rules_server(torch, np, fg, card, pkg)
+        log(f"rules: phase 16 done in {r16b['seconds'] + r16['seconds']:.1f}"
+            f" s; K1 launches {r16b['k1'] + r16['k1']}")
         return 0
     if sys.argv[1:2] == ["--cluster"]:
         # not part of the smoke run: phase 14 alone, on phase 11b's shards
@@ -5879,6 +7102,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     engine, shard, reg_s = bench.build_engine("cuda")
+    # 16b(ii) and (iii) first: they read bench.py's values as built, as
+    # --rules does (phase 10b's mirror rounds them, 12b appends)
+    r16b = phase_rules_on_bench(torch, np, fg, card, engine, shard)
     k1 = phase_scale(torch, np, fg, card, engine, shard, reg_s)
     log(f"scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5978,6 +7204,13 @@ def main() -> int:
     k1_15 = phase_server(torch, np, fg, card, pkg)
     gc.collect()
     torch.cuda.empty_cache()
+    r16 = phase_rules_server(torch, np, fg, card, pkg)
+    k1_16 = r16b["k1"] + r16["k1"]
+    log(f"rules: phase 16 done in {r16b['seconds'] + r16['seconds']:.1f} s "
+        f"(16b(ii), (iii) {r16b['seconds']:.1f}; 16a, 16b(i) "
+        f"{r16['seconds']:.1f}); K1 launches {k1_16}")
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     k1_13b = phase_durable_scale(torch, np, fg, card, pkg)
     gc.collect()
@@ -6009,10 +7242,11 @@ def main() -> int:
         - sum(k1_13a_narrow.values())
     # phase 14: the cluster plane's nodes (14a raw in-process, 14b the
     # adopted delta8 shards, 14c the node processes' raw shards); phase 15:
-    # the FiloServer's shard leaves over HTTP (15a, 15b)
+    # the FiloServer's shard leaves over HTTP (15a, 15b); phase 16: the
+    # rule evaluations and the checks' queries (16a, 16b)
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
         + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b \
-        + k1_14a + k1_14b["raw"] + k1_14c + k1_15
+        + k1_14a + k1_14b["raw"] + k1_14c + k1_15 + k1_16
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
@@ -6022,7 +7256,7 @@ def main() -> int:
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
         f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
         f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}, "
-        f"15 {k1_15}; "
+        f"15 {k1_15}, 16 {k1_16}; "
         f"K1-delta8 over a recovered shard (13a) "
         f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
         f"and the two-node split (14b) "

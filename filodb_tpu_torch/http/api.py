@@ -13,11 +13,17 @@ envelope or a batch), /api/v1/epochs, labels, label values and series
 (``local=1`` marks a peer's fan-out leg), /metrics, /__health,
 /api/v1/cluster/status with the server's elasticity extras, the live
 shard moves (POST /api/v1/cluster/rebalance and /adopt), the debug pages
-(traces, slow queries, the sampling profiler, the fragment cache) and
-/api/v1/subscribe. Errors map as the reference's do:
-422 bad data, 503 with Retry-After on an admission shed, 503 when the
+(traces, slow queries, the sampling profiler, the fragment cache),
+/api/v1/subscribe, Prometheus remote read and write (POST
+/promql/{dataset}/api/v1/read|write: snappy-framed protobuf through the
+port's own codec, ``promql/remote_storage.py``) and the rules surface
+(/api/v1/rules, /api/v1/alerts). Errors map as the reference's do:
+422 bad data (a remote write carrying the reserved ``__rule__`` label
+included), 400 a malformed remote-storage body, 501 a remote write without
+a writer, 503 with Retry-After on an admission shed, 503 when the
 scheduler or the peer-leg budget is saturated or a peer's breaker is open,
-504 on a timeout, 429 from the cardinality governor.
+504 on a timeout, 429 from the cardinality governor and, with
+Retry-After, from the broker's backpressure.
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ from urllib.parse import parse_qs, urlparse
 
 from ..core import filters as F
 from ..core.cardinality import SeriesQuotaExceeded
+from ..ingest.broker import BrokerRetry
+from ..promql import remote
 from ..promql.parser import ParseError, Parser
+from ..promql.remote_storage import DecodeError
 from ..query import wire
 from ..query.engine import QueryEngine, slow_query_log
 from ..query.incremental import data_lead_ms, poll_increment
@@ -44,7 +53,8 @@ from ..query.rangevector import fmt_value as _fmt
 from ..query.scheduler import AdmissionRejected, Priority, SchedulerBusy
 from ..utils.metrics import (FILODB_QUERY_SUBSCRIBE_INCREMENTS,
                              FILODB_SHARD_NUM_SERIES, registry)
-from ..utils.tracing import (SPAN_QUERY_SERVE, SPAN_QUERY_SUBSCRIBE, span,
+from ..utils.tracing import (SPAN_QUERY_SERVE, SPAN_QUERY_SUBSCRIBE,
+                             SPAN_REMOTE_WRITE, span,
                              tracer)
 
 
@@ -98,23 +108,32 @@ class FiloHttpServer:
     down, closes the socket and joins the serving thread."""
 
     def __init__(self, engines: dict[str, QueryEngine], host="127.0.0.1",
-                 port=8080, cluster=None, scheduler=None,
-                 cluster_ops: dict | None = None,
-                 subscribe_poll_s: float = 0.1):
-        """``scheduler``: optional QueryScheduler — query work runs through
-        its priority lanes (ref: QueryActor priority mailbox) instead of
-        directly on the HTTP handler thread. ``cluster``: the ShardManager
-        /api/v1/cluster/status reports.
+                 port=8080, cluster=None, writers: dict | None = None,
+                 scheduler=None, cluster_ops: dict | None = None,
+                 subscribe_poll_s: float = 0.1,
+                 governors: dict | None = None):
+        """``writers``: dataset -> callable(per_shard: dict[shard, container])
+        receiving remote-write batches atomically (bus publish or direct
+        ingest). ``scheduler``: optional QueryScheduler — query work runs
+        through its priority lanes (ref: QueryActor priority mailbox)
+        instead of directly on the HTTP handler thread. ``cluster``: the
+        ShardManager /api/v1/cluster/status reports.
         ``cluster_ops``: optional elasticity hooks from the FiloServer —
         ``extra()`` enriches /api/v1/cluster/status (membership table,
         epochs, last failover), ``rebalance(dataset, shard, to)`` and
         ``adopt(dataset, shard)`` drive live shard moves."""
         self.engines = engines
         self.cluster = cluster
+        self.writers = writers or {}
         self.scheduler = scheduler
         self.cluster_ops = cluster_ops or {}
-        # the rules evaluator's hook (/api/v1/rules, /api/v1/alerts answer
-        # 404 while None): the rules subsystem is not ported yet
+        # dataset -> (CardinalityGovernor, series_known) for the remote-write
+        # fast-shed edge (new series of over-quota tenants answer 429 +
+        # Retry-After AFTER the kept samples published)
+        self.governors = governors or {}
+        # rules subsystem handle (RulesManager): serves /api/v1/rules and
+        # /api/v1/alerts when the FiloServer configured rule groups (404
+        # while None)
         self.rules = None
         # debug-plane profiler slot (/api/v1/debug/profile start/stop/
         # report); FiloServer hands over its config-started SimpleProfiler
@@ -179,6 +198,14 @@ class FiloHttpServer:
                     # store). 429 like backpressure, distinct errorType.
                     self._send(429, {"status": "error",
                                      "errorType": "too_many_series",
+                                     "error": str(e)},
+                               headers={"Retry-After": str(max(
+                                   1, int(e.retry_after_s + 0.999)))})
+                except BrokerRetry as e:
+                    # ingest backpressure (quorum stall / queue overload):
+                    # retryable, with the broker's hint as Retry-After —
+                    # remote-write clients re-send the batch after it
+                    self._send(429, {"status": "error", "errorType": "busy",
                                      "error": str(e)},
                                headers={"Retry-After": str(max(
                                    1, int(e.retry_after_s + 0.999)))})
@@ -270,6 +297,17 @@ class FiloHttpServer:
         m = re.fullmatch(r"/exec/([^/]+)", path)
         if m and h.command == "POST":
             self._exec_plan(h, m.group(1))
+            return
+
+        # remote read/write carry snappy-compressed protobuf bodies — handle
+        # them before the urlencoded body parsing below consumes rfile
+        m = re.fullmatch(r"/promql/([^/]+)/api/v1/(read|write)", path)
+        if m and h.command == "POST":
+            # strict marker: ONLY local=1 means "peer fan-out leg". A client
+            # sending local=0 (or garbage) must get the full cluster answer,
+            # not a silently partial local-only one
+            self._remote_storage(h, m.group(1), m.group(2),
+                                 local=q.get("local") == "1")
             return
 
         if h.command == "POST":
@@ -722,6 +760,71 @@ class FiloHttpServer:
         h.send_header("Content-Length", str(len(payload)))
         h.end_headers()
         h.wfile.write(payload)
+
+    # -- Prometheus remote storage protocol (snappy + protobuf) ---------------
+
+    def _remote_storage(self, h, dataset: str, which: str,
+                        local: bool = False) -> None:
+        engine = self.engines.get(dataset)
+        if engine is None:
+            h._send(404, {"status": "error", "error": f"no dataset {dataset}"})
+            return
+        body = h.rfile.read(int(h.headers.get("Content-Length") or 0))
+        try:
+            self._remote_storage_inner(h, engine, dataset, which, body, local)
+        except (ValueError, DecodeError) as e:
+            # bad snappy framing / protobuf — client error, not a server fault
+            h._send(400, {"status": "error", "errorType": "bad_data",
+                          "error": f"malformed remote-{which} body: {e}"})
+
+    def _remote_storage_inner(self, h, engine, dataset: str, which: str,
+                              body: bytes, local: bool = False) -> None:
+        if which == "read":
+            # remote read is a full data-reading query — it goes through the
+            # scheduler's QUERY lane like query_range, not the handler thread.
+            # local=1 marks a peer's fan-out leg: answer from local shards
+            # only AND stay on the handler thread (the root request holds a
+            # QUERY-lane worker that blocks on this response — queueing the
+            # leg behind other root queries would deadlock saturated nodes,
+            # same rule as /exec)
+            if local:
+                with self._leg_guard(), tracer.activate(self._trace_ctx(h)):
+                    payload = remote.read_request(body, engine,
+                                                  local_only=True)
+            else:
+                payload = self._run(
+                    lambda: remote.read_request(body, engine), Priority.QUERY)
+            h.send_response(200)
+            h.send_header("Content-Type", "application/x-protobuf")
+            h.send_header("Content-Encoding", "snappy")
+            h.send_header("Content-Length", str(len(payload)))
+            h.end_headers()
+            h.wfile.write(payload)
+            return
+        writer = self.writers.get(dataset)
+        if writer is None:
+            h._send(501, {"status": "error",
+                          "error": f"no remote-write sink configured for {dataset}"})
+            return
+        schema = engine.memstore._dataset_schema[dataset]
+        # the remote-write edge joins the sender's trace when the request
+        # carries the trace header; the publish path below (bus/broker)
+        # propagates it onward over PUBLISH_BATCH
+        gov, known = self.governors.get(dataset) or (None, None)
+        with tracer.activate(self._trace_ctx(h)), \
+                span(SPAN_REMOTE_WRITE, dataset=dataset):
+            per_shard, shed, shed_tenants = remote.write_governed(
+                body, schema, engine.mapper, governor=gov, series_known=known)
+            writer(per_shard)
+        if shed:
+            # the kept samples ARE published above — only the over-quota NEW
+            # series were dropped; the typed 429 tells the client which
+            # tenant(s) and when to retry
+            raise SeriesQuotaExceeded(",".join(shed_tenants), shed,
+                                      retry_after_s=gov.retry_after_s)
+        h.send_response(204)
+        h.send_header("Content-Length", "0")
+        h.end_headers()
 
     def _cluster_status(self):
         if self.cluster is None:

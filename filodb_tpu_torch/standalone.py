@@ -29,9 +29,14 @@ for where it touches a device:
   mode and donation, plan cache, warm-up) has no port (ROADMAP ground
   rules); ``query.fused_kernels`` is validated (``config.
   fused_kernels_mode``).
-- Not yet ported, and refused rather than ignored: the remote-write writer
-  (the HTTP server takes no writers until ``promql/remote.py`` lands) and
-  ``rules.groups`` (the rules subsystem, next slice).
+- Remote write and read (``promql/remote.py`` over the port's own
+  protobuf codec) are wired into the HTTP server with the reference's
+  all-or-nothing owned-shard writer and the cardinality edge.
+- ``rules.groups`` starts the rules subsystem (``rules/``): a group's
+  thread evaluates its rules through this node's engine (K1 on the card
+  where a rule fuses) and publishes the derived series through the broker
+  plane with deterministic pub-ids. ``shutdown()`` stops the rules first
+  and joins every group thread.
 """
 
 from __future__ import annotations
@@ -316,6 +321,8 @@ class FiloServer:
         self.gateway = None
         self._gw_buses: dict[int, object] = {}
         self._gw_flush_stop: threading.Event | None = None
+        self.rules = None               # rules/manager.py RulesManager
+        self._rules_buses: dict[int, object] = {}
         self.scheduler = None
         self.engines: dict[str, QueryEngine] = {}
         self.profiler = None
@@ -764,11 +771,6 @@ class FiloServer:
         cfg = self.config
         # refuse what the port cannot honour BEFORE anything binds or starts
         fused_kernels_mode(cfg)
-        if cfg.get("rules.groups"):
-            raise NotImplementedError(
-                "rules.groups needs filodb_tpu_torch.rules' evaluator, "
-                "scheduler and publisher (rules/manager.py, rules/publish.py),"
-                " which are not ported yet")
         # unconditional: the flag is process-global, so a later server in the
         # same process must be able to turn it back off
         from .utils import diagnostics
@@ -947,8 +949,21 @@ class FiloServer:
                 RemotePromExec(cfg["cluster.buddy_endpoint"], dataset))
             self.manager.subscribe(self._ha_track)
 
-        # the remote-write writer (and its cardinality edge) waits for
-        # promql/remote.py: the port's HTTP server takes no writers yet
+        # remote-write sink: durable bus publish when configured, else direct
+        # ingest. The whole batch is validated against owned shards BEFORE
+        # anything publishes, so a rejected batch is all-or-nothing.
+        def writer(per_shard: dict, _ds=dataset):
+            with self._shards_lock:
+                buses = dict(self._buses)
+                owned = set(buses) if buses else set(self._running)
+            unowned = sorted(set(per_shard) - owned)
+            if unowned:
+                raise QueryError(f"shards {unowned} are not owned by this node")
+            for shard, container in per_shard.items():
+                if buses:
+                    buses[shard].publish(container)
+                else:
+                    self.memstore.ingest(_ds, shard, container)
         from .query.scheduler import QueryScheduler
         self.scheduler = QueryScheduler(
             num_threads=cfg["query.num_threads"],
@@ -956,13 +971,18 @@ class FiloServer:
             timeout_s=parse_duration_ms(cfg["query.timeout"]) / 1000.0)
         self.http = FiloHttpServer(self.engines, host=cfg["http.host"],
                                    port=cfg["http.port"], cluster=self.manager,
+                                   writers={dataset: writer},
                                    scheduler=self.scheduler,
                                    cluster_ops={
                                        "extra": self._cluster_extra,
                                        "rebalance": self.rebalance_shard,
                                        "adopt": self.adopt_shard},
                                    subscribe_poll_s=parse_duration_ms(
-                                       cfg["query.subscribe_poll"]) / 1000.0
+                                       cfg["query.subscribe_poll"]) / 1000.0,
+                                   governors=(
+                                       {dataset: (self._governor,
+                                                  self._series_known)}
+                                       if self._governor is not None else None)
                                    ).start()
         if cfg.get("ingest.gateway_port") is not None:
             # Influx line-protocol gateway, config-wired: lines route to ALL
@@ -1020,8 +1040,44 @@ class FiloServer:
                                             exc_info=True)
 
                 self._spawn(gw_bus_flush, "gw-bus-flush")
-        # rules.groups was refused at the top of start(): the rules
-        # subsystem comes in the next slice
+        if cfg.get("rules.groups"):
+            # streaming recording rules & alerting: a scheduler evaluates
+            # rule groups through THIS node's engine and publishes derived
+            # series back through the broker plane with deterministic
+            # (rule, eval_ts) pub-ids — crash/failover re-evaluation is
+            # exactly-once (rules/)
+            from .rules import DerivedSeriesPublisher, RulesManager
+            schema_obj = self.memstore.schemas[cfg["schema"]]
+            if schema_obj.is_histogram:
+                raise ValueError(
+                    "rules.groups requires a scalar ingest schema: "
+                    "recording rules emit scalar derived samples")
+            self._rules_buses = self._make_shard_buses(num_shards)
+
+            def rules_publish(shard, container, pub_id, _ds=dataset):
+                bus = self._rules_buses.get(shard)
+                if bus is None:
+                    # in-process deployment: the store's out-of-order drop
+                    # dedupes a same-timestamp replay
+                    self.memstore.ingest(_ds, shard, container)
+                elif hasattr(bus, "publish_with_id"):
+                    bus.publish_with_id(container, pub_id)
+                else:
+                    # FileBus has no id journal: at-least-once transport,
+                    # deduped at the store like the direct path
+                    bus.publish(container)
+
+            publisher = DerivedSeriesPublisher(
+                schema_obj, mapper, rules_publish, dataset=dataset)
+            self.rules = RulesManager.from_config(
+                cfg, self.engines[dataset], publisher, self._sink, dataset)
+            # the rules wait for this node's shards: a shard recovering from
+            # the sink and the bus answers from part of its data
+            self.rules.start(ready=lambda _ds=dataset: all(
+                st == ShardStatus.ACTIVE
+                for node, st in self.manager.map[_ds].values()
+                if node == self.node))
+            self.http.rules = self.rules
         if cfg.get("cluster.registrar"):
             # watch peers: a silent peer's shards are reassigned to survivors,
             # whose _on_shard_event resync starts the consumers
@@ -1285,6 +1341,17 @@ class FiloServer:
         t.start()
 
     def shutdown(self) -> None:
+        if self.rules is not None:
+            # first: no rule evaluation may publish into a closing bus, and
+            # the group threads (they launch K1) are joined here
+            self.rules.stop()
+        for b in self._rules_buses.values():
+            try:
+                if hasattr(b, "close"):
+                    b.close()
+            except (ConnectionError, OSError, RuntimeError):
+                log.warning("rules bus close failed on shutdown",
+                            exc_info=True)
         if self._cascade_stop is not None:
             self._cascade_stop.set()
         if self._ds_serve_stop is not None:

@@ -116,7 +116,35 @@ FILODB_INGEST_PUBLISH_SHED = "filodb_ingest_publish_shed"
 FILODB_INGEST_PUBLISH_LATENCY_MS = "filodb_ingest_publish_latency_ms"
 # gauge: frames a follower is behind its partition's leader
 FILODB_INGEST_REPLICATION_LAG = "filodb_ingest_replication_lag"
-# counter: gateway lines carrying the reserved rules label, refused
+# the rules subsystem (rules/):
+# counter: rule evaluations completed, tagged group= and rule= (one per rule
+# per scheduler tick)
+FILODB_RULES_EVALUATIONS = "filodb_rules_evaluations"
+# counter: rule evaluations that raised (bad data mid-flight, admission shed
+# after retries, publish fault), tagged group= and rule=; the group keeps
+# evaluating
+FILODB_RULES_EVAL_FAILURES = "filodb_rules_eval_failures"
+# histogram: wall time of one whole group evaluation (every rule in the
+# group, sequentially, derived publish included), tagged group=
+FILODB_RULES_EVAL_LATENCY_MS = "filodb_rules_eval_latency_ms"
+# gauge: how far the group's completed evaluation trails its scheduled grid
+# tick, per group — sustained growth means the interval is shorter than the
+# evaluation costs
+FILODB_RULES_EVAL_LAG_MS = "filodb_rules_eval_lag_ms"
+# counter: derived samples published back through the ingest plane by
+# recording rules, tagged group=
+FILODB_RULES_DERIVED_ROWS = "filodb_rules_derived_rows"
+# gauge: alert instances currently in the firing state, tagged rule=
+FILODB_RULES_ALERTS_FIRING = "filodb_rules_alerts_firing"
+# counter: alert state-machine transitions, tagged rule= and to=
+# (pending/firing/inactive)
+FILODB_RULES_ALERT_TRANSITIONS = "filodb_rules_alert_transitions"
+# counter: webhook notifications attempted, tagged status=ok|failed (failed
+# = retries exhausted)
+FILODB_RULES_NOTIFICATIONS = "filodb_rules_notifications"
+# counter: external writes rejected for carrying the reserved __rule__ label
+# (tagged site=remote-write|gateway): derived-series provenance cannot be
+# forged
 FILODB_RULES_SPOOF_REJECTS = "filodb_rules_spoof_rejects"
 # the elastic cluster: gossip probe rounds, the peer state a node sees
 # (gauge: 0 alive, 1 suspect, 2 dead), partition/shard epochs (gauge),

@@ -4,9 +4,10 @@ Host copy of the span recorder of ``filodb_tpu/utils/tracing.py``, limited
 to what the port opens (the query's stages, admission, the fragment cache's
 delta evaluation, a subscription's increment, on-demand paging,
 retention routing, a query's cross-node dispatch and its peer-side
-serve, and the ingest plane: the broker's publish, append and
+serve, the ingest plane: the broker's publish, append and
 replication, the consumer's drain, the gateway's publish and the cluster's
-gossip, epoch lead, rejoin and rebalance): ``with span(SPAN_QUERY_EXECUTE, ...)`` records one span into a
+gossip, epoch lead, rejoin and rebalance, remote read and write, and a
+rule's evaluation): ``with span(SPAN_QUERY_EXECUTE, ...)`` records one span into a
 bounded ring, parented under the innermost open frame of the thread.
 Durations come from the monotonic clock; the wall clock is read once per
 span for its start timestamp.
@@ -62,6 +63,13 @@ SPAN_ODP_DURABLE = "query.odp.durable"
 # routed or stitched leg queries hang under it (tags: dataset, resolution,
 # stitched)
 SPAN_QUERY_RETENTION = "query.retention"
+# Prometheus remote storage: a remote-read fan-out leg to one peer (tags:
+# endpoint), and a remote-write batch accepted at the HTTP edge
+SPAN_REMOTE_READ = "query.remote_read"
+SPAN_REMOTE_WRITE = "ingest.remote_write"
+# one rule evaluation inside a scheduler tick (tags: group, rule, eval_ts;
+# its PromQL query and derived publish spans hang under it)
+SPAN_RULES_EVAL = "rules.eval"
 # the ingest plane: a client's publish group, the broker's append, its
 # replication batch and the follower's serve of it, one consumer drain, and
 # one gateway flush

@@ -2,8 +2,8 @@
 JAX package's: the declared keys, their types, defaults and layering, the
 duration parser over a table of spellings, the store and query configs a
 config builds, and what the port does with the keys it cannot honour
-(``query.fused_kernels="off"``, a non-default cohort gate,
-``rules.groups``).
+(``query.fused_kernels="off"``, a non-default cohort gate, and
+``rules.groups`` over a histogram schema, which the reference refuses too).
 
 Tolerance: none — every value must be equal.
 """
@@ -139,10 +139,27 @@ def test_fused_kernels_off_is_refused_before_anything_starts(mode):
 
 
 def test_rules_groups_are_refused_naming_the_missing_module():
-    cfg = Config({"http": {"port": 0}, "rules": {"groups": [{
-        "name": "g", "interval": "1s",
-        "rules": [{"record": "r", "expr": "sum(m)"}]}]}})
-    srv = FiloServer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="rules"):
-        srv.start()
-    assert srv.http is None
+    """The rules subsystem is ported: ``rules.groups`` starts it over a
+    scalar schema, and over a histogram schema it is refused as the
+    reference refuses it, naming ``rules.groups`` (recording rules emit
+    scalar samples)."""
+    groups = {"groups": [{"name": "g", "interval": "1s",
+                          "rules": [{"record": "r", "expr": "sum(m)"}]}]}
+    srv = FiloServer(Config({"http": {"port": 0}, "rules": groups}),
+                     device="cpu").start()
+    threads = list(srv.rules.scheduler._threads)
+    try:
+        assert srv.http.rules is srv.rules
+        assert [g.name for g in srv.rules.groups] == ["g"]
+        assert len(threads) == 1 and threads[0].is_alive()
+    finally:
+        srv.shutdown()
+    assert not threads[0].is_alive()     # shutdown joins the group thread
+    hist = FiloServer(Config({"http": {"port": 0}, "schema": "prom-histogram",
+                              "rules": groups}), device="cpu")
+    try:
+        with pytest.raises(ValueError, match="rules.groups requires a "
+                                             "scalar"):
+            hist.start()
+    finally:
+        hist.shutdown()

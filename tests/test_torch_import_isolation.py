@@ -1,8 +1,9 @@
-"""The port stands alone: no JAX, no module of the JAX package.
+"""The port stands alone: no JAX, no module of the JAX package, no protobuf.
 
 Every module of ``filodb_tpu_torch`` is imported in a fresh interpreter,
 which must then hold neither ``jax`` nor ``filodb_tpu`` / ``filodb_tpu.*``
-(note the prefix: ``filodb_tpu_torch`` itself starts with ``filodb_tpu``).
+(note the prefix: ``filodb_tpu_torch`` itself starts with ``filodb_tpu``);
+no module names ``google.protobuf``.
 And the device policy: without a card, building a store or an engine
 without ``device=`` raises instead of falling back to the CPU.
 """
@@ -52,7 +53,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "standalone", "cli", "ingest.broker", "ingest.replication",
               "ingest.gateway", "ingest.stream", "ingest.faults", "cluster",
               "cluster.epoch", "cluster.gossip", "cluster.membership",
-              "rules", "rules.spec", "utils.profiler"):
+              "rules", "rules.spec", "utils.profiler", "utils.snappy",
+              "promql.remote", "promql.remote_storage", "rules.state",
+              "rules.publish", "rules.evaluator", "rules.alerts",
+              "rules.scheduler", "rules.manager", "core.computed"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -90,6 +94,33 @@ def test_no_source_file_names_jax_or_the_jax_package():
                 for name in names:
                     top = name.split(".")[0]
                     assert top not in ("jax", "jaxlib", "filodb_tpu"), (f, name)
+
+
+def test_no_module_imports_protobuf():
+    """The remote-storage messages go through the port's own codec
+    (``promql/remote_storage.py``): no module of the port imports
+    ``google.protobuf``, which the card's machine does not have."""
+    pkg = os.path.dirname(filodb_tpu_torch.__file__)
+    seen = 0
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, f)) as fh:
+                tree = ast.parse(fh.read())
+            seen += 1
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module] + [f"{node.module}.{a.name}"
+                                             for a in node.names]
+                else:
+                    continue
+                for name in names:
+                    assert not (name == "google" or name.startswith(
+                        "google.protobuf")), (f, name)
+    assert seen > 80
 
 
 def test_no_card_and_no_cpu_request_raises():
