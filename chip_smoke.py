@@ -374,6 +374,20 @@ Phases, in order; every check asserts and any failure exits non-zero:
                tick, K1 launches. (iii) a remote read of 1024 series x 720
                samples of phase 4's store over HTTP, bit for bit the
                store's: ms, bytes, samples/s.
+  17.  lock round (after 16b(ii)/(iii), before phase 4, on its engine as
+               bench.py builds it: 2^20 raw f32 series x 720 samples,
+               exponential(1) x 5 increments cumulated, torch.Generator
+               seed 7; 16b only reads it) — diagnostics and the lock debug
+               mode on (restored after), 8 threads each run 16
+               sum(rate(m[5m])) range queries over bench.py's 8 ranges
+               through K1 raw. Every answer bit for bit the serial one of
+               its range (the 8 serial queries counted apart), no
+               DiagnosticsError, K1 raw launches exactly 128, and the
+               node's /metrics (FiloHttpServer: _sync_shard_stats, then
+               expose_prometheus) carrying the shard's two lock gauges at
+               the lock's own counts. Prints the shard lock's contentions
+               and long holds and filodb_lock_hold_ms{class="shard"}'s
+               count, p50 and p99 beside the card's name and power limit.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -413,6 +427,11 @@ runs phase 15 alone (after the kernels' build) and prints no result line.
 
 runs phase 16 alone (after the kernels' build; 16b(ii) and (iii) on
 phase 4's engine built for it) and prints no result line.
+
+    python3 chip_smoke.py --locks
+
+runs phase 17 alone (after the kernels' build, on phase 4's engine built
+for it) and prints no result line.
 """
 
 import contextlib
@@ -6938,6 +6957,128 @@ def phase_rules_server(torch, np, fg, card, pkg, dev="cuda") -> dict:
     return out
 
 
+LK_THREADS = 8
+LK_QUERIES = 16                 # a thread
+
+
+def hist_quantile(h, before, q: float) -> float:
+    """The q-quantile of the observations a Histogram took since
+    ``before`` (its bucket counts then), interpolated within the buckets
+    as histogram_quantile does."""
+    counts = [b - a for a, b in zip(before, h.buckets)]
+    total = sum(counts)
+    rank, cum, lo = q * total, 0, 0.0
+    for bound, c in zip(list(h.bounds) + [float("inf")], counts):
+        if c and cum + c >= rank:
+            if bound == float("inf"):
+                return lo
+            return lo + (bound - lo) * (rank - cum) / c
+        cum += c
+        lo = bound
+    return float("nan")
+
+
+def phase_locks(torch, np, fg, card, engine, shard) -> dict:
+    """Phase 17: the lock round on the card (see the module docstring).
+    Returns K1 raw's launches in the round (the serial checks apart) and
+    what it printed."""
+    import urllib.request
+
+    from filodb_tpu_torch.http.api import FiloHttpServer
+    from filodb_tpu_torch.utils import diagnostics, metrics
+    t0 = time.perf_counter()
+    variants = range_variants(shard)
+    q = "sum(rate(m[5m]))"
+    # the serial answers, one a range: the checks' K1 launches, apart
+    reset_k1(fg)
+    serial = [np.asarray(engine.query_range(q, s, e, STEP_MS).matrix.values)
+              for s, e in variants]
+    k1_serial = fg.fused_grid_kernel.launches
+    for v in serial:
+        assert v.shape[0] == 1 and np.isfinite(v).all(), v.shape
+    lock = shard.lock
+    hist = metrics.registry.histogram(metrics.FILODB_LOCK_HOLD_MS,
+                                      {"class": "shard"})
+    was = (diagnostics.enabled, diagnostics.lock_debug)
+    answers, errors = {}, []
+    start = threading.Barrier(LK_THREADS)
+
+    def worker(t):
+        try:
+            start.wait(30)
+            for i in range(LK_QUERIES):
+                k = (t + i) % len(variants)
+                s, e = variants[k]
+                r = engine.query_range(q, s, e, STEP_MS)
+                answers[(t, i)] = (k, np.asarray(r.matrix.values))
+        except BaseException as exc:   # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    diagnostics.enable(True)
+    diagnostics.enable_lock_debug(True)
+    try:
+        c0, l0, h0 = lock.contentions, lock.long_holds, list(hist.buckets)
+        n0 = hist.count
+        reset_k1(fg)
+        threads = [threading.Thread(target=worker, args=(t,), daemon=True)
+                   for t in range(LK_THREADS)]
+        t_round = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        round_s = time.perf_counter() - t_round
+        k1 = fg.fused_grid_kernel.launches
+        k1_raw = fg.fused_grid_kernel.launches_by_kind["raw"]
+        contentions = lock.contentions - c0
+        long_holds = lock.long_holds - l0
+        holds = hist.count - n0
+        p50 = hist_quantile(hist, h0, 0.5)
+        p99 = hist_quantile(hist, h0, 0.99)
+    finally:
+        diagnostics.enable(was[0])
+        diagnostics.enable_lock_debug(was[1])
+    assert not any(th.is_alive() for th in threads), "a query thread hung"
+    assert not errors, errors
+    n = LK_THREADS * LK_QUERIES
+    assert len(answers) == n, len(answers)
+    for (t, i), (k, v) in answers.items():
+        assert v.tobytes() == serial[k].tobytes(), (t, i, k)
+    assert k1 == k1_raw == n, (k1, k1_raw, n)
+    # the node's scrape carries the lock's own counts
+    srv = FiloHttpServer({"prometheus": engine}, port=0).start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics", timeout=60) as r:
+            text = r.read().decode()
+    finally:
+        srv.stop()
+    tags = '{dataset="prometheus",shard="0"}'
+    for name, want in (("filodb_shard_lock_contentions", lock.contentions),
+                       ("filodb_shard_lock_long_holds", lock.long_holds)):
+        m = re.search(rf"^{name}{re.escape(tags)} (\S+)$", text, re.M)
+        assert m and float(m.group(1)) == float(want), (name, want)
+    out = {"k1": k1, "k1_serial": k1_serial, "answers": n,
+           "round_s": round_s, "contentions": contentions,
+           "long_holds": long_holds, "holds": holds, "hold_p50_ms": p50,
+           "hold_p99_ms": p99, "seconds": time.perf_counter() - t0}
+    log(f"locks [{card}]: {LK_THREADS} threads x {LK_QUERIES} "
+        f"sum(rate(m[5m])) range queries over bench.py's {len(variants)} "
+        f"ranges on bench.build_engine's store as built ({NUM_SERIES} raw "
+        f"f32 series x {NUM_SAMPLES}, exponential(1) x 5 increments "
+        f"cumulated, seed 7), diagnostics and lock debug on: {n} answers "
+        f"bit for bit the serial ones, no DiagnosticsError, K1 raw "
+        f"launches {k1} (the {k1_serial} serial checks apart) in "
+        f"{round_s:.3f} s; shard lock contentions {contentions}, long "
+        f"holds {long_holds} (over {diagnostics.HOLD_WARN_S} s); "
+        f'filodb_lock_hold_ms{{class="shard"}} count {holds}, p50 '
+        f"{p50:.4f} ms, p99 {p99:.4f} ms (interpolated in its buckets); "
+        f"/metrics carries filodb_shard_lock_contentions and "
+        f"filodb_shard_lock_long_holds at the lock's counts "
+        f"({out['seconds']:.1f} s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7002,6 +7143,14 @@ def main() -> int:
         r16 = phase_rules_server(torch, np, fg, card, pkg)
         log(f"rules: phase 16 done in {r16b['seconds'] + r16['seconds']:.1f}"
             f" s; K1 launches {r16b['k1'] + r16['k1']}")
+        return 0
+    if sys.argv[1:2] == ["--locks"]:
+        # not part of the smoke run: phase 17 alone, on phase 4's engine
+        # built here
+        kernels.build()
+        engine, shard, reg_s = bench.build_engine("cuda")
+        log(f"locks: phase 4's engine registered in {reg_s:.1f} s")
+        phase_locks(torch, np, fg, card, engine, shard)
         return 0
     if sys.argv[1:2] == ["--cluster"]:
         # not part of the smoke run: phase 14 alone, on phase 11b's shards
@@ -7105,6 +7254,8 @@ def main() -> int:
     # 16b(ii) and (iii) first: they read bench.py's values as built, as
     # --rules does (phase 10b's mirror rounds them, 12b appends)
     r16b = phase_rules_on_bench(torch, np, fg, card, engine, shard)
+    # phase 17 on the same store, still as built (16b only reads it)
+    r17 = phase_locks(torch, np, fg, card, engine, shard)
     k1 = phase_scale(torch, np, fg, card, engine, shard, reg_s)
     log(f"scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -7243,10 +7394,11 @@ def main() -> int:
     # phase 14: the cluster plane's nodes (14a raw in-process, 14b the
     # adopted delta8 shards, 14c the node processes' raw shards); phase 15:
     # the FiloServer's shard leaves over HTTP (15a, 15b); phase 16: the
-    # rule evaluations and the checks' queries (16a, 16b)
+    # rule evaluations and the checks' queries (16a, 16b); phase 17: the
+    # lock round's queries (its serial checks apart)
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
         + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b \
-        + k1_14a + k1_14b["raw"] + k1_14c + k1_15 + k1_16
+        + k1_14a + k1_14b["raw"] + k1_14c + k1_15 + k1_16 + r17["k1"]
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
@@ -7256,7 +7408,7 @@ def main() -> int:
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
         f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
         f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}, "
-        f"15 {k1_15}, 16 {k1_16}; "
+        f"15 {k1_15}, 16 {k1_16}, 17 {r17['k1']}; "
         f"K1-delta8 over a recovered shard (13a) "
         f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
         f"and the two-node split (14b) "

@@ -52,6 +52,8 @@ from ..query.rangevector import QueryError
 from ..query.rangevector import fmt_value as _fmt
 from ..query.scheduler import AdmissionRejected, Priority, SchedulerBusy
 from ..utils.metrics import (FILODB_QUERY_SUBSCRIBE_INCREMENTS,
+                             FILODB_SHARD_LOCK_CONTENTIONS,
+                             FILODB_SHARD_LOCK_LONG_HOLDS,
                              FILODB_SHARD_NUM_SERIES, registry)
 from ..utils.tracing import (SPAN_QUERY_SERVE, SPAN_QUERY_SUBSCRIBE,
                              SPAN_REMOTE_WRITE, span,
@@ -265,6 +267,11 @@ class FiloHttpServer:
                     registry.gauge(f"filodb_shard_{k}", tags).update(float(v))
                 registry.gauge(FILODB_SHARD_NUM_SERIES, tags).update(
                     float(s.num_series))
+                if hasattr(s.lock, "contentions"):   # TimedRLock diagnostics
+                    registry.gauge(FILODB_SHARD_LOCK_CONTENTIONS, tags) \
+                        .update(float(s.lock.contentions))
+                    registry.gauge(FILODB_SHARD_LOCK_LONG_HOLDS, tags) \
+                        .update(float(s.lock.long_holds))
 
     @contextmanager
     def _leg_guard(self):

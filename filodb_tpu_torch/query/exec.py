@@ -1338,6 +1338,18 @@ class SelectRawPartitionsExec(ExecPlan):
             merged = t.apply(merged, ctx)
         return merged
 
+    @staticmethod
+    def _paged_gather(shard, pids, col) -> _NarrowODP:
+        """A narrow selection that needs paging: its keys and the resident
+        rows, gathered under the shard lock. Every caller already holds it
+        (``execute``, the engine's fused-hist route); the hold here is a
+        re-entry that keeps the gather correct for any caller. execute()
+        reads the cold chunks and makes the host copy after the lock is
+        released."""
+        with shard.lock:
+            return _NarrowODP(pids, [shard.rv_key_of(int(p)) for p in pids],
+                              shard.gather_resident_locked(pids, col))
+
     def do_execute(self, ctx) -> SeriesSelection:
         shard, col = _shard_of_ctx(ctx, self.shard, self.column)
         if shard.store is None:     # histogram shard with no data yet
@@ -1359,8 +1371,7 @@ class SelectRawPartitionsExec(ExecPlan):
             if len(pids) > ODP_BATCH:
                 return _WideODP(pids)
             ctx.stats.add("rows_paged_in", len(pids))
-            return _NarrowODP(pids, [shard.rv_key_of(int(p)) for p in pids],
-                              shard.gather_resident_locked(pids, col))
+            return self._paged_gather(shard, pids, col)
         if len(pids) > GATHER_THRESHOLD:
             # wide selection: defer key materialization (global aggregates
             # never read them)

@@ -158,7 +158,291 @@ FILODB_CLUSTER_REBALANCES = "filodb_cluster_rebalances"
 FILODB_CLUSTER_REJOIN_TRUNCATED = "filodb_cluster_rejoin_truncated"
 # gauge: shards of a dataset in each status (Active, Recovery, ...)
 FILODB_SHARD_STATUS = "filodb_shard_status"
+# gauges a /metrics scrape refreshes per shard from its TimedRLock, and the
+# lock hold-time histogram recorded under FILODB_LOCK_DEBUG=1
+# (utils/diagnostics.py)
+FILODB_SHARD_LOCK_CONTENTIONS = "filodb_shard_lock_contentions"
+FILODB_SHARD_LOCK_LONG_HOLDS = "filodb_shard_lock_long_holds"
+FILODB_LOCK_HOLD_MS = "filodb_lock_hold_ms"
 
+# The reference's METRICS_SPEC names these too; they belong to its
+# compiled-plan cache (query/plancache.py), which has no port.
+NOT_PORTED = ("filodb_query_compile_cache_hits",
+              "filodb_query_compile_cache_misses",
+              "filodb_query_compile_cache_evictions")
+
+# The declared metric surface: every ``filodb_*`` series this process
+# exports is named by one constant above and documented here (filolint's
+# surface-check family enforces it; a ``*`` suffix declares a dynamic
+# family). Equal to the reference's, less NOT_PORTED.
+METRICS_SPEC: dict[str, tuple[str, str]] = {
+    FILODB_INGESTED_ROWS: (
+        "counter", "Rows ingested per dataset/shard by the bus consumers."),
+    FILODB_GATEWAY_INGESTED_ROWS: (
+        "counter", "Samples accepted by the line-protocol gateway "
+                   "(a line with F fields contributes F)."),
+    FILODB_GATEWAY_PARSE_ERRORS: (
+        "counter", "Malformed line-protocol lines dropped by the gateway "
+                   "(latest offender sampled in last_parse_error)."),
+    FILODB_INGEST_DECODE_ERRORS: (
+        "counter", "Decode-ahead worker faults surfaced to the consumer "
+                   "(the batch is re-fetched; a rising rate means a "
+                   "corrupt bus segment)."),
+    FILODB_INGEST_RETRIES: (
+        "counter", "BrokerBus publish re-sends: reconnect replays of the "
+                   "unacked window plus RETRY-shed backoffs (jittered "
+                   "exponential, capped)."),
+    FILODB_INGEST_FAILOVERS: (
+        "counter", "BrokerBus leader re-resolutions: the client re-ranked "
+                   "the replica set by watermark and switched brokers."),
+    FILODB_INGEST_REPLICATION_LAG: (
+        "gauge", "Frames the follower trails the leader, per partition and "
+                 "peer (0 when fully replicated; grows while a follower "
+                 "is down or out of the in-sync set)."),
+    FILODB_INGEST_PUBLISH_SHED: (
+        "counter", "Publishes the broker shed with RETRY: per-partition "
+                   "queue-depth overload or a below-min_insync quorum "
+                   "stall (clients back off and replay idempotently)."),
+    FILODB_SWALLOWED_ERRORS: (
+        "counter", "Errors intentionally dropped on non-critical paths, "
+                   "tagged by site= — the observability replacement for "
+                   "`except: pass` (filolint except-swallow)."),
+    FILODB_SCHEDULER_WORKER_ERRORS: (
+        "counter", "Query-scheduler worker-loop faults outside task "
+                   "execution; the worker survives and the fault is "
+                   "counted instead of killing the thread."),
+    FILODB_PEER_EXEC_REQUESTS: (
+        "counter", "Cross-node /exec dispatches per endpoint."),
+    FILODB_PEER_EXEC_LATENCY_MS: (
+        "gauge", "Last cross-node /exec round-trip latency per endpoint."),
+    FILODB_PEER_BREAKER_OPEN: (
+        "gauge", "1 while the per-peer circuit breaker is open (dispatches "
+                 "shed fast as 503)."),
+    FILODB_SHARD_STATUS: (
+        "gauge", "Shard count per dataset and status "
+                 "(Active/Assigned/Recovery/Down/Unassigned)."),
+    FILODB_SHARD_NUM_SERIES: (
+        "gauge", "Live series per shard."),
+    FILODB_SHARD_LOCK_CONTENTIONS: (
+        "gauge", "TimedRLock contention count per shard (diagnostics)."),
+    FILODB_SHARD_LOCK_LONG_HOLDS: (
+        "gauge", "TimedRLock long-hold count per shard (diagnostics)."),
+    FILODB_LOCK_HOLD_MS: (
+        "histogram", "TimedRLock hold time per lock class, recorded under "
+                     "FILODB_LOCK_DEBUG=1 — the runtime twin of filolint's "
+                     "live-block-under-lock rule; soak runs alert on "
+                     "hold-time regressions the static pass cannot see."),
+    FILODB_QUERY_LATENCY_MS: (
+        "histogram", "End-to-end PromQL latency per dataset; the /metrics "
+                     "rendering carries the last query's trace id as an "
+                     "exemplar-style companion series."),
+    FILODB_QUERY_SLOW: (
+        "counter", "Queries that crossed query.slow_log_threshold_ms and "
+                   "entered the slow-query ring "
+                   "(/api/v1/debug/slow_queries)."),
+    FILODB_QUERY_RESULT_CACHE_HITS: (
+        "counter", "Result-cache hits: a repeated range query answered "
+                   "from the step-aligned fragment cache after its ingest "
+                   "watermark vector validated."),
+    FILODB_QUERY_RESULT_CACHE_MISSES: (
+        "counter", "Result-cache misses (no entry for the query key)."),
+    FILODB_QUERY_RESULT_CACHE_EVICTIONS: (
+        "counter", "Result-cache entries dropped by the LRU capacity bound "
+                   "(query.result_cache_size)."),
+    FILODB_QUERY_RESULT_CACHE_INVALIDATIONS: (
+        "counter", "Result-cache entries discarded because a shard's ingest "
+                   "watermark advanced past the entry's recorded vector "
+                   "(data changed; a hit would no longer equal "
+                   "re-execution)."),
+    FILODB_QUERY_ADMISSION_SHED: (
+        "counter", "Queries shed by cost-based admission control (tagged by "
+                   "tenant): estimated cost did not fit the in-flight "
+                   "budget, answered 503 + Retry-After."),
+    FILODB_QUERY_ADMISSION_OVERSIZED: (
+        "counter", "Queries rejected outright because their estimated cost "
+                   "exceeds the absolute budget or tenant quota (answered "
+                   "non-retryable 422; never admissible at any load — NOT "
+                   "an overload signal)."),
+    FILODB_QUERY_ADMISSION_COST: (
+        "gauge", "Estimated cost units currently admitted and executing "
+                 "(bounded by query.max_concurrent_cost)."),
+    FILODB_QUERY_FUSED_SERVED: (
+        "counter", "Queries served by a fused compressed-resident kernel, "
+                   "tagged by registry shape (rate_sum / window_reduce / "
+                   "hist_quantile) and backend (cuda on the card, plain "
+                   "on the CPU)."),
+    FILODB_QUERY_FUSED_FALLBACK: (
+        "counter", "Queries that matched a fused shape but fell back to "
+                   "the composed two-step path (shape gate, group cap, "
+                   "off-grid store), tagged by shape."),
+    FILODB_QUERY_MESH_SERVED: (
+        "counter", "Queries served by a mesh dist_* collective, tagged by "
+                   "route (fused / fused-narrow / twostep / sketch / topk) "
+                   "and program mode (the port's mesh runs eagerly: "
+                   "eager)."),
+    FILODB_QUERY_MESH_FALLBACK: (
+        "counter", "Mesh-eligible queries that fell back to the host "
+                   "scatter-gather path after eligibility, tagged by reason "
+                   "(paging / order_stat_caps / topk_caps)."),
+    FILODB_QUERY_NEGATIVE_CACHE_HITS: (
+        "counter", "Range queries answered from the TTL-bounded negative "
+                   "result cache: a recent execution proved the selection "
+                   "empty (typo'd metric), so plan+execute is skipped until "
+                   "the TTL expires."),
+    FILODB_QUERY_NEGATIVE_CACHE_EVICTIONS: (
+        "counter", "Negative-cache entries dropped by TTL expiry or the "
+                   "capacity bound (query.negative_cache_size)."),
+    FILODB_QUERY_FRAGMENT_CACHE_HITS: (
+        "counter", "Range queries that reused at least one provably-valid "
+                   "cached per-step column from the incremental fragment "
+                   "cache (query/incremental.py)."),
+    FILODB_QUERY_FRAGMENT_CACHE_MISSES: (
+        "counter", "Fragment-cache probes that reused nothing: no entry, "
+                   "off-grid request, a coverage gap, or every cached step "
+                   "past the stable-before bound."),
+    FILODB_QUERY_FRAGMENT_CACHE_EXTENSIONS: (
+        "counter", "Fragment entries extended by a delta evaluation: only "
+                   "the new head/tail steps executed, the overlap served "
+                   "from cache (the dashboard-refresh fast path)."),
+    FILODB_QUERY_FRAGMENT_CACHE_EVICTIONS: (
+        "counter", "Fragment entries dropped by the entry-count "
+                   "(query.fragment_cache_size) or total-byte "
+                   "(query.fragment_cache_bytes) bound."),
+    FILODB_QUERY_FRAGMENT_CACHE_INVALIDATIONS: (
+        "counter", "Fragment entries dropped because per-step validity "
+                   "could not be proven: destructive mutation "
+                   "(purge/eviction/age-out), an epoch-log gap, or a "
+                   "topology change since the entry's vector."),
+    FILODB_QUERY_FRAGMENT_CACHE_BYTES: (
+        "gauge", "Resident bytes of the fragment cache's per-step value "
+                 "columns (per-entry detail at "
+                 "/api/v1/debug/fragment_cache)."),
+    FILODB_QUERY_WINDOWS_WIDENED: (
+        "counter", "Windowed functions auto-widened on retention-routed "
+                   "queries because their window was narrower than the "
+                   "serving family's resolution (tagged dataset + "
+                   "resolution; also in per-query stats)."),
+    FILODB_QUERY_SUBSCRIBE_INCREMENTS: (
+        "counter", "Per-step increments served by the streaming "
+                   "subscription surface (/api/v1/subscribe long-poll and "
+                   "chunked modes), tagged by dataset."),
+    FILODB_INGEST_PUBLISH_LATENCY_MS: (
+        "histogram", "BrokerBus pipelined publish-group round trip per "
+                     "partition, exemplar-tagged with the publish trace "
+                     "id."),
+    FILODB_TRACE_SPANS: (
+        "counter", "Spans recorded into the tracer ring buffer (sampled-in "
+                   "only; sampled-out spans cost no clock reads)."),
+    FILODB_RETENTION_ROUTED_QUERIES: (
+        "counter", "Queries the retention router served from a downsample "
+                   "family (tagged dataset + resolution; stitched raw+ds "
+                   "queries count under the family's resolution)."),
+    FILODB_RETENTION_ODP_ROWS: (
+        "counter", "Samples paged in from the durable chunk tier by "
+                   "on-demand paging, tagged tier=local|remote (remote = "
+                   "the replicated StoreServer ring)."),
+    FILODB_RETENTION_REPLICA_FAILOVER: (
+        "counter", "Replica reads that failed and fell over to the next "
+                   "backend of the ReplicatedColumnStore ring (tagged by "
+                   "op; a rising rate means a dead or flapping "
+                   "StoreServer)."),
+    FILODB_RETENTION_AGED_OUT_ROWS: (
+        "counter", "Raw samples aged out of the durable tier past "
+                   "retention.raw_ttl (each pass also bumps the shard's "
+                   "data_epoch so cached results invalidate)."),
+    FILODB_STORE_RESIDENCY_FALLBACK: (
+        "counter", "Flushes where a store configured for compressed "
+                   "residency tried to compress and the data refused the "
+                   "ok-contract (cohort gate breached), tagged "
+                   "reason=resets|non-integer|range — distinguishes "
+                   "\"compressed\" from \"tried and fell back to raw\"."),
+    FILODB_RULES_EVALUATIONS: (
+        "counter", "Rule evaluations completed, tagged group= and rule= "
+                   "(one per rule per scheduler tick)."),
+    FILODB_RULES_EVAL_FAILURES: (
+        "counter", "Rule evaluations that raised (bad data mid-flight, "
+                   "admission shed after retries, publish fault), tagged "
+                   "group= and rule=; the group keeps evaluating."),
+    FILODB_RULES_EVAL_LATENCY_MS: (
+        "histogram", "Wall time of one whole group evaluation (every rule "
+                     "in the group, sequentially, derived publish "
+                     "included), tagged group=."),
+    FILODB_RULES_EVAL_LAG_MS: (
+        "gauge", "How far the group's completed evaluation trails its "
+                 "scheduled grid tick, per group — sustained growth means "
+                 "the interval is shorter than the evaluation costs."),
+    FILODB_RULES_DERIVED_ROWS: (
+        "counter", "Derived samples published back through the ingest "
+                   "plane by recording rules, tagged group=."),
+    FILODB_RULES_ALERTS_FIRING: (
+        "gauge", "Alert instances currently in the firing state, tagged "
+                 "rule=."),
+    FILODB_RULES_ALERT_TRANSITIONS: (
+        "counter", "Alert state-machine transitions, tagged rule= and to= "
+                   "(pending/firing/inactive)."),
+    FILODB_RULES_NOTIFICATIONS: (
+        "counter", "Webhook notifications attempted, tagged status=ok| "
+                   "failed (failed = retries exhausted)."),
+    FILODB_RULES_SPOOF_REJECTS: (
+        "counter", "External writes rejected for carrying the reserved "
+                   "__rule__ label (tagged site=remote-write|gateway): "
+                   "derived-series provenance cannot be forged."),
+    FILODB_INDEX_RECOVER_MS: (
+        "gauge", "Wall milliseconds the last shard restart spent recovering "
+                 "the part-key index (per dataset/shard): columnar load "
+                 "from persisted index.log time buckets when available, "
+                 "else the per-key partkeys.log rebuild."),
+    FILODB_INDEX_PERSISTED_BUCKETS: (
+        "counter", "Index time-bucket frames persisted to the durable tier "
+                   "(CRC-verified appends to index.log; recovery loads "
+                   "these columnar instead of rebuilding per key)."),
+    FILODB_TENANT_ACTIVE_SERIES: (
+        "gauge", "Active (resident) series per dataset and tenant — the "
+                 "quantity index.max_series_per_tenant bounds; births "
+                 "increment, purge/eviction/release decrement."),
+    FILODB_TENANT_SERIES_SHED: (
+        "counter", "NEW series births shed by the per-tenant cardinality "
+                   "limiter, tagged site=shard|gateway|remote-write — "
+                   "samples for existing series are never counted here "
+                   "(they always land)."),
+    FILODB_CLUSTER_GOSSIP_ROUNDS: (
+        "counter", "Gossip probe rounds run by this node's membership agent "
+                   "(the deterministic round counter suspicion is counted "
+                   "in — no wall clock)."),
+    FILODB_CLUSTER_PEER_STATE: (
+        "gauge", "Membership state per peer: 0=alive, 1=suspect, 2=dead "
+                 "(counted-not-timed transitions at cluster.suspect_after / "
+                 "cluster.dead_after probe rounds)."),
+    FILODB_CLUSTER_EPOCH: (
+        "gauge", "Current leadership epoch per fenced scope (scope="
+                 "partition|shard, id=): bumps on every claim/adoption — a "
+                 "step means a failover or rebalance cutover happened."),
+    FILODB_CLUSTER_FENCED_REJECTS: (
+        "counter", "Writes refused by epoch fencing (tagged site=publish|"
+                   "replicate|store): a deposed leader tried to ack a "
+                   "publish, stream a replication batch, or flush/checkpoint "
+                   "after deposition."),
+    FILODB_CLUSTER_REBALANCES: (
+        "counter", "Operator-triggered live shard rebalances completed by "
+                   "this node (flush→handoff→catch-up→cutover, tagged "
+                   "dataset=)."),
+    FILODB_CLUSTER_REJOIN_TRUNCATED: (
+        "counter", "Divergent log frames a restarted deposed leader "
+                   "truncated on REJOIN before catching up from the current "
+                   "leader (tagged partition=)."),
+    "filodb_shard_*": (
+        "gauge", "Per-shard ingest/eviction stats exported from the shard's "
+                 "IngestStats dataclass fields on each /metrics scrape."),
+}
+
+
+def metrics_markdown_table() -> str:
+    """The README 'Metrics' table, generated from METRICS_SPEC (verified
+    against the checked-in README by tests/test_torch_static_analysis.py)."""
+    lines = ["| metric | kind | meaning |", "|---|---|---|"]
+    for name, (kind, doc) in sorted(METRICS_SPEC.items()):
+        lines.append(f"| `{name}` | {kind} | {doc} |")
+    return "\n".join(lines)
 
 class Counter:
     def __init__(self):
@@ -192,7 +476,10 @@ class Gauge:
 
 class Histogram:
     """Fixed-boundary histogram (ms-scale latencies by default); keeps the
-    last observation's trace id as its exemplar."""
+    last traced observation's trace id and value as its exemplar, which
+    /metrics renders as a companion ``<name>_exemplar{trace_id="..."}``
+    series, as the reference does (the 0.0.4 text format has no native
+    exemplar syntax)."""
 
     DEFAULT_BOUNDS = (1, 2, 5, 10, 25, 50, 100, 250, 500, 1000, 2500, 5000,
                       10000)
@@ -203,6 +490,7 @@ class Histogram:
         self.sum = 0.0
         self.count = 0
         self.last_trace_id: str | None = None
+        self.last_value = 0.0
         self._lock = threading.Lock()
 
     def record(self, v: float, trace_id: str | None = None):
@@ -212,6 +500,7 @@ class Histogram:
             self.count += 1
             if trace_id:
                 self.last_trace_id = trace_id
+                self.last_value = v
 
 
 class MetricsRegistry:
@@ -259,6 +548,10 @@ class MetricsRegistry:
                 lines.append(f"{name}_bucket{lt} {m.count}")
                 lines.append(f"{name}_sum{tag_s} {m.sum:g}")
                 lines.append(f"{name}_count{tag_s} {m.count}")
+                if m.last_trace_id:
+                    et = (tag_s[:-1] + "," if tag_s else "{") \
+                        + f'trace_id="{m.last_trace_id}"' + "}"
+                    lines.append(f"{name}_exemplar{et} {m.last_value:g}")
         return "\n".join(lines) + "\n"
 
 

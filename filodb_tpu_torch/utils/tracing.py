@@ -86,6 +86,85 @@ SPAN_CLUSTER_LEAD = "cluster.epoch.lead"
 SPAN_CLUSTER_REJOIN = "cluster.rejoin"
 SPAN_CLUSTER_REBALANCE = "cluster.rebalance"
 
+# The reference's TRACE_SPEC names this span too; it belongs to its
+# compiled-plan cache (query/plancache.py), which has no port.
+NOT_PORTED = ("query.compile",)
+
+# The declared span surface: every span name this process records is named
+# by one constant above and documented here (filolint's surface-check
+# family enforces it). Equal to the reference's, less NOT_PORTED.
+TRACE_SPEC: dict[str, str] = {
+    SPAN_QUERY: "Root span of one PromQL query (tags: dataset, promql).",
+    SPAN_QUERY_PARSE: "PromQL text -> LogicalPlan.",
+    SPAN_QUERY_PLAN: "LogicalPlan -> ExecPlan materialization + remote "
+                     "collapse.",
+    SPAN_QUERY_EXECUTE: "ExecPlan execution (mesh, fused, or scatter-gather "
+                        "path; tags: path).",
+    SPAN_QUERY_LEAF: "One data-reading leaf under its shard lock "
+                     "(tags: shard).",
+    SPAN_QUERY_REDUCE: "Cross-shard reduce merge of child partials.",
+    SPAN_QUERY_DISPATCH: "One cross-node /exec POST (tags: endpoint, "
+                         "shards).",
+    SPAN_QUERY_SERVE: "Peer side of /exec: subtree execution on the "
+                      "shard-owning node (tags: node).",
+    SPAN_QUERY_ODP: "On-demand page-in of cold chunks for one leaf batch "
+                    "(tags: shard, series).",
+    SPAN_QUERY_ADMIT: "Cost-based admission decision for one query (tags: "
+                      "cost, tenant, shed on rejection).",
+    SPAN_REMOTE_READ: "Remote-read fan-out leg to one peer (tags: "
+                      "endpoint).",
+    SPAN_REMOTE_WRITE: "Remote-write batch accepted at the HTTP edge.",
+    SPAN_GATEWAY_PUBLISH: "One built gateway container published to its "
+                          "shard's bus (tags: shard).",
+    SPAN_INGEST_PUBLISH: "One pipelined PUBLISH_BATCH group on the client "
+                         "(tags: partition, failovers on a leader switch).",
+    SPAN_BROKER_APPEND: "Broker-side publish append + quorum wait "
+                        "(tags: partition, broker).",
+    SPAN_REPLICATE: "Leader->follower replication push for one publish "
+                    "(tags: partition, peer).",
+    SPAN_REPLICATE_SERVE: "Follower side of OP_REPLICATE: CRC check + "
+                          "append (tags: partition, broker).",
+    SPAN_INGEST_CONSUME: "One consumer drain: bus containers scattered "
+                         "into the shard store (tags: dataset, shard).",
+    SPAN_QUERY_RETENTION: "Downsample-aware routing of one query: the "
+                          "resolution decision and its routed/stitched "
+                          "leg queries hang under it (tags: dataset, "
+                          "resolution, stitched).",
+    SPAN_QUERY_FRAGMENT: "Incremental (delta) evaluation of one range "
+                         "query off the fragment cache: reused per-step "
+                         "columns + head/tail sub-executions hang under it "
+                         "(tags: dataset, reused, computed).",
+    SPAN_QUERY_SUBSCRIBE: "One streaming-subscription increment: the steps "
+                          "newly covered by the ingest watermarks since "
+                          "the subscriber's cursor (tags: dataset, steps).",
+    SPAN_ODP_DURABLE: "Durable-tier chunk scan of one ODP page-in batch "
+                      "(tags: shard, tier=local|remote, rows).",
+    SPAN_RULES_EVAL: "One rule evaluation inside a scheduler tick (tags: "
+                     "group, rule, eval_ts; its PromQL query and derived "
+                     "publish spans hang under it).",
+    SPAN_CLUSTER_GOSSIP: "One membership gossip probe round: digest "
+                         "exchange with the scheduled peer (tags: peer, "
+                         "round).",
+    SPAN_CLUSTER_LEAD: "Leadership claim for one partition: read peer "
+                       "epochs, bump, persist, announce (tags: partition, "
+                       "epoch).",
+    SPAN_CLUSTER_REJOIN: "REJOIN repair of a restarted deposed leader: "
+                         "divergent-tail truncation + catch-up from the "
+                         "current leader (tags: partition, owner).",
+    SPAN_CLUSTER_REBALANCE: "Operator-triggered live shard move: "
+                            "flush→handoff→catch-up→cutover (tags: dataset, "
+                            "shard, to).",
+}
+
+
+def trace_markdown_table() -> str:
+    """The ARCHITECTURE 'Span taxonomy' table, generated from TRACE_SPEC
+    (verified against the checked-in ARCHITECTURE.md by
+    tests/test_torch_static_analysis.py)."""
+    lines = ["| span | meaning |", "|---|---|"]
+    for name, doc in sorted(TRACE_SPEC.items()):
+        lines.append(f"| `{name}` | {doc} |")
+    return "\n".join(lines)
 
 @dataclass
 class SpanRecord:
