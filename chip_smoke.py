@@ -388,6 +388,34 @@ Phases, in order; every check asserts and any failure exits non-zero:
                the lock's own counts. Prints the shard lock's contentions
                and long holds and filodb_lock_hold_ms{class="shard"}'s
                count, p50 and p99 beside the card's name and power limit.
+  18.  soak (after 14b, on 11b's 8 delta8 shards) — 18a: three nodes a,
+               b, c in this process adopt all 8 shards (no copy), the
+               ShardManager deals them 3/3/2, each node has its HTTP
+               server; S1-S4 (the reference three-node test's shapes over
+               the metric and its grp label; the grouped S2 over 8 % of
+               the hosts), M1 and two joins (over the same 8 %) through
+               every node over HTTP, each bit for bit one node's host
+               loop, 2 /exec POSTs a query, K1 by node 3/3/2 for the fused
+               sum(rate); one trace with serve spans from b and c; c
+               killed: one replan, its shards split over a and b, every
+               answer through a and b as before, K1 4/4; the
+               reference join test's whole list at its own size on three
+               card nodes, bit for bit one card node and within rtol 1e-5
+               of the CPU cluster. 18b: a FiloServer on the card (data_dir,
+               1m downsampling) fed 4096 gauges x 1 h at 7 s through a
+               FileBus, the port's downsample validator over the hour;
+               then two servers on one broker, the validator over the
+               hour against each node's port; every
+               column compared for every series at every closed bucket,
+               0 mismatches, max rel err <= 1e-6. 18c: the six soaks of
+               filodb_tpu_torch.stress at the reference's defaults
+               (streaming 10 s, cluster 15 s),
+               each passing its own checks; query, streaming and cluster
+               launch K1 raw in their timed runs (the kernels line
+               counts those, the soaks' check queries apart). Prints
+               each step's ms, rows/s, queries/s,
+               p50/p99, the takeover gap and K1's launches beside the
+               card's name and power limit.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -432,6 +460,11 @@ phase 4's engine built for it) and prints no result line.
 
 runs phase 17 alone (after the kernels' build, on phase 4's engine built
 for it) and prints no result line.
+
+    python3 chip_smoke.py --soak
+
+runs phase 18 alone (after the kernels' build; 18a on 11b's shards built
+and made delta8-resident for it) and prints no result line.
 """
 
 import contextlib
@@ -7079,6 +7112,638 @@ def phase_locks(torch, np, fg, card, engine, shard) -> dict:
     return out
 
 
+# -- phase 18: three nodes, the downsample validator and the soaks ----------
+
+TN_NODES = ("a", "b", "c")
+# the grouped shapes' selector: 8 % of 11b's hosts (those whose id ends in
+# 00-03 or 10-13), every grp value, on every shard. A grouped aggregate
+# costs one Python group key a series (~5 s over all 2^20, ROADMAP queue
+# 2), so over every series these shapes could not go through each node
+TN_HOST_RE = "h.*[01][0-3]"
+TN_SEL = f'{{host=~"{TN_HOST_RE}"}}'
+# 18a: the reference three-node test's four shapes over 11b's metric and
+# its grp label, M1, and two joins whose answers stay small for HTTP
+TN_QUERIES = {
+    "S1": "sum(rate(m[2m]))",
+    "S2": f"avg by (grp) (m{TN_SEL})",
+    "S3": "topk(3, m)",
+    "S4": "count(m)",
+    "M1": "sum(rate(m[5m]))",
+    "J1": f"sum by (grp) (rate(m{TN_SEL}[5m])) / on(grp) "
+          f"sum by (grp) (m{TN_SEL})",
+    "J2": f"topk(5, rate(m{TN_SEL}[5m]) / on(grp) group_left "
+          f"sum by (grp) (rate(m{TN_SEL}[5m])))",
+}
+TN_NARROW = ("S2", "J1", "J2")
+TN_FUSED = ("S1", "M1")
+# /exec POSTs a query: one a peer, and a join's two sides fan out apart
+TN_JOINS = ("J1", "J2")
+# the reference join test's fixture (tests/test_binary_join_cluster.py):
+# 6 hosts, m{host, dc, job} two jobs a host and cap{host}, 120 samples at
+# 10 s, 8 shards over three nodes
+JN_HOSTS = 6
+JN_QUERIES = (
+    "sum by (host) (m) / on(host) cap",
+    "sum by (host, dc) (m) / ignoring(dc) cap",
+    "m / on(host) group_left cap",
+    "cap * on(host) group_right m",
+    "m / on(host) group_left() cap",
+    "m > 300 and on(host) cap > 1000",
+    "sum by (host) (m) or cap",
+    "sum by (host) (m) unless on(host) cap",
+    "sum by (host) (m) >= bool on(host) cap - 900",
+)
+# 18b: 4096 gauges at a 7 s cadence, offset 500 ms, for one hour
+DV_SERIES = 4096
+DV_CADENCE_MS = 7_000
+DV_SAMPLES = 3_600_000 // DV_CADENCE_MS + 1
+DV_BASE = 1_700_000_000_000
+DV_CHUNK = 86                     # samples a container (~10 minutes)
+DV_END = DV_BASE + 500 + (DV_SAMPLES - 1) * DV_CADENCE_MS
+# 18c: each soak at the reference's defaults, durations cut to fit the
+# phase's budget (PERF.md section 4)
+SOAKS = {
+    "ingestion_stress": {},
+    "batch_ingestion": {},
+    "churn_stress": {},
+    "query_stress": {},
+    "streaming_stress": {"duration_s": 10},
+    "cluster_stress": {"duration_s": 15},
+}
+SOAK_K1 = ("query_stress", "streaming_stress", "cluster_stress")
+
+
+def tn_manager(ds, nshards):
+    from filodb_tpu_torch.parallel.cluster import ShardManager
+    mgr = ShardManager()
+    for n in TN_NODES:
+        mgr.add_node(n)
+    mgr.add_dataset(ds, nshards)
+    return mgr
+
+
+def tn_serve(pkg, dev, ds, memstores, mgr, nshards):
+    """(engines, servers, endpoints): a node's engine and HTTP server over
+    its memstore, peers resolved through the endpoints."""
+    from filodb_tpu_torch.http.api import FiloHttpServer
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    QueryEngine = pkg[4]
+    eps: dict = {}
+    engines = {n: QueryEngine(memstores[n], ds, ShardMapper(nshards),
+                              device=dev, cluster=mgr, node=n,
+                              endpoint_resolver=eps.get)
+               for n in TN_NODES}
+    servers = {n: FiloHttpServer({ds: e}, port=0).start()
+               for n, e in engines.items()}
+    eps.update({n: f"127.0.0.1:{s.port}" for n, s in servers.items()})
+    return engines, servers, eps
+
+
+def tn_matched(name, selected) -> int:
+    """Series a query's selectors match: a join has two; the grouped
+    shapes match ``selected`` series a selector, the rest every series."""
+    sides = 2 if name in TN_JOINS else 1
+    return sides * (selected if name in TN_NARROW else NUM_SERIES)
+
+
+def tn_owned(mgr, ds, shards, node):
+    return [sh for sh in shards if mgr.node_of(ds, sh.shard_num) == node]
+
+
+def tn_http(fg, eps, node, ds, q, s, e, owner=None) -> tuple:
+    """One query through ``node`` over HTTP: (answer JSON, POSTs the node
+    made, ms, K1 launches by node when ``owner`` attributes them)."""
+    from filodb_tpu_torch.query import wire
+    before = wire.breakers.total_requests()
+    with k1_by_node(fg, owner or (lambda _v: "?")) as per:
+        t0 = time.perf_counter()
+        got = cl_http_query(eps[node], ds, q, s, e, STEP_MS)
+        ms = (time.perf_counter() - t0) * 1000
+    assert got["status"] == "success", got
+    return got, wire.breakers.total_requests() - before, ms, dict(per)
+
+
+def tn_trace(eps, ds, s, e) -> dict:
+    """M1 through node a: one trace, serve spans from b and c, a leaf
+    span for each of the 8 shards."""
+    from filodb_tpu_torch.utils.tracing import (SPAN_QUERY, SPAN_QUERY_LEAF,
+                                                SPAN_QUERY_SERVE, tracer)
+    tracer.drain()
+    cl_http_query(eps["a"], ds, TN_QUERIES["M1"], s, e, STEP_MS)
+    spans = tracer.snapshot()
+    roots = [sp for sp in spans if sp.name == SPAN_QUERY]
+    assert len(roots) == 1, len(roots)
+    members = [sp for sp in spans if sp.trace_id == roots[0].trace_id]
+    serve = {sp.tags.get("node") for sp in members
+             if sp.name == SPAN_QUERY_SERVE}
+    leaves = {sp.tags.get("shard") for sp in members
+              if sp.name == SPAN_QUERY_LEAF}
+    assert serve == {"b", "c"}, serve
+    assert leaves == set(range(MESH_SHARDS)), leaves
+    return {"spans": len(members), "serve": sorted(serve)}
+
+
+def tn_scale(torch, np, fg, pkg, shards, dev="cuda") -> dict:
+    """18a's three nodes over phase 11b's 8 delta8 shards: every memstore
+    adopts all 8 (no copy), the ShardManager deals them 3/3/2; every
+    answer over HTTP bit for bit one node's host loop over the same
+    shards, 2 POSTs a query (4 a join), K1 3/3/2 by node for the fused
+    sum(rate); one trace across nodes; node c killed: one replan, its
+    shards split over a and b, every answer through a and b as before
+    (1 POST a query, 2 a join), K1 4/4."""
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    ds = "meshq"
+    n = len(shards)
+    mgr = tn_manager(ds, n)
+    per_node = {node: tn_owned(mgr, ds, shards, node) for node in TN_NODES}
+    assert sorted(len(v) for v in per_node.values()) == [2, 3, 3], per_node
+    assert len(per_node["c"]) == 2
+    engines, servers, eps = tn_serve(
+        pkg, dev, ds, {node: adopt_shards(pkg, dev, ds, shards)
+                       for node in TN_NODES}, mgr, n)
+    host = pkg[4](adopt_shards(pkg, dev, ds, shards), ds, ShardMapper(n),
+                  device=dev)
+    s, e = range_variants(shards[0])[0]
+    selected = sum(re.fullmatch(TN_HOST_RE, f"h{i}") is not None
+                   for i in range(NUM_SERIES))
+    k1_raw = k1_d8 = 0
+    moved = {}
+    out = {"ms": {}, "host_ms": {}, "k1": {}, "selected": selected}
+    try:
+        want, matched = {}, {}
+        for name, q in TN_QUERIES.items():
+            t0 = time.perf_counter()
+            r = host.query_range(q, s, e, STEP_MS)
+            want[name], matched[name] = cl_prom(r), r.stats.series_matched
+            out["host_ms"][name] = (time.perf_counter() - t0) * 1000
+            vals = np.asarray(r.matrix.values, np.float64)
+            assert vals.size and np.isfinite(vals[~np.isnan(vals)]).all(), \
+                name
+        reset_k1(fg)
+        for name, q in TN_QUERIES.items():
+            for node in TN_NODES:
+                got, posts, ms, per = tn_http(fg, eps, node, ds, q, s, e,
+                                              by_store(per_node))
+                assert got["data"] == want[name], (name, node,
+                                                   "not bit-equal")
+                assert posts == (4 if name in TN_JOINS else 2), \
+                    (name, node, posts)
+                assert got["stats"]["series_matched"] == matched[name] \
+                    == tn_matched(name, selected), (name, matched[name])
+                if name in TN_FUSED and torch.device(dev).type == "cuda":
+                    assert per == {"a": 3, "b": 3, "c": 2}, (name, node, per)
+                out["ms"][f"{name}@{node}"] = ms
+                out["k1"][f"{name}@{node}"] = per
+        out["trace"] = tn_trace(eps, ds, s, e)
+        k1_raw += fg.fused_grid_kernel.launches_by_kind["raw"]
+        k1_d8 += fg.fused_grid_kernel.launches_by_kind["delta8"]
+
+        # kill c: its server stops, the monitor declares it dead at the
+        # next dispatch (the resolver plays the monitor, as in the test)
+        c_shards = sorted(sh.shard_num for sh in per_node["c"])
+        servers["c"].stop()
+        eps.pop("c")
+        state = {"failed": False, "calls": 0}
+
+        def resolver(node):
+            if node == "c":
+                state["calls"] += 1
+                if not state["failed"]:
+                    state["failed"] = True
+                    mgr.remove_node("c")
+                    return "127.0.0.1:1"      # nothing listens there
+            return eps.get(node)
+
+        engines["a"].endpoint_resolver = resolver
+        reset_k1(fg)
+        t0 = time.perf_counter()
+        r = engines["a"].query_range(TN_QUERIES["M1"], s, e, STEP_MS)
+        out["replan_ms"] = (time.perf_counter() - t0) * 1000
+        assert state["failed"] and state["calls"] == 1, state
+        assert r.exec_path == "local-replanned", r.exec_path
+        assert cl_prom(r) == want["M1"], "replanned M1 not bit-equal"
+        out["k1_replan"] = fg.fused_grid_kernel.launches
+        moved = {sn: mgr.node_of(ds, sn) for sn in c_shards}
+        assert set(moved.values()) == {"a", "b"}, moved
+        survivors = {node: tn_owned(mgr, ds, shards, node)
+                     for node in ("a", "b")}
+        for name, q in TN_QUERIES.items():
+            for node in ("a", "b"):
+                got, posts, ms, per = tn_http(fg, eps, node, ds, q, s, e,
+                                              by_store(survivors))
+                assert got["data"] == want[name], (name, node, "after kill")
+                assert posts == (2 if name in TN_JOINS else 1), \
+                    (name, node, posts)
+                if name in TN_FUSED and torch.device(dev).type == "cuda":
+                    assert per == {"a": 4, "b": 4}, (name, node, per)
+                out["ms"][f"{name}@{node} after"] = ms
+                out["k1"][f"{name}@{node} after"] = per
+        k1_raw += fg.fused_grid_kernel.launches_by_kind["raw"]
+        k1_d8 += fg.fused_grid_kernel.launches_by_kind["delta8"]
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    out["k1_raw"], out["k1_delta8"] = k1_raw, k1_d8
+    out["moved"] = moved
+    return out
+
+
+def jn_cluster(np, pkg, dev):
+    """(engines, oracle, servers): the reference join test's three nodes
+    on ``dev``, each memstore holding every shard, and a one-node oracle."""
+    from filodb_tpu_torch.parallel.shardmapper import ShardMapper
+    StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine = pkg
+    mgr = tn_manager(CL_DS, MESH_SHARDS)
+    series = []
+    for i in range(JN_HOSTS):
+        for j in range(2):
+            series.append(({"_metric_": "m", "host": f"h{i}",
+                            "dc": f"dc{i % 2}", "job": f"j{j}"},
+                           100.0 * (i + 1) + 7.0 * j))
+        series.append(({"_metric_": "cap", "host": f"h{i}"},
+                       1000.0 + 50.0 * i))
+    t = np.arange(CL_N)
+    ts = CL_START + t.astype(np.int64) * CL_IV
+    stores = {}
+    for node in (*TN_NODES, "oracle"):
+        ms = TimeSeriesMemStore(device=dev)
+        for sn in range(MESH_SHARDS):
+            ms.setup(CL_DS, GAUGE, sn, StoreConfig(
+                max_series_per_shard=32, samples_per_series=256,
+                flush_batch_size=10**9, dtype="float64", device=dev))
+        for idx, (labels, base) in enumerate(series):
+            b = RecordBuilder(GAUGE)
+            b.add_batch(labels, ts, base + 10.0 * np.sin(t / 9.0 + base))
+            ms.ingest(CL_DS, idx % MESH_SHARDS, b.build())
+        ms.flush_all()
+        stores[node] = ms
+    engines, servers, _eps = tn_serve(pkg, dev, CL_DS, stores, mgr,
+                                      MESH_SHARDS)
+    oracle = QueryEngine(stores["oracle"], CL_DS, ShardMapper(MESH_SHARDS),
+                         device=dev)
+    return engines, oracle, servers
+
+
+def jn_list(np, pkg, devs=("cuda", "cpu")) -> dict:
+    """The reference join test's whole list at that test's own size on
+    three card nodes: every shape from every node bit for bit one card
+    node, on the general join path, and within rtol 1e-5 of the CPU
+    cluster's answer from the same node."""
+    rng = CL_RANGE
+    card, oracle, s_card = jn_cluster(np, pkg, devs[0])
+    cpu, _o, s_cpu = jn_cluster(np, pkg, devs[1])
+    n = 0
+    try:
+        for q in JN_QUERIES:
+            want = cl_answer(np, oracle.query_range(q, *rng))
+            for node in TN_NODES:
+                g = card[node].query_range(q, *rng)
+                assert g.exec_path == "local", (q, g.exec_path)
+                assert cl_same(np, cl_answer(np, g), want), (q, node)
+                compare_result(np, q, g, cpu[node].query_range(q, *rng),
+                               False)
+                n += 1
+        many = card["a"].query_range("m / on(host) group_left cap", *rng)
+        assert many.matrix.num_series == JN_HOSTS * 2
+        q = "m / on(host) group_left cap"
+        inst = card["c"].query_instant(q, CL_RANGE[1])
+        assert cl_same(np, cl_answer(np, inst), cl_answer(
+            np, oracle.query_instant(q, CL_RANGE[1])))
+    finally:
+        for srv in (*s_card.values(), *s_cpu.values()):
+            srv.stop()
+    return {"answers": n}
+
+
+def dv_data(np, n_series, seed):
+    """Each series' gauge values over the hour (f64, rounded to f32 so the
+    raw store and the downsampler see the same numbers)."""
+    rng = np.random.default_rng(seed)
+    base = 50.0 + 10.0 * np.arange(n_series)[:, None] % 997
+    return (base + rng.normal(0, 5, (n_series, DV_SAMPLES))).astype(
+        np.float32).astype(np.float64)
+
+
+def dv_containers(np, RecordBuilder, GAUGE, hosts, vals):
+    """Containers of about ten minutes each, in time order."""
+    ts = DV_BASE + 500 + np.arange(DV_SAMPLES, dtype=np.int64) * DV_CADENCE_MS
+    out = []
+    for c0 in range(0, DV_SAMPLES, DV_CHUNK):
+        c1 = min(c0 + DV_CHUNK, DV_SAMPLES)
+        b = RecordBuilder(GAUGE)
+        for i, h in enumerate(hosts):
+            b.add_batch({"_metric_": "m", "host": h}, ts[c0:c1],
+                        vals[i, c0:c1])
+        out.append(b.build())
+    return out
+
+
+def dv_wait_ingested(srv, n_series, samples, timeout_s=120.0):
+    """Until the server's running shards hold every series and sample: a
+    raw query answered before would sit, empty, in the negative cache."""
+    def held():
+        sh = [srv.memstore.shard("prometheus", s) for s in srv._running]
+        return (sum(x.num_series for x in sh) == n_series
+                and sum(int(x.store.stats.samples_appended) for x in sh)
+                >= samples)
+    sv_wait(f"{srv.node} ingested", held, timeout_s)
+
+
+def dv_family_served(port, n_series, start) -> bool:
+    """Does the node serve every series' 1 m bucket at the first and the
+    last closed bucket end of the range (one cheap instant query each)?"""
+    import urllib.parse
+    import urllib.request
+    for t in ((start // 60_000 + 1) * 60_000 - 1,
+              (DV_END // 60_000) * 60_000 - 1):
+        params = urllib.parse.urlencode({
+            "query": "count(sum_over_time(m::dCount[59999ms]))",
+            "time": t / 1000.0})
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/promql/prometheus:ds_1m/api/v1/"
+                f"query?{params}", timeout=60) as r:
+            res = json.load(r)["data"]["result"]
+        if not res or float(res[0]["value"][1]) != n_series:
+            return False
+    return True
+
+
+def dv_validate(port, n_series, start=DV_BASE) -> dict:
+    """The port's validator against one node over [start, the last
+    sample], once the node serves the family's first and last buckets:
+    every column compared every series at every closed bucket. The
+    report's ``k1_raw`` is K1's launches during the validator's own
+    queries (the wait's probes apart)."""
+    from filodb_tpu_torch.ops import fusedgrid as fg
+    from filodb_tpu_torch.scripts import downsample_validator as dv
+    sv_wait(f"the family on :{port}",
+            lambda: dv_family_served(port, n_series, start), poll_s=0.25)
+    buckets = DV_END // 60_000 - start // 60_000 - 1   # closed, interior
+    k0 = fg.fused_grid_kernel.launches_by_kind["raw"]
+    report = dv.validate(f"http://127.0.0.1:{port}", "prometheus", "1m",
+                         "m", start, DV_END)
+    report["k1_raw"] = fg.fused_grid_kernel.launches_by_kind["raw"] - k0
+    assert report["ok"], report
+    for col, c in report["checks"].items():
+        assert c["series_raw"] == c["series_ds"] == n_series, (col, c)
+        assert c["compared"] >= n_series * buckets, (col, c, buckets)
+        assert c["mismatches"] == c["missing_ds_series"] \
+            == c["missing_ds_points"] == 0, (col, c)
+        assert c["max_rel_err"] <= 1e-6, (col, c)
+    return report
+
+
+def dv_one_node(np, pkg, tmp, dev="cuda") -> dict:
+    """18b, one node: a FiloServer on the card with a data_dir and 1m
+    downsampling over a FileBus, the hour published, the validator over
+    HTTP."""
+    from filodb_tpu_torch.config import Config
+    from filodb_tpu_torch.ingest.bus import FileBus
+    from filodb_tpu_torch.standalone import FiloServer
+    RecordBuilder, GAUGE = pkg[2], pkg[3]
+    srv = FiloServer(Config({
+        "num_shards": 1, "data_dir": f"{tmp}/data", "bus_dir": f"{tmp}/bus",
+        "http": {"port": 0},
+        "downsample": {"enabled": True, "resolutions": ["1m"],
+                       "serve_interval": "500ms"},
+        "store": {"max_series_per_shard": DV_SERIES,
+                  "samples_per_series": 1024, "flush_batch_size": 10**9,
+                  "groups_per_shard": 1},
+    }), device=dev).start()
+    try:
+        hosts = [f"h{i}" for i in range(DV_SERIES)]
+        conts = dv_containers(np, RecordBuilder, GAUGE, hosts,
+                              dv_data(np, DV_SERIES, 18))
+        bus = FileBus(f"{tmp}/bus/shard0.log")
+        t0 = time.perf_counter()
+        for c in conts:
+            bus.publish(c)
+        dv_wait_ingested(srv, DV_SERIES, DV_SERIES * DV_SAMPLES)
+        ingest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        report = dv_validate(srv.http.port, DV_SERIES)
+        return {"ingest_s": ingest_s,
+                "validate_s": time.perf_counter() - t0,
+                "checked": report["checked"], "k1_raw": report["k1_raw"],
+                "max_rel_err": max(c["max_rel_err"]
+                                   for c in report["checks"].values())}
+    finally:
+        srv.shutdown()
+
+
+def dv_two_nodes(np, pkg, tmp, dev="cuda") -> dict:
+    """18b, two nodes: two FiloServers on the card over one broker, one
+    registrar and one sink (a data_dir both write, each its own shards'),
+    half the series a partition; the validator against each node's port
+    sees all 4096 series, the peer's shard through cross-node dispatch."""
+    from filodb_tpu_torch.config import Config
+    from filodb_tpu_torch.ingest.broker import BrokerBus, BrokerServer
+    from filodb_tpu_torch.standalone import FiloServer
+    RecordBuilder, GAUGE = pkg[2], pkg[3]
+    broker = BrokerServer(f"{tmp}/broker", num_partitions=2).start()
+    servers, errors = {}, {}
+
+    def starter(name):
+        try:
+            servers[name] = FiloServer(Config({
+                "num_shards": 2, "bus_addr": f"127.0.0.1:{broker.port}",
+                "data_dir": f"{tmp}/data",
+                "http": {"port": 0},
+                "cluster": {"registrar": f"{tmp}/members.jsonl",
+                            "self_addr": name, "heartbeat_interval": "200ms",
+                            "stale_after": "5s", "min_members": 2,
+                            "join_timeout": "20s"},
+                "downsample": {"enabled": True, "resolutions": ["1m"],
+                               "serve_interval": "500ms"},
+                "store": {"max_series_per_shard": DV_SERIES,
+                          "samples_per_series": 1024,
+                          "flush_batch_size": 10**9, "groups_per_shard": 1},
+            }), device=dev).start()
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors[name] = e
+
+    ths = [threading.Thread(target=starter, args=(nm,), daemon=True)
+           for nm in ("node-a:1", "node-b:1")]
+    try:
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=60)
+        assert not errors and len(servers) == 2, (errors, sorted(servers))
+        half = DV_SERIES // 2
+        vals = dv_data(np, DV_SERIES, 19)
+        t0 = time.perf_counter()
+        for s in (0, 1):
+            bus = BrokerBus(f"127.0.0.1:{broker.port}", s)
+            for c in dv_containers(np, RecordBuilder, GAUGE,
+                                   [f"s{s}h{i}" for i in range(half)],
+                                   vals[s * half:(s + 1) * half]):
+                bus.publish(c)
+            bus.close()
+        for srv in servers.values():
+            assert len(srv._running) == 1, (srv.node, srv._running)
+            dv_wait_ingested(srv, half, half * DV_SAMPLES)
+        ingest_s = time.perf_counter() - t0
+        out = {"ingest_s": ingest_s}
+        for name, srv in sorted(servers.items()):
+            t0 = time.perf_counter()
+            report = dv_validate(srv.http.port, DV_SERIES)
+            out[name] = {"validate_s": time.perf_counter() - t0,
+                         "checked": report["checked"],
+                         "k1_raw": report["k1_raw"]}
+        return out
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+        broker.stop()
+
+
+def phase_soaks(torch, fg, card, dev="cuda") -> dict:
+    """18c: each soak of filodb_tpu_torch.stress on the card at the
+    reference's defaults (durations cut, SOAKS), in process; each passes
+    its own checks; query, streaming and cluster launch K1 raw in their
+    timed runs. A soak's report counts K1 over its timed run alone
+    (``k1_raw_launches``, the main path's); K1's counts are also set to 0
+    before each soak and read after it, and the difference is the
+    launches of the soak's check queries (``k1_checks``)."""
+    import importlib
+    out = {}
+    for name, kw in SOAKS.items():
+        mod = importlib.import_module(f"filodb_tpu_torch.stress.{name}")
+        gc.collect()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        reset_k1(fg)
+        t0 = time.perf_counter()
+        rep = mod.main(**kw, device=dev)
+        rep["wall_s"] = time.perf_counter() - t0
+        rep.setdefault("k1_raw_launches", 0)
+        rep["k1_checks"] = fg.fused_grid_kernel.launches_by_kind["raw"] \
+            - rep["k1_raw_launches"]
+        assert rep["ok"], (name, rep["checks"], rep)
+        if name in SOAK_K1 and torch.device(dev).type == "cuda":
+            assert rep["k1_raw_launches"] > 0, (name, rep)
+        out[name] = rep
+    i, b, c = (out[k] for k in ("ingestion_stress", "batch_ingestion",
+                                "churn_stress"))
+    q, s, cl = (out[k] for k in ("query_stress", "streaming_stress",
+                                 "cluster_stress"))
+    log(f"soaks [{card}]: ingestion_stress {i['n_series']} x "
+        f"{i['n_samples']}: {i['samples_per_s']:.0f} samples/s "
+        f"({i['seconds']:.3f} s, label hashes {i['prep_s']:.3f} s), "
+        f"{i['series_created']} series, {i['exec_path']} sum(rate) finite")
+    log(f"soaks [{card}]: batch_ingestion {b['n_series']} x "
+        f"{b['n_samples']}: {b['samples_per_s']:.0f} samples/s to the "
+        f"sink ({b['seconds']:.3f} s), batch downsample "
+        f"{b['downsample_s']:.3f} s, recovery {b['recovery_s']:.3f} s of "
+        f"{b['recovered']} samples, the recovered sum(rate) bit for bit")
+    log(f"soaks [{card}]: churn_stress {c['rounds']} x "
+        f"{c['series_per_round']}: {c['series_per_s']:.0f} series/s, "
+        f"created {c['series_created']}, evicted {c['evicted']}, purged "
+        f"{c['purged']}, live {c['live']} (peak {c['peak_live']}), arena "
+        f"{c['arena_bytes']} B")
+    log(f"soaks [{card}]: query_stress {q['n_series']} series, "
+        f"{q['n_queries']} queries x {q['concurrency']} workers: "
+        f"{q['queries_per_s']:.1f} queries/s, p50 {q['p50_ms']:.3f} ms, "
+        f"p99 {q['p99_ms']:.3f} ms; every answer bit for bit its serial "
+        f"one ({q['distinct_queries']} texts); K1 raw "
+        f"{q['k1_raw_launches']}")
+    log(f"soaks [{card}]: streaming_stress {s['duration_s']} s x "
+        f"{s['n_series']} series: {s['rows_per_s']:.0f} rows/s "
+        f"({s['ticks']} ticks), {s['queries_per_s']:.1f} queries/s, p50 "
+        f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, retried "
+        f"{s['retried']}, lock contentions {s['lock_contentions']}; "
+        f"sum(rate) bit for bit a fresh store fed the same containers; "
+        f"K1 raw {s['k1_raw_launches']}")
+    log(f"soaks [{card}]: cluster_stress {cl['duration_s']} s at "
+        f"{cl['target_rps']} records/s: {cl['rows_per_s']:.0f} rows/s, "
+        f"{cl['queries_per_s']:.1f} queries/s, p50 {cl['p50_ms']:.3f} ms, "
+        f"p99 {cl['p99_ms']:.3f} ms; takeover gap {cl['takeover_s']:.3f} "
+        f"s, {cl['gap_errors']} errors in it, {cl['queries_after']} "
+        f"queries after; K1 raw {cl['k1_raw_launches']}")
+    log(f"soaks: wall s "
+        f"{ {k: round(v['wall_s'], 1) for k, v in out.items()} }; K1 raw "
+        f"in the timed runs "
+        f"{ {k: v['k1_raw_launches'] for k, v in out.items()} }, in the "
+        f"check queries { {k: v['k1_checks'] for k, v in out.items()} }")
+    return out
+
+
+def phase_three_node(torch, np, fg, card, pkg, shards, dev="cuda") -> dict:
+    """Phase 18a (see the module docstring)."""
+    t0 = time.perf_counter()
+    r = tn_scale(torch, np, fg, pkg, shards, dev)
+    jn = jn_list(np, pkg, (dev, "cpu"))
+    ms = r["ms"]
+    log(f"three nodes [{card}]: 11b's 8 delta8 shards dealt 3/3/2 "
+        f"(c's {sorted(r['moved'])} to {r['moved']} after the kill); one "
+        f"node's host loop ms "
+        f"{ {k: round(v, 3) for k, v in r['host_ms'].items()} }; the "
+        f"grouped shapes over {r['selected']} series ({TN_SEL})")
+    for name, q in TN_QUERIES.items():
+        got = {k.split('@')[1]: round(v, 3) for k, v in ms.items()
+               if k.split('@')[0] == name}
+        log(f"three nodes [{card}]: {name} {q}: over HTTP ms by node and "
+            f"after the kill {got}; "
+            f"{4 if name in TN_JOINS else 2} POSTs a query "
+            f"({2 if name in TN_JOINS else 1} after the kill); bit for bit "
+            f"the host loop"
+            + (f"; K1 by node {r['k1'][name + '@a']}, after the kill "
+               f"{r['k1'][name + '@a after']}" if name in TN_FUSED else ""))
+    log(f"three nodes [{card}]: one trace of {r['trace']['spans']} spans, "
+        f"serve spans from {r['trace']['serve']}; the replanned M1 "
+        f"{r['replan_ms']:.3f} ms ({r['k1_replan']} K1 launches); the "
+        f"join list ({len(JN_QUERIES)} shapes x 3 nodes = {jn['answers']} "
+        f"answers) bit for bit one card node, within rtol 1e-5 of the CPU "
+        f"cluster; K1 raw {r['k1_raw']}, delta8 {r['k1_delta8']} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return r
+
+
+def phase_validator(np, fg, card, pkg, dev="cuda") -> dict:
+    """Phase 18b (see the module docstring)."""
+    import tempfile
+    t0 = time.perf_counter()
+    reset_k1(fg)
+    with tempfile.TemporaryDirectory(prefix="filodb-dv-") as tmp:
+        one = dv_one_node(np, pkg, tmp, dev)
+    with tempfile.TemporaryDirectory(prefix="filodb-dv2-") as tmp:
+        two = dv_two_nodes(np, pkg, tmp, dev)
+    k1_all = fg.fused_grid_kernel.launches_by_kind["raw"]
+    k1 = one["k1_raw"] + sum(v["k1_raw"] for k, v in two.items()
+                             if k != "ingest_s")
+    log(f"validator [{card}]: one node, {DV_SERIES} gauges x {DV_SAMPLES} "
+        f"samples at 7 s through a FileBus, ingested in "
+        f"{one['ingest_s']:.3f} s; the port's validator ok in "
+        f"{one['validate_s']:.3f} s: {one['checked']} points compared, 0 "
+        f"mismatches, 0 missing, max rel err {one['max_rel_err']:.3g}")
+    log(f"validator [{card}]: two nodes on one broker, ingested in "
+        f"{two['ingest_s']:.3f} s; ok over the hour against each node's "
+        f"port "
+        f"{ {k: v for k, v in two.items() if k != 'ingest_s'} }; K1 raw "
+        f"{k1} in the validator's queries, {k1_all - k1} in the waits' "
+        f"probes ({time.perf_counter() - t0:.1f} s)")
+    return {"one": one, "two": two, "k1_raw": k1}
+
+
+def phase_soak(torch, np, fg, card, pkg, shards, dev="cuda") -> dict:
+    """Phase 18: 18a on ``shards`` (11b's, delta8-resident), 18b, 18c.
+    Returns K1's launches by decode variant."""
+    t0 = time.perf_counter()
+    r18a = phase_three_node(torch, np, fg, card, pkg, shards, dev)
+    t18b = time.perf_counter()
+    r18b = phase_validator(np, fg, card, pkg, dev)
+    t18c = time.perf_counter()
+    r18c = phase_soaks(torch, fg, card, dev)
+    k1 = r18a["k1_raw"] + r18b["k1_raw"] + sum(
+        v["k1_raw_launches"] for v in r18c.values())
+    log(f"soak: phase 18 done in {time.perf_counter() - t0:.1f} s (18a "
+        f"{t18b - t0:.1f}, 18b {t18c - t18b:.1f}, 18c "
+        f"{time.perf_counter() - t18c:.1f}); K1 raw {k1}, delta8 "
+        f"{r18a['k1_delta8']}")
+    return {"raw": k1, "delta8": r18a["k1_delta8"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7151,6 +7816,16 @@ def main() -> int:
         engine, shard, reg_s = bench.build_engine("cuda")
         log(f"locks: phase 4's engine registered in {reg_s:.1f} s")
         phase_locks(torch, np, fg, card, engine, shard)
+        return 0
+    if sys.argv[1:2] == ["--soak"]:
+        # not part of the smoke run: phase 18 alone, 18a on phase 11b's
+        # shards built (and made delta8-resident) here
+        kernels.build()
+        _ms, shards, reg_s = build_mesh_scale(torch, np, pkg)
+        comp_s = mesh_scale_delta8(torch, shards)
+        log(f"soak: 11b's shards registered in {reg_s:.1f} s, delta8 in "
+            f"{comp_s:.2f} s")
+        phase_soak(torch, np, fg, card, pkg, shards)
         return 0
     if sys.argv[1:2] == ["--cluster"]:
         # not part of the smoke run: phase 14 alone, on phase 11b's shards
@@ -7344,10 +8019,11 @@ def main() -> int:
     t0 = time.perf_counter()
     k1_14b, _out14b = phase_cluster_scale(torch, np, fg, card, pkg,
                                           mesh_shards)
+    log(f"cluster scale: done in {time.perf_counter() - t0:.1f} s")
+    k1_18 = phase_soak(torch, np, fg, card, pkg, mesh_shards)
     del mesh_shards
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"cluster scale: done in {time.perf_counter() - t0:.1f} s")
     k1_14c = phase_cluster_procs(torch, np, fg, card, pkg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7395,24 +8071,28 @@ def main() -> int:
     # adopted delta8 shards, 14c the node processes' raw shards); phase 15:
     # the FiloServer's shard leaves over HTTP (15a, 15b); phase 16: the
     # rule evaluations and the checks' queries (16a, 16b); phase 17: the
-    # lock round's queries (its serial checks apart)
+    # lock round's queries (its serial checks apart); phase 18: the three
+    # nodes' legs over HTTP (18a, delta8), the validator's servers (18b),
+    # the soaks (18c)
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
         + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b \
-        + k1_14a + k1_14b["raw"] + k1_14c + k1_15 + k1_16 + r17["k1"]
+        + k1_14a + k1_14b["raw"] + k1_14c + k1_15 + k1_16 + r17["k1"] \
+        + k1_18["raw"]
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
             k1_mirror if kind == "quant16" else 0) + k1_13a_narrow[kind] \
-            + k1_14b[kind]
+            + k1_14b[kind] + (k1_18["delta8"] if kind == "delta8" else 0)
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
         f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
         f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}, "
-        f"15 {k1_15}, 16 {k1_16}, 17 {r17['k1']}; "
+        f"15 {k1_15}, 16 {k1_16}, 17 {r17['k1']}, 18 {k1_18['raw']}; "
         f"K1-delta8 over a recovered shard (13a) "
         f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
         f"and the two-node split (14b) "
         f"{ {k: (k1_11a[k], k1_11b[k], k1_14b[k]) for k in NARROW_KINDS} }, "
+        f"the three nodes (18a) {k1_18['delta8']}, "
         f"quant16 through the mirror {k1_mirror}")
     table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",

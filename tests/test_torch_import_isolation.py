@@ -56,7 +56,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "rules", "rules.spec", "utils.profiler", "utils.snappy",
               "promql.remote", "promql.remote_storage", "rules.state",
               "rules.publish", "rules.evaluator", "rules.alerts",
-              "rules.scheduler", "rules.manager", "core.computed"):
+              "rules.scheduler", "rules.manager", "core.computed",
+              "scripts", "scripts.downsample_validator", "stress",
+              "stress._common", "stress.ingestion_stress",
+              "stress.batch_ingestion", "stress.churn_stress",
+              "stress.query_stress", "stress.streaming_stress",
+              "stress.cluster_stress"):
         assert f"filodb_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
