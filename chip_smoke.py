@@ -18,14 +18,20 @@ Phases, in order; every check asserts and any failure exits non-zero:
                quant16 sub-range query and excluded cohort-pool rows (n = 0,
                garbage blocks, NaN/Inf row operands); K1 on each narrow block
                bit for bit against K1 raw on the decoded block; delta8 with
-               c0 > 0 refused before any launch. Then the launch shapes
+               c0 > 0 and delta16 at C = 1040 (65 runs a row) refused
+               before any launch. Then the launch shapes
                the (row, step) walk and the raw double buffer can get
                wrong (phase_k1_shapes): Tp = 256 and 512, leading steps
                with hi < 0 and 46 live steps, S = 67072 (every block ends
                in a short tile) at C = 768 and 128, C = 1024 and the C of
                the largest shared memory at G = 64 with sumsq, a
-               misaligned view (4-byte copies); raw and the three decode
-               variants, narrow bit for bit against raw on the decode.
+               misaligned view (4-byte copies, raw), C = 1004 (i8 and i16
+               rows not a multiple of 16 bytes: the delta ring's 4- and
+               8-byte copies), a view of it from row 1 (its base not
+               16-byte aligned), C = 1001 (odd-length rows: plain loads)
+               and C = 136 (a second decode pass); raw and the three
+               decode variants, narrow bit for bit against raw on the
+               decode.
   2b. quant16 scale — the quant16 encoder on the card and on the CPU over
                rows whose spans lie near, not at, 65535 * 2^k: each
                device's ok rows decode bit for bit; prints how many rows
@@ -437,6 +443,14 @@ single-query p50 and K2's time by CUDA events, and saves K2's partials at
 phase 7's query to OUT; --k2-compare says whether saved partials are equal
 bit for bit. Neither prints a result line.
 
+    python3 chip_smoke.py --k1-narrow [--root DIR]
+
+runs phase 2's K1 launch-shape checks, phase 2c's K3 pass and phase 4b's
+narrow scale timings alone, with the package in DIR (default: beside this
+script), and prints no result line: timed in turns on one card, two
+checkouts' K1 decode variants (K1-<kind> beside K1 raw on the decoded
+block, in one "k1-narrow" summary line a run).
+
     python3 chip_smoke.py --durable
 
 runs phases 13a and 13b alone (after the kernels' build) and prints no
@@ -479,7 +493,8 @@ import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# --root DIR (with --k2-parts only): the package of another checkout
+# --root DIR (with --k2-parts or --k1-narrow only): the package of another
+# checkout
 ROOT = (os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
         if "--root" in sys.argv[1:-1] else HERE)
 if not os.path.isdir(os.path.join(ROOT, "filodb_tpu_torch")):
@@ -711,7 +726,7 @@ def phase_narrow_kernels(torch, np, fg, narrow, dev,
     rows) and excluded pool rows: counts bit for bit, sums within rtol 1e-5
     of the largest magnitude; K1 on each narrow block bit for bit against
     K1 raw on the decoded block at the same columns; delta8 at c0 > 0
-    refused before a launch."""
+    refused before a launch, and delta16 at C = 1040 (65 runs a row)."""
     from filodb_tpu_torch.ops import decodereg
     cases = [(S, C, G, False) for S in sizes for C in (128, 768)
              for G in (8, 64)]
@@ -776,19 +791,32 @@ def phase_narrow_kernels(torch, np, fg, narrow, dev,
         raise AssertionError("K1 accepted delta8 at c0 = 128")
     except ValueError:
         pass
+    # and at most K1_MAX_RUNS runs of 16 cells a row: C = 1040 is refused
+    ops, n, _ = narrow_block_dev(torch, narrow, "delta16", 512, 1040, 8, dev)
+    try:
+        fg.fused_grid_kernel("rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n,
+                             zeros, lo, lo, lo, 8, 0, 1040, "delta16",
+                             ops[1:])
+        raise AssertionError("K1 accepted delta16 at C = 1040")
+    except ValueError:
+        pass
     assert fg.fused_grid_kernel.launches == before
     torch.cuda.synchronize()
     return checks, exact, worst
 
 
 def k1_shape_cases(np, fg):
-    """(name, S, C, G, out_ts, misaligned) of the launch shapes K1's
-    (row, step) walk and its staging can get wrong beyond phase 2's grid:
-    several step chunks (blockIdx.y > 0), leading dead steps (hi < 0) and a
-    live count that is not a multiple of 32, blocks whose rows end in a
-    short tile, the largest shared memory a fusable shape asks for (at
-    C = 1024 and at the C that maximises k1_smem_bytes, G = 64 with
-    sumsq), and a misaligned view (4-byte copies)."""
+    """(name, S, C, G, out_ts, view) of the launch shapes K1's (row, step)
+    walk and its staging can get wrong beyond phase 2's grid: several step
+    chunks (blockIdx.y > 0), leading dead steps (hi < 0) and a live count
+    that is not a multiple of 32, blocks whose rows end in a short tile,
+    the largest shared memory a fusable shape asks for (at C = 1024 and at
+    the C that maximises k1_smem_bytes, G = 64 with sumsq), a misaligned
+    view (``view`` "columns": raw's 4-byte copies), and the delta ring's
+    edges: C = 1004 (rows of 1004 or 2008 bytes, 4- and 8-byte copies), a
+    view of it from row 1 (``view`` "rows": a base that is not 16-byte
+    aligned, every kind), C = 1001 (odd-length rows: plain loads) and C =
+    136 (30 rows a tile, 28 a decode pass: a second pass)."""
     def full(C, step):
         return np.arange(WINDOW_MS, (C - 1) * INTERVAL_MS + 1, step,
                          dtype=np.int64)
@@ -804,16 +832,20 @@ def k1_shape_cases(np, fg):
         rt, rows_per_block, _ = fg.k1_launch_shape(short, C, 128, 8, 2)
         assert rows_per_block % rt != 0, (C, rt, rows_per_block)
     return [
-        ("Tp=256", 4096, 768, 8, WINDOW_MS + np.arange(250) * 29_000, False),
-        ("Tp=512", 4096, 768, 64, WINDOW_MS + np.arange(500) * 14_000, False),
+        ("Tp=256", 4096, 768, 8, WINDOW_MS + np.arange(250) * 29_000, None),
+        ("Tp=512", 4096, 768, 64, WINDOW_MS + np.arange(500) * 14_000, None),
         ("4 dead leading steps, 46 live", 4096, 768, 8,
-         np.arange(-200_000, 2_250_001, 50_000, dtype=np.int64), False),
-        ("short last tile", short, 768, 8, full(768, 60_000), False),
-        ("short last tile, C=128", short, 128, 8, full(128, 60_000), False),
-        ("C=1024, G=64", 4096, 1024, 64, full(1024, 60_000), False),
+         np.arange(-200_000, 2_250_001, 50_000, dtype=np.int64), None),
+        ("short last tile", short, 768, 8, full(768, 60_000), None),
+        ("short last tile, C=128", short, 128, 8, full(128, 60_000), None),
+        ("C=1024, G=64", 4096, 1024, 64, full(1024, 60_000), None),
         (f"largest smem, C={c_max}, G=64", 4096, c_max, 64,
-         full(c_max, 60_000), False),
-        ("misaligned view", 4096, 768, 8, full(768, 60_000), True),
+         full(c_max, 60_000), None),
+        ("misaligned view", 4096, 768, 8, full(768, 60_000), "columns"),
+        ("C=1004", 4096, 1004, 8, full(1004, 60_000), None),
+        ("C=1004 from row 1", 4096, 1004, 8, full(1004, 60_000), "rows"),
+        ("C=1001", 4096, 1001, 8, full(1001, 60_000), None),
+        ("C=136, two decode passes", 4096, 136, 8, full(136, 30_000), None),
     ]
 
 
@@ -821,11 +853,12 @@ def phase_k1_shapes(torch, np, fg, narrow, dev):
     """K1 raw and its three decode variants against the plain twin at
     k1_shape_cases' shapes over every fn, ops sum / count / stddev (sumsq:
     the largest accumulator); narrow K1 bit for bit against K1 raw on the
-    decoded block. Returns (checks, bit-exact checks, max |diff|)."""
+    decoded block (a view from row 1: both from row 1). Returns (checks,
+    bit-exact checks, max |diff|)."""
     from filodb_tpu_torch.ops import decodereg
     checks = exact = 0
     worst = 0.0
-    for i, (name, S, C, G, out_ts, misaligned) in enumerate(
+    for i, (name, S, C, G, out_ts, view) in enumerate(
             k1_shape_cases(np, fg)):
         T = len(out_ts)
         Tp = -(-T // 128) * 128
@@ -835,18 +868,24 @@ def phase_k1_shapes(torch, np, fg, narrow, dev):
                              .manual_seed(700 + i))
         blocks = []
         integer = i % 2 == 0
-        if misaligned:
+        # "rows": one row more, then the view from row 1
+        S1 = S + 1 if view == "rows" else S
+        if view == "columns":
             val, n = make_block(torch, S, C + 1, integer, 600 + i, dev)
             val, n = val[:, 1:], torch.clamp(n, max=C)
             assert val.stride(0) % 4 != 0
         else:
-            val, n = make_block(torch, S, C, integer, 600 + i, dev)
+            val, n = make_block(torch, S1, C, integer, 600 + i, dev)
+            val, n = val[S1 - S:], n[S1 - S:]
         blocks.append(("raw", (val,), n, None))
-        if not misaligned:
+        if view != "columns":
             for kind in NARROW_KINDS:
-                ops, kn, dec = narrow_block_dev(torch, narrow, kind, S, C,
+                ops, kn, dec = narrow_block_dev(torch, narrow, kind, S1, C,
                                                 650 + i, dev)
-                blocks.append((kind, ops, kn, dec))
+                ops = tuple(o[S1 - S:] for o in ops)
+                if view == "rows":
+                    assert ops[0].data_ptr() % 16 != 0, (name, kind)
+                blocks.append((kind, ops, kn[S1 - S:], dec[S1 - S:]))
         for kind, ops, n, dec in blocks:
             full = decodereg.variant(kind).full_columns
             for fn in FNS:
@@ -7780,6 +7819,27 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--k2-compare"]:
         return 0 if k2_compare(torch, sys.argv[2:]) else 1
+    if sys.argv[1:2] == ["--k1-narrow"]:
+        # not part of the smoke run: K1's shape checks and the narrow scale
+        # timings of the package in ROOT, to time two checkouts in turns
+        kernels.build(("fusedgrid", "streamprobe"))
+        for line in kernels.build_log.get("fusedgrid", "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: fusedgrid: {line.strip()}")
+        t0 = time.perf_counter()
+        checks, exact, worst = phase_k1_shapes(torch, np, fg, narrow, "cuda")
+        log(f"k1-narrow: {checks} launch-shape checks against the plain "
+            f"twin (max |diff| {worst:.3g}), {exact} bit for bit K1 raw on "
+            f"the decode ({time.perf_counter() - t0:.1f} s)")
+        k3 = phase_stream_kernels(torch, np, sp, card, "cuda")
+        engine, shard, reg_s = bench.build_engine("cuda", residency="gauge")
+        k1n = {kind: phase_scale_narrow(torch, np, fg, card, shard, engine,
+                                        kind) for kind in NARROW_KINDS}
+        log(f"k1-narrow [{card}] {ROOT}: " + json.dumps({
+            "k3_ms": k3["ms"], **{kind: {k: r[k] for k in (
+                "ms", "raw_ms", "bound_ms", "max_abs_err")}
+                for kind, r in k1n.items()}}))
+        return 0
     if sys.argv[1:2] == ["--durable"]:
         # not part of the smoke run: phases 13a and 13b alone
         kernels.build()
@@ -7862,13 +7922,14 @@ def main() -> int:
                                                   "cuda")
     log(f"kernels: fusedgrid_k1 decode variants ({checks} checks against "
         f"the plain twin, max |diff| by kind {worst2n}; {exact} bit-exact "
-        f"checks against K1 raw on the decoded block; delta8 at c0 > 0 "
-        f"refused; {time.perf_counter() - t0:.1f} s)")
+        f"checks against K1 raw on the decoded block; delta8 at c0 > 0 and "
+        f"delta16 at C = 1040 refused; {time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     checks, exact, worst2s = phase_k1_shapes(torch, np, fg, narrow, "cuda")
     log(f"kernels: fusedgrid_k1 launch shapes ({checks} checks against the "
         f"plain twin at Tp = 256 and 512, leading dead steps, short last "
-        f"tiles, the largest shared memory, a misaligned view; max |diff| "
+        f"tiles, the largest shared memory, a misaligned view, C = 1004, "
+        f"a view of it from row 1, C = 1001 and 136; max |diff| "
         f"{worst2s:.3g}; {exact} bit-exact checks against K1 raw on the "
         f"decoded block; {time.perf_counter() - t0:.1f} s)")
     rows, differ, ok_card, ok_cpu = phase_quant16_scale(torch, np, narrow,

@@ -31,17 +31,35 @@
 //   quant16  i16 [S, C]          vmin[r] + ((float)q + 32768) * scale[r],
 //                                the reference's order, one rounding each;
 //   delta16  i16 [S, C], delta8 i8 [S, C]   anchor[r] + inclusive prefix
-//                                sum of the row's deltas: one warp per
-//                                staged row, 4 cells a lane, 128-cell
-//                                chunks carried from one to the next.
-// The delta encoder admits only integer deltas whose every prefix is within
-// 2^23 (filodb_tpu/ops/narrow.py:173-177), so every partial sum of any
-// order is an exact integer in f32 and the one rounding is the final add
-// to the anchor, as in the plain anchor + cumsum. The delta variants need
-// the whole row from cell 0: c0 = 0 and ca = C, or the launch is refused.
-// Cohort-pool rows arrive with n = 0 and any block or anchor (NaN, Inf,
-// garbage): the row walk and the non-finite counts read only cells < n,
-// so they add nothing.
+//                                sum of the row's deltas.
+// The delta variants need the whole row from cell 0: c0 = 0 and ca = C, or
+// the launch is refused. Cohort-pool rows arrive with n = 0 and any block
+// or anchor (NaN, Inf, garbage): they are decoded like any other row, and
+// the row walk and the non-finite counts read only cells < n, so they add
+// nothing.
+//
+// The delta staging. A two-stage ring [2, rt, C] of the block's own i8 or
+// i16 holds tile k + 1's rows, copied with cp.async while tile k is
+// decoded and worked, beside their n and gid; the first pass's anchors go
+// into registers a tile ahead. The copies are 16 bytes where the block's
+// base, its row stride and its row length in bytes all allow it, else 8
+// or 4 (C = 1004, a view that starts at row 1); where not even 4 bytes
+// divide them (an odd-length i8 row) the cells take plain loads. The
+// decode is one pass of the whole block: each thread takes a run of 16
+// cells of one row (one 16-byte word of i8, two of i16), sums it in int32,
+// and a segmented scan over the block (rows are the segments; warp
+// shuffles, then the warps' totals through a few shared words) gives the
+// run the sum of its row's cells before it; each cell is then anchor +
+// (float)prefix, its int32 prefix one dot-product instruction from the
+// run's. Each thread copies the cells it decodes, so only the scan needs a
+// barrier. Exact: the encoder admits only integer deltas whose every
+// prefix is within 2^23 (filodb_tpu/ops/narrow.py:173-177), so every int32
+// partial sum and its conversion are exact, and the one rounding is the
+// final add to the anchor, as in the plain anchor + cumsum and in the
+// chunked f32 scan this replaced: the staged tile is bit for bit the same.
+// The ring takes no more shared memory than raw's second f32 buffer; the
+// delta kernels are held to 64 registers, so four blocks an SM still fit
+// wherever they fit for raw.
 //
 // What bounds it. The bytes: the kernel reads val[:, c0:c0+Ca] once. At
 // bench.py's shape (S = 2^20 series, Ca = C = 768 columns for the full 2 h
@@ -52,7 +70,10 @@
 // 47 steps) are a few per byte, below the card's f32 ridge, so bytes bound
 // it on paper (chip_smoke.py recomputes the bound for the card it runs
 // on). In practice the per-tile phases below issue more slowly than the
-// bytes arrive: the kernel runs at about twice its bound (PERF.md).
+// bytes arrive: raw runs at about twice its bound, and the delta variants,
+// whose tile phases are the same code over a quarter or a half of the
+// bytes, within about 1.1x of raw on their decoded block (PERF.md): the
+// shared tile phases bound every variant.
 //
 // What the design does about it. Blocks of 256 threads run over (row chunk
 // x step chunk of 128 steps). A block stages RT rows of its chunk at a time
@@ -78,17 +99,20 @@
 // thread that walks every row in order: the partials are bit for bit the
 // same, whatever the tile. Raw f32 staging is double-buffered: the 16-byte
 // cp.async copies of tile k+1 and of its rows' n and gid (4-byte copies
-// where the view is not aligned) are in flight while tile k is worked. The
-// narrow variants still stage synchronously (the delta scan is a dependent
-// chain per row). A block writes its chunk's partials to scratch;
-// fold_chunks then sums the chunks in index order (the TPU grid accumulated
-// tiles in order; blocks here run in parallel, so the cross-block sum is a
-// second pass, never float atomics; fold.cuh, shared with K2). TMA, warp
-// specialisation and a one-pass delta decode are later work.
+// where the view is not aligned) are in flight while tile k is worked; the
+// delta ring above does the same over a half or a quarter of the bytes.
+// quant16 still stages synchronously. A block writes its chunk's partials
+// to scratch; fold_chunks then sums the chunks in index order (the TPU
+// grid accumulated tiles in order; blocks here run in parallel, so the
+// cross-block sum is a second pass, never float atomics; fold.cuh, shared
+// with K2). What remains: quant16's staging on the same ring, then the
+// tile phases all four variants share (TMA, warp specialisation).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "fold.cuh"
 
@@ -97,6 +121,9 @@ namespace {
 constexpr int kSteps = 128;     // steps per block (K1_STEPS in ops/fusedgrid.py)
 constexpr int kThreads = 256;   // threads per block
 constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 16;        // cells a thread decodes (K1_RUN)
+constexpr int kPasses = 2;      // delta decode passes a tile (K1_PASSES)
+constexpr int kMaxRuns = 64;    // delta runs a row (K1_MAX_RUNS): three warps
 
 enum Fn {
   FN_RATE = 0,
@@ -140,6 +167,8 @@ struct Params {
   int rows_per_block;
   int rt;                // rows staged per shared-memory tile
   int vec4;              // 4-element vector loads are aligned
+  int cw;                // delta16/delta8: the ring's copy width in bytes
+                         // (16, 8 or 4: cp.async; 2 or 1: plain loads)
   float* scratch;        // [nchunks, nout, G, Tp]
 };
 
@@ -242,50 +271,220 @@ __device__ __forceinline__ void stage_quant16(const Params& p, float* tile,
   }
 }
 
-__device__ __forceinline__ void load4(const int8_t* s, float* x) {
-  const char4 v = *reinterpret_cast<const char4*>(s);
-  x[0] = (float)v.x; x[1] = (float)v.y; x[2] = (float)v.z; x[3] = (float)v.w;
+// delta16 / delta8. A tile's rows are staged as they are stored, packed
+// [nr, ca] in one stage of a two-stage ring; tile k + 1's copies are in
+// flight while tile k is decoded and worked. Each thread copies the run of
+// cells it decodes (below), so it reads only what its own copies wrote:
+// cp.async.wait_group makes them visible to it without a barrier. The copy
+// width cw divides the block's base address, its row stride and its row
+// length in bytes (the wrapper's delta_copy_width), so every run's global
+// and shared starts are cw-aligned.
+__device__ __forceinline__ void cp_async_cg16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
 }
 
-__device__ __forceinline__ void load4(const int16_t* s, float* x) {
-  const short4 v = *reinterpret_cast<const short4*>(s);
-  x[0] = (float)v.x; x[1] = (float)v.y; x[2] = (float)v.z; x[3] = (float)v.w;
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+// The decode's layout: a thread takes run j, cells [cs, ce) = [16 j,
+// 16 j + 16), of row q of each pass; nrun runs a row, rpp whole rows a
+// pass, at most kPasses passes a tile and kMaxRuns runs a row (the launch
+// checks both). The row starts at the pass's thread tid - j.
+struct RunSlot {
+  int q, j, cs, ce, rpp;
+};
+
+__device__ __forceinline__ RunSlot run_slot(int ca, int tid) {
+  const int nrun = (ca + kRun - 1) / kRun;
+  RunSlot u;
+  u.q = tid / nrun;
+  u.j = tid - u.q * nrun;
+  u.cs = u.j * kRun;
+  u.ce = min(u.cs + kRun, ca);
+  u.rpp = kThreads / nrun;
+  return u;
+}
+
+// issues the copies of this thread's runs of rows [r0, r0 + nr) and of the
+// rows' n and gid without waiting for them; below 4 bytes (an odd-length
+// i8 row, an i16 row at an odd element offset) the cells take plain loads
+template <typename T>
+__device__ __forceinline__ void stage_delta_async(const Params& p,
+                                                  unsigned char* stage,
+                                                  int* n, int* gid, int r0,
+                                                  int nr, const RunSlot& u,
+                                                  int tid) {
+  const int L = p.ca * (int)sizeof(T);                 // a row's bytes
+  const long long sb = p.row_stride * (long long)sizeof(T);
+  const int o0 = u.cs * (int)sizeof(T);
+  const int nb = (u.ce - u.cs) * (int)sizeof(T);       // the run's bytes
+#pragma unroll
+  for (int ps = 0; ps < kPasses; ++ps) {
+    const int r = ps * u.rpp + u.q;
+    if (u.q < u.rpp && r < nr) {
+      const char* src =
+          static_cast<const char*>(p.val) + (long long)(r0 + r) * sb + o0;
+      unsigned char* dst = stage + r * L + o0;
+      if (p.cw == 16) {
+        for (int o = 0; o < nb; o += 16) cp_async_cg16(dst + o, src + o);
+      } else if (p.cw == 8) {
+        for (int o = 0; o < nb; o += 8) cp_async8(dst + o, src + o);
+      } else if (p.cw == 4) {
+        for (int o = 0; o < nb; o += 4) cp_async4(dst + o, src + o);
+      } else {
+        for (int o = 0; o < nb; o += (int)sizeof(T))
+          *reinterpret_cast<T*>(dst + o) =
+              *reinterpret_cast<const T*>(src + o);
+      }
+    }
+  }
+  for (int r = tid; r < nr; r += kThreads) {
+    cp_async4(n + r, p.n + r0 + r);
+    cp_async4(gid + r, p.gid + r0 + r);
+  }
+}
+
+// the anchor of this thread's row of pass ps in rows [r0, r0 + nr)
+__device__ __forceinline__ float delta_anchor(const Params& p, int r0, int nr,
+                                              const RunSlot& u, int ps) {
+  const int r = ps * u.rpp + u.q;
+  return u.q < u.rpp && r < nr ? __ldg(p.row0 + r0 + r) : 0.f;
+}
+
+// The cells of a run come in four groups of four (one word of i8, two of
+// i16). group_prefix(w, i, c): c plus the group's cells 0..i, one dot
+// product; group_sum(w): all four.
+template <typename T>
+__device__ __forceinline__ int group_prefix(const unsigned* w, int i, int c) {
+  if constexpr (sizeof(T) == 1) {
+    return __dp4a((int)w[0], (int)(0x01010101u >> (8 * (3 - i))), c);
+  } else {
+    const int lo = __dp2a_lo((int)w[0], i == 0 ? 0x0001 : 0x0101, c);
+    return i < 2 ? lo : __dp2a_lo((int)w[1], i == 2 ? 0x0001 : 0x0101, lo);
+  }
 }
 
 template <typename T>
-__device__ __forceinline__ void stage_delta(const Params& p, float* tile,
-                                            int r0, int nr, int warp,
-                                            int lane) {
-  const T* blk = static_cast<const T*>(p.val);
-  const int ca = p.ca;             // == C: the launch checked c0 = 0
-  for (int r = warp; r < nr; r += kWarps) {
-    const T* src = blk + (long long)(r0 + r) * p.row_stride;
-    float* dst = tile + r * ca;
-    const float anchor = p.row0[r0 + r];
-    float carry = 0.f;             // sum of the row's cells before the chunk
-    for (int base = 0; base < ca; base += 128) {
-      const int c = base + 4 * lane;
-      float x[4];
-      if (p.vec4 && c + 3 < ca) {
-        load4(src + c, x);
-      } else {
-        for (int k = 0; k < 4; ++k) x[k] = c + k < ca ? (float)src[c + k] : 0.f;
+__device__ __forceinline__ int group_sum(const unsigned* w) {
+  return group_prefix<T>(w, 3, 0);
+}
+
+// The one-pass decode of a staged tile into the f32 tile: every thread
+// sums its run in int32; a segmented scan over the block (the rows are the
+// segments: warp shuffles, then the warps' totals through s_scan; a row
+// starts j threads back, so no flags travel) gives each run the sum of its
+// row's cells before it; each cell is then anchor + (float)prefix. The
+// prefixes are exact integers (the encoder keeps them within 2^23; a pool
+// row's garbage stays within 2^31), so the one rounding is the anchor add,
+// as in the plain anchor + cumsum. A whole
+// run goes out as four 16-byte stores, step j writing group (j + rot) % 4
+// with rot = (lane / 2 + lane / 8) % 4: the eight threads of a quarter
+// warp then write eight different bank groups, and the group reloads of a
+// step (lanes 8 apart for i8, 4 apart for i16) hit different banks.
+template <typename T>
+__device__ __forceinline__ void decode_delta(const Params& p,
+                                             const unsigned char* stage,
+                                             float* tile, int* s_scan,
+                                             int r0, int nr,
+                                             const RunSlot& u, float anchor0,
+                                             int tid, int lane, int warp) {
+  constexpr int kGroupWords = (int)sizeof(T);   // 4 cells, in words
+  const int ca = p.ca;
+  const int L = ca * (int)sizeof(T);
+  const int cs = u.cs, ce = u.ce;           // the run's cells [cs, ce)
+  const int rot = ((lane >> 1) + (lane >> 3)) & 3;
+#pragma unroll
+  for (int ps = 0; ps < kPasses; ++ps) {
+    if (ps * u.rpp < nr) {                  // uniform over the block
+      const int r = ps * u.rpp + u.q;
+      const bool act = u.q < u.rpp && r < nr;
+      // a whole run in 16-byte words (cw = 16: ca is a multiple of 8 for
+      // i16 and of 16 for i8, so the row and the f32 tile row are aligned)
+      const bool vec = act && p.cw == 16 && ce - cs == kRun;
+      const T* src = reinterpret_cast<const T*>(stage + r * L);
+      const unsigned* words = reinterpret_cast<const unsigned*>(src + cs);
+      int before[4];                        // cells of the run before group
+      int v = 0;
+      if (vec) {
+#pragma unroll
+        for (int k = 0; k < (int)sizeof(T); ++k) {
+          const uint4 x = reinterpret_cast<const uint4*>(words)[k];
+          const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int h = 0; h < 4 / (int)sizeof(T); ++h) {
+            before[k * 4 / (int)sizeof(T) + h] = v;
+            v += group_sum<T>(w + h * kGroupWords);
+          }
+        }
+      } else if (act) {
+        for (int c = cs; c < ce; ++c) v += (int)src[c];
       }
-      // inclusive prefix over the lane's 4 cells, then over the lanes
-      x[1] = x[0] + x[1];
-      x[2] = x[1] + x[2];
-      x[3] = x[2] + x[3];
-      float tot = x[3];
+      // segmented inclusive scan over the warp: s sums the runs of this
+      // row from max(its start, the warp's first lane) to this lane
+      int s = v;
+      const int back = min(u.j, lane);      // runs of the row before, here
       for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, tot, off);
-        if (lane >= off) tot = tot + y;
+        const int s_up = __shfl_up_sync(0xffffffffu, s, off);
+        if (back >= off) s += s_up;
       }
-      float excl = __shfl_up_sync(0xffffffffu, tot, 1);
-      if (lane == 0) excl = 0.f;
-      const float before = carry + excl;   // sum of the cells before c
-      for (int k = 0; k < 4; ++k)
-        if (c + k < ca) dst[c + k] = anchor + (before + x[k]);
-      carry = carry + __shfl_sync(0xffffffffu, tot, 31);
+      int* wsum = s_scan + ps * kWarps;
+      if (lane == 31) wsum[warp] = s;
+      __syncthreads();
+      if (act) {
+        int pre = s - v;                    // the row's cells before cs
+        // and the warps back to the one the row starts in: a row is at
+        // most kMaxRuns = 64 runs, so at most two warps back
+        const int w0 = (tid - u.j) >> 5;
+        if (w0 < warp) pre += wsum[warp - 1];
+        if (w0 < warp - 1) pre += wsum[warp - 2];
+        float* dst = tile + r * ca;
+        // the first pass's anchor came a tile ahead; a second pass (a few
+        // column counts) loads its own
+        const float a = ps == 0 ? anchor0 : delta_anchor(p, r0, nr, u, ps);
+        if (vec) {
+          // the groups' starting prefixes rotated by rot (two conditional
+          // swaps); each step then reloads its group's words
+#pragma unroll
+          for (int g = 0; g < 4; ++g) before[g] += pre;
+#pragma unroll
+          for (int bit = 2; bit >= 1; bit >>= 1) {
+            int b2[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              b2[g] = rot & bit ? before[(g + bit) & 3] : before[g];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) before[g] = b2[g];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int g = (j + rot) & 3;
+            unsigned w[kGroupWords];
+            if constexpr (sizeof(T) == 1) {
+              w[0] = words[g];
+            } else {
+              const uint2 x = reinterpret_cast<const uint2*>(words)[g];
+              w[0] = x.x;
+              w[1] = x.y;
+            }
+            float4 y;
+            y.x = a + (float)group_prefix<T>(w, 0, before[j]);
+            y.y = a + (float)group_prefix<T>(w, 1, before[j]);
+            y.z = a + (float)group_prefix<T>(w, 2, before[j]);
+            y.w = a + (float)group_prefix<T>(w, 3, before[j]);
+            reinterpret_cast<float4*>(dst + cs)[g] = y;
+          }
+        } else {
+          for (int c = cs; c < ce; ++c) {
+            pre += (int)src[c];
+            dst[c] = a + (float)pre;
+          }
+        }
+      }
     }
   }
 }
@@ -432,14 +631,23 @@ __device__ __forceinline__ void item_contrib(
 // Shared memory of one block, in this order (k1_smem_bytes in
 // ops/fusedgrid.py mirrors the sum; keep the two alike):
 //   f32 tile buffers [nbuf, rt, ca]  (nbuf: 2 for raw, 1 for the others)
-//   f32 contributions [rt, kSteps], presence [rt, kSteps]
+//   delta16/delta8: the ring [2, rt, ca] of the block's own type, its
+//       bytes rounded up to 4 (raw's second f32 buffer is at least as
+//       large, so no block asks for more than raw's)
+//   f32 contributions [rt, kSteps], presence [rt, kSteps] (the delta
+//       decode's scan words while the tile is staged)
 //   f32 accumulator [nout, G, kSteps]
 //   f32 the steps' Terms of full rows [kTerms, kSteps]
-//   i32 n, gid [2, rt] each (beside raw's two tile buffers), non-finite
+//   i32 n, gid [2, rt] each (beside the two buffers or stages), non-finite
 //       values, non-finite increments [rt] each
 //   i32 lo, hi, rel, live-step list [kSteps] each; live steps per warp [4]
 __host__ __device__ constexpr int tile_buffers(int kind) {
   return kind == KIND_RAW ? 2 : 1;
+}
+
+__host__ __device__ constexpr int ring_bytes(int kind, int rt, int ca) {
+  return kind == KIND_DELTA16 ? 4 * rt * ca
+         : kind == KIND_DELTA8 ? (2 * rt * ca + 3) / 4 * 4 : 0;
 }
 
 size_t smem_bytes(int kind, int rt, int ca, int groups, int nout) {
@@ -447,17 +655,20 @@ size_t smem_bytes(int kind, int rt, int ca, int groups, int nout) {
                           + 2 * (size_t)rt * kSteps
                           + (size_t)nout * groups * kSteps
                           + (size_t)kTerms * kSteps)
+         + ring_bytes(kind, rt, ca)
          + sizeof(int) * (6 * (size_t)rt + 4 * kSteps + 4);
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-fused_grid_map(Params p) {
+__device__ __forceinline__ void fused_grid_body(const Params& p) {
   extern __shared__ __align__(16) float smem[];
   const int tsz = p.rt * p.ca;
   const int G = p.groups;
   float* bufs = smem;                                   // [nbuf, rt, ca]
-  float* s_con = bufs + tile_buffers(K) * tsz;          // [rt, kSteps]
+  unsigned char* ring =                                 // delta: [2, rt, ca]
+      reinterpret_cast<unsigned char*>(bufs + tile_buffers(K) * tsz);
+  float* s_con = bufs + tile_buffers(K) * tsz           // [rt, kSteps]
+                 + ring_bytes(K, p.rt, p.ca) / 4;
   float* s_okf = s_con + p.rt * kSteps;                 // [rt, kSteps]
   float* acc = s_okf + p.rt * kSteps;                   // [nout, G, kSteps]
   float* s_terms = acc + p.nout * G * kSteps;           // [kTerms, kSteps]
@@ -519,6 +730,22 @@ fused_grid_map(Params p) {
                       tid);
     cp_async_commit();
   }
+  using DeltaT = typename std::conditional<K == KIND_DELTA8, int8_t,
+                                           int16_t>::type;
+  constexpr bool kDelta = K == KIND_DELTA16 || K == KIND_DELTA8;
+  const int stage_bytes = p.rt * p.ca * (int)sizeof(DeltaT);
+  const RunSlot slot = run_slot(p.ca, tid);
+  int* s_scan = reinterpret_cast<int*>(s_con);
+  float anchor = 0.f;                // the tile's first-pass anchor, a tile
+                                     // ahead
+  if constexpr (kDelta) {            // the first tile's copies and anchor
+    if (nlive > 0 && row0 < row_end) {
+      const int nr = min(p.rt, row_end - row0);
+      stage_delta_async<DeltaT>(p, ring, s_nb, s_gb, row0, nr, slot, tid);
+      anchor = delta_anchor(p, row0, nr, slot, 0);
+    }
+    cp_async_commit();
+  }
   float* a_sum = acc;
   float* a_cnt = acc + G * kSteps;
   float* a_sq = acc + 2 * G * kSteps;
@@ -528,10 +755,11 @@ fused_grid_map(Params p) {
   for (int r0 = row0; nlive > 0 && r0 < row_end; r0 += p.rt, ++k) {
     const int nr = min(p.rt, row_end - r0);
     __syncthreads();   // the previous tile, its items and its fold are done
-    const int b = K == KIND_RAW ? (k & 1) : 0;
-    float* tile = bufs + b * tsz;
+    const int b = K == KIND_RAW || kDelta ? (k & 1) : 0;
+    float* tile = bufs + (K == KIND_RAW ? b * tsz : 0);
     int* s_n = s_nb + b * p.rt;
     int* s_gid = s_gb + b * p.rt;
+    float next = 0.f;                  // delta: tile k + 1's anchor
     if constexpr (K == KIND_RAW) {
       // tile k + 1's copies go out into the other buffers (their last
       // readers, tile k - 1's items and fold, passed the barrier above);
@@ -545,12 +773,27 @@ fused_grid_map(Params p) {
       cp_async_wait<1>();
     } else if constexpr (K == KIND_QUANT16) {
       stage_quant16(p, tile, r0, nr, tid);
-    } else if constexpr (K == KIND_DELTA16) {
-      stage_delta<int16_t>(p, tile, r0, nr, warp, lane);
     } else {
-      stage_delta<int8_t>(p, tile, r0, nr, warp, lane);
+      // the same for the ring: tile k + 1's runs (this thread's own: their
+      // last reader, its decode of tile k - 1, is behind it), n and gid
+      // (their last readers, tile k - 1's fold, passed the barrier above)
+      // and, into a register, its first-pass anchor; then wait for this
+      // thread's copies of tile k and decode them (the decode's barrier
+      // makes n and gid visible before the phases below read them)
+      const int r1 = r0 + p.rt;
+      if (r1 < row_end) {
+        const int nr1 = min(p.rt, row_end - r1);
+        stage_delta_async<DeltaT>(p, ring + (b ^ 1) * stage_bytes,
+                                  s_nb + (b ^ 1) * p.rt,
+                                  s_gb + (b ^ 1) * p.rt, r1, nr1, slot, tid);
+        next = delta_anchor(p, r1, nr1, slot, 0);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      decode_delta<DeltaT>(p, ring + b * stage_bytes, tile, s_scan, r0, nr,
+                           slot, anchor, tid, lane, warp);
     }
-    if constexpr (K != KIND_RAW) {
+    if constexpr (K == KIND_QUANT16) {
       for (int r = tid; r < nr; r += kThreads) {
         s_n[r] = p.n[r0 + r];
         s_gid[r] = p.gid[r0 + r];
@@ -649,6 +892,9 @@ fused_grid_map(Params p) {
         }
       }
     }
+    if constexpr (kDelta) {   // used a tile later: the loads have long landed
+      anchor = next;
+    }
   }
   if (cg >= 0) {
     a_sum[cg * kSteps + tid] = c_sum;
@@ -664,14 +910,32 @@ fused_grid_map(Params p) {
   }
 }
 
+// The kernels: raw and quant16 as they were; the delta variants held to
+// 64 registers, so four blocks still fit an SM
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+fused_grid_map(Params p) {
+  fused_grid_body<K>(p);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 4)
+fused_grid_map_delta(Params p) {
+  fused_grid_body<K>(p);
+}
+
 template <int K>
 cudaError_t launch_map(const Params& p, dim3 grid, cudaStream_t s) {
+  void (*kernel)(Params);
+  if constexpr (K == KIND_DELTA16 || K == KIND_DELTA8)
+    kernel = fused_grid_map_delta<K>;
+  else
+    kernel = fused_grid_map<K>;
   const size_t smem = smem_bytes(K, p.rt, p.ca, p.groups, p.nout);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_grid_map<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_grid_map<K><<<grid, kThreads, smem, s>>>(p);
+  kernel<<<grid, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -682,11 +946,23 @@ extern "C" int fusedgrid_launch(
     long long row_stride, int c0, int ca, int cap, int rows,
     const int* n, const int* gid, const int* lo, const int* hi, const int* rel,
     int tp, int groups, int fn, int nout, int window_ms, int interval_ms,
-    float rate_scale, int rows_per_block, int rt, int vec4, float* scratch,
-    int nchunks, float* out, void* stream) {
-  // the delta variants decode from cell 0 of the whole row
-  if ((kind == KIND_DELTA16 || kind == KIND_DELTA8) && (c0 != 0 || ca != cap))
-    return (int)cudaErrorInvalidValue;
+    float rate_scale, int rows_per_block, int rt, int vec4, int cw,
+    float* scratch, int nchunks, float* out, void* stream) {
+  // the delta variants decode from cell 0 of the whole row, at most
+  // kMaxRuns runs a row and kPasses passes a tile, with a copy width that
+  // divides the block's base, its row stride and its row length in bytes
+  if (kind == KIND_DELTA16 || kind == KIND_DELTA8) {
+    const int esz = kind == KIND_DELTA16 ? 2 : 1;
+    const int nrun = (ca + kRun - 1) / kRun;
+    const int rpp = nrun > 0 ? kThreads / nrun : 0;
+    const bool width = (cw == 1 || cw == 2 || cw == 4 || cw == 8 || cw == 16)
+                       && cw >= esz && (ca * esz) % cw == 0
+                       && (row_stride * esz) % cw == 0
+                       && reinterpret_cast<uintptr_t>(val) % cw == 0;
+    if (c0 != 0 || ca != cap || ca < 1 || nrun > kMaxRuns
+        || rt > kPasses * rpp || !width)
+      return (int)cudaErrorInvalidValue;
+  }
   Params p;
   p.val = val;
   p.row0 = row0;
@@ -711,6 +987,7 @@ extern "C" int fusedgrid_launch(
   p.rows_per_block = rows_per_block;
   p.rt = rt;
   p.vec4 = vec4;
+  p.cw = cw;
   p.scratch = scratch;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   dim3 grid(nchunks, tp / kSteps);

@@ -46,6 +46,10 @@ FN_CODES = {"rate": 0, "increase": 1, "delta": 2, "sum_over_time": 3,
 KIND_CODES = {"raw": 0, "quant16": 1, "delta16": 2, "delta8": 3}
 K1_STEPS = 128             # steps per block (kSteps in the CUDA source)
 K1_TERMS = 6               # per-step time terms (kTerms in the CUDA source)
+K1_THREADS = 256           # threads per block (kThreads in the CUDA source)
+K1_RUN = 16                # cells a thread decodes (kRun in the CUDA source)
+K1_PASSES = 2              # delta decode passes a tile (kPasses)
+K1_MAX_RUNS = 64           # delta runs a row (kMaxRuns)
 
 
 def _roundup(x: int, m: int) -> int:
@@ -167,7 +171,7 @@ def _k1_lib():
         ctypes.c_longlong, i, i, i, i,           # row_stride, c0, ca, cap, rows
         p, p, p, p, p,                           # n, gid, lo, hi, rel
         i, i, i, i, i, i, ctypes.c_float,        # tp, G, fn, nout, window, interval, scale
-        i, i, i, p, i, p, p]                     # rpb, rt, vec4, scratch, nchunks, out, stream
+        i, i, i, i, p, i, p, p]                  # rpb, rt, vec4, cw, scratch, nchunks, out, stream
     lib.fusedgrid_error_string.restype = ctypes.c_char_p
     lib.fusedgrid_error_string.argtypes = [i]
     return lib
@@ -183,14 +187,49 @@ def k1_smem_bytes(Ca: int, rt: int, G: int, nout: int,
     """Shared memory of one K1 block: the sum ``smem_bytes`` in
     csrc/fusedgrid.cu computes, term for term (keep the two alike) — the
     f32 tile buffers [nbuf, rt, Ca] (two for raw's double buffer, one for
-    the decode variants), contributions and presence [rt, 128] each, the
-    accumulator [nout, G, 128], the steps' 6 time terms [6, 128]; and i32
-    n and gid [2, rt] each, two non-finite counts [rt] each, lo / hi / rel /
-    the live-step list [128] each, 4 warp counts."""
+    the decode variants), the delta variants' ring [2, rt, Ca] of their own
+    i16 / i8 (its bytes rounded up to 4), contributions and presence
+    [rt, 128] each, the accumulator [nout, G, 128], the steps' 6 time terms
+    [6, 128]; and i32 n and gid [2, rt] each, two non-finite counts [rt]
+    each, lo / hi / rel / the live-step list [128] each, 4 warp counts."""
     nbuf = 2 if kind == "raw" else 1
+    ring = {"delta16": 4 * rt * Ca, "delta8": _roundup(2 * rt * Ca, 4)}
     return (4 * (nbuf * rt * Ca + 2 * rt * K1_STEPS + nout * G * K1_STEPS
                  + K1_TERMS * K1_STEPS)
+            + ring.get(kind, 0)
             + 4 * (6 * rt + 4 * K1_STEPS + 4))
+
+
+def k1_delta_runs(Ca: int, rt: int) -> tuple[int, int, int]:
+    """(runs a row, rows a pass, passes) of the delta decode in
+    csrc/fusedgrid.cu (``decode_delta``): thread t of a pass decodes cells
+    [16 j, 16 j + 16) of the pass's row t // runs (j = t % runs), so a pass
+    holds the whole rows that 256 threads cover."""
+    nrun = -(-Ca // K1_RUN)
+    rpp = K1_THREADS // nrun
+    return nrun, rpp, -(-rt // rpp)
+
+
+def k1_delta_cells(Ca: int, nr: int):
+    """The delta decode's layout over a tile of ``nr`` staged rows, as the
+    kernel computes it: (pass, thread, row, first cell, end cell) for every
+    thread that decodes a run."""
+    nrun, rpp, passes = k1_delta_runs(Ca, nr)
+    for ps in range(min(passes, K1_PASSES)):
+        for t in range(K1_THREADS):
+            q, j = divmod(t, nrun)
+            r = ps * rpp + q
+            if q < rpp and r < nr:
+                yield ps, t, r, j * K1_RUN, min(j * K1_RUN + K1_RUN, Ca)
+
+
+def delta_copy_width(ptr: int, stride_bytes: int, row_bytes: int) -> int:
+    """The delta ring's copy width in bytes: the largest power of two, at
+    most 16, that divides the block's base address, its row stride and its
+    row length in bytes, so every row's global start and its packed start
+    in the ring are aligned to it (16, 8, 4: cp.async; 2, 1: plain loads)."""
+    a = ptr | stride_bytes | row_bytes | 16
+    return a & -a
 
 
 def k1_launch_shape(S: int, Ca: int, Tp: int, G: int, nout: int):
@@ -237,9 +276,13 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     tp, groups, fn (FN_CODES), nout (2 or 3), window_ms, interval_ms,
     rate_scale (f32 of 1000.0 / window_ms) -- the query;
     rows_per_block, rt (rows per shared-memory tile), vec4 (16-byte loads
-    aligned) -- the launch shape; scratch ([nchunks, nout, G, Tp] f32),
-    nchunks, out ([nout, G, Tp] f32), stream. It returns
-    cudaGetLastError() after each of its two launches."""
+    aligned), cw (the delta ring's copy width, :func:`delta_copy_width`)
+    -- the launch shape; scratch ([nchunks, nout, G, Tp] f32), nchunks,
+    out ([nout, G, Tp] f32), stream. It returns cudaGetLastError() after
+    each of its two launches, and refuses a delta launch at c0 > 0, Ca <
+    C, Ca > K1_RUN * K1_MAX_RUNS, a tile of more than K1_PASSES decode
+    passes or a copy width that does not divide the block's base, row
+    stride and row length."""
     Ca = Ca or val.shape[1]
     dev = val.device
     _require(fn in FN_CODES, f"unknown fn {fn!r}")
@@ -275,6 +318,13 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     rt, rows_per_block, nchunks = k1_launch_shape(S, Ca, Tp, G, nout)
     vec4 = int(val.stride(0) % 4 == 0 and c0 % 4 == 0 and Ca % 4 == 0
                and val.data_ptr() % (4 * val.element_size()) == 0)
+    esz = val.element_size()
+    cw = delta_copy_width(val.data_ptr(), val.stride(0) * esz, Ca * esz)
+    if var.full_columns:
+        nrun, _rpp, passes = k1_delta_runs(Ca, rt)
+        _require(nrun <= K1_MAX_RUNS and passes <= K1_PASSES,
+                 f"{kind} at C={Ca}: {nrun} runs a row, {passes} decode "
+                 f"passes a tile (at most {K1_MAX_RUNS}, {K1_PASSES})")
     scratch = torch.empty((nchunks, nout, G, Tp), dtype=torch.float32,
                           device=dev)
     out = torch.empty((nout, G, Tp), dtype=torch.float32, device=dev)
@@ -288,7 +338,7 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
             val.data_ptr(), KIND_CODES[kind], *rows, val.stride(0), c0, Ca,
             C, S, n.data_ptr(), gids.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             rel.data_ptr(), Tp, G, FN_CODES[fn], nout, int(window_ms),
-            int(interval_ms), rate_scale, rows_per_block, rt, vec4,
+            int(interval_ms), rate_scale, rows_per_block, rt, vec4, cw,
             scratch.data_ptr(), nchunks, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
