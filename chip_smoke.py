@@ -7,7 +7,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
 
   1. build   — print the card (``nvidia-smi`` name and power limit), build
                every kernel from ``filodb_tpu_torch/ops/csrc`` (one nvcc per
-               source, in parallel) and print the build seconds.
+               source, in parallel) and print the build seconds and each
+               entry function's registers and spills (K1's by decode
+               variant).
   2. kernels — K1 (the fused-grid kernel) against its plain PyTorch twin on
                the card across the fn x op grid, S in {512, 4096, 65536},
                C in {128, 768}, G in {8, 64}, a sub-range query (c0 > 0) and
@@ -26,12 +28,13 @@ Phases, in order; every check asserts and any failure exits non-zero:
                in a short tile) at C = 768 and 128, C = 1024 and the C of
                the largest shared memory at G = 64 with sumsq, a
                misaligned view (4-byte copies, raw), C = 1004 (i8 and i16
-               rows not a multiple of 16 bytes: the delta ring's 4- and
+               rows not a multiple of 16 bytes: the narrow ring's 4- and
                8-byte copies), a view of it from row 1 (its base not
                16-byte aligned), C = 1001 (odd-length rows: plain loads)
-               and C = 136 (a second decode pass); raw and the three
-               decode variants, narrow bit for bit against raw on the
-               decode.
+               and a view of it from row 1, C = 136 (a second decode
+               pass) and C = 1024 at columns 512+512 (quant16's ring at
+               c0 > 0); raw and the three decode variants, narrow bit for
+               bit against raw on the decode.
   2b. quant16 scale — the quant16 encoder on the card and on the CPU over
                rows whose spans lie near, not at, 65535 * 2^k: each
                device's ok rows decode bit for bit; prints how many rows
@@ -85,9 +88,10 @@ Phases, in order; every check asserts and any failure exits non-zero:
                agrees with the raw answer (rtol 1e-5); K1 agrees with its
                plain twin at the first and the last range; K1 on the narrow
                block equals K1 raw on value_block() bit for
-               bit. Prints the engine p50, K1's time beside K1 raw's on the
-               decoded block, the plain time (one call), the bound,
-               launches per query,
+               bit, and quant16 also on the 30-minute panel's operands
+               (c0 > 0). Prints the engine p50, K1's time beside K1 raw's
+               on the decoded block (quant16's on the panel too), the
+               plain time (one call), the bound, launches per query,
                resident sample bytes raw -> narrow and the compression
                seconds.
   5. hist kernels — K2 (the fused histogram-quantile kernel) against its
@@ -544,6 +548,39 @@ def log(*a):
     print(*a, flush=True)
 
 
+def log_build(kernels, fg, names) -> None:
+    """The build log's line a kernel: its registers and spills from nvcc's
+    ``-Xptxas -v`` report (K1's entry points named with their decode
+    variant, and the dynamic shared memory a block of that variant asks
+    for at bench.py's shape beside raw's: ptxas does not see it), or the
+    report's register and spill lines as they are where it names no entry
+    function or the package (``--root``, an older checkout) has no
+    parser."""
+    kinds = {0: "raw", 1: "quant16", 2: "delta16", 3: "delta8"}
+    parse = getattr(kernels, "ptxas_usage", lambda report: [])
+    rt = fg.k1_launch_shape(NUM_SERIES, CAPACITY, fg.K1_STEPS, 8, 2)[0]
+    for name in names:
+        report = kernels.build_log.get(name, "")
+        usage = parse(report)
+        for u in usage:
+            m = re.fullmatch(r"fused_grid_map\w*<(\d)>", u["kernel"])
+            kind = smem = ""
+            if m:
+                kind = kinds[int(m.group(1))]
+                smem = (f"; {fg.k1_smem_bytes(CAPACITY, rt, 8, 2, kind)} "
+                        f"bytes of shared memory a block at {NUM_SERIES} x "
+                        f"{CAPACITY}, G = 8 (raw's "
+                        f"{fg.k1_smem_bytes(CAPACITY, rt, 8, 2, 'raw')})")
+                kind = f" ({kind})"
+            log(f"build: {name}: {u['kernel']}{kind}: {u['registers']} "
+                f"registers, {u['spill_stores']} bytes spill stores, "
+                f"{u['spill_loads']} bytes spill loads{smem}")
+        if not usage:
+            for line in report.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"build: {name}: {line.strip()}")
+
+
 def peaks_for(name: str):
     for key, bw, f32 in PEAKS:
         if key in name:
@@ -815,8 +852,10 @@ def k1_shape_cases(np, fg):
     view (``view`` "columns": raw's 4-byte copies), and the delta ring's
     edges: C = 1004 (rows of 1004 or 2008 bytes, 4- and 8-byte copies), a
     view of it from row 1 (``view`` "rows": a base that is not 16-byte
-    aligned, every kind), C = 1001 (odd-length rows: plain loads) and C =
-    136 (30 rows a tile, 28 a decode pass: a second pass)."""
+    aligned, every kind), C = 1001 (odd-length rows: plain loads) and a
+    view of it from row 1, C = 136 (30 rows a tile, 28 a decode pass: a
+    second pass); and quant16's ring at c0 > 0 (C = 1024, columns 512+512:
+    raw and quant16 read the active columns only)."""
     def full(C, step):
         return np.arange(WINDOW_MS, (C - 1) * INTERVAL_MS + 1, step,
                          dtype=np.int64)
@@ -831,6 +870,9 @@ def k1_shape_cases(np, fg):
     for C in (768, 128):
         rt, rows_per_block, _ = fg.k1_launch_shape(short, C, 128, 8, 2)
         assert rows_per_block % rt != 0, (C, rt, rows_per_block)
+    # windows from cell 520 on: active columns 512+512 of 1024
+    late = np.arange(WINDOW_MS + 520 * INTERVAL_MS,
+                     1023 * INTERVAL_MS + 1, 60_000, dtype=np.int64)
     return [
         ("Tp=256", 4096, 768, 8, WINDOW_MS + np.arange(250) * 29_000, None),
         ("Tp=512", 4096, 768, 64, WINDOW_MS + np.arange(500) * 14_000, None),
@@ -846,6 +888,8 @@ def k1_shape_cases(np, fg):
         ("C=1004 from row 1", 4096, 1004, 8, full(1004, 60_000), "rows"),
         ("C=1001", 4096, 1001, 8, full(1001, 60_000), None),
         ("C=136, two decode passes", 4096, 136, 8, full(136, 30_000), None),
+        ("C=1001 from row 1", 4096, 1001, 8, full(1001, 60_000), "rows"),
+        ("C=1024, c0 > 0", 4096, 1024, 8, late, None),
     ]
 
 
@@ -893,6 +937,8 @@ def phase_k1_shapes(torch, np, fg, narrow, dev):
                 band, ohlo, lo, hi, rel, c0, Ca = fg.device_operands(
                     C, Tp, out_ts.tobytes(), WINDOW_MS, 0, INTERVAL_MS, fk,
                     full, dev)
+                if "c0 > 0" in name and not full:
+                    assert 0 < c0 and c0 + Ca <= C, (name, kind, c0, Ca)
                 plain = {sq: fg.fused_grid_aggregate_plain(
                     fn, sq, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, band,
                     ohlo, lo, hi, rel, G, c0, Ca, kind, ops[1:])
@@ -1618,6 +1664,42 @@ def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
     raw_ms = cuda_ms(lambda: fg.fused_grid_kernel(
         "rate", False, WINDOW_MS, INTERVAL_MS, dec, n, gids, lo, hi, rel, 8,
         c0, Ca), reps=20)
+    panel = {}
+    if not full:
+        # quant16 slices the active columns: the 30-minute panel's operands
+        # (phase 4's, bench.measure's sub-range at variant 0's end) against
+        # the plain twin, bit for bit K1 raw on the decoded block, and timed
+        # beside it
+        pts = np.arange(e - SUB_RANGE_MS, e + 1, STEP_MS, dtype=np.int64)
+        pT = len(pts)
+        pband, pohlo, plo, phi, prel, pc0, pCa = fg.device_operands(
+            CAPACITY, -(-pT // 128) * 128, pts.tobytes(), WINDOW_MS, BASE_TS,
+            INTERVAL_MS, "rate", False, st.device)
+        assert pc0 > 0 and pCa < CAPACITY, (pc0, pCa)
+        pa = fg.fused_grid_kernel("rate", True, WINDOW_MS, INTERVAL_MS,
+                                  ops[0], n, gids, plo, phi, prel, 8, pc0,
+                                  pCa, kind, ops[1:])
+        pb = fg.fused_grid_kernel("rate", True, WINDOW_MS, INTERVAL_MS, dec,
+                                  n, gids, plo, phi, prel, 8, pc0, pCa)
+        assert same_outputs(pa, pb), (kind, "panel: narrow != raw on the "
+                                      "decode")
+        worst = max(worst, compare_parts(
+            fg.PaddedPartials(pa[:2], "sum", 8, pT).resolve(),
+            fg.PaddedPartials(fg.fused_grid_aggregate_plain(
+                "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids,
+                pband, pohlo, plo, phi, prel, 8, pc0, pCa, kind, ops[1:]),
+                "sum", 8, pT).resolve(), {"count"}, f"{kind} panel"))
+        panel = dict(panel_ms=cuda_ms(lambda: fg.fused_grid_kernel(
+            "rate", False, WINDOW_MS, INTERVAL_MS, ops[0], n, gids, plo, phi,
+            prel, 8, pc0, pCa, kind, ops[1:]), reps=20),
+            panel_raw_ms=cuda_ms(lambda: fg.fused_grid_kernel(
+                "rate", False, WINDOW_MS, INTERVAL_MS, dec, n, gids, plo, phi,
+                prel, 8, pc0, pCa), reps=20))
+        log(f"narrow scale {kind} [{card}]: the 30-minute panel ({pT} steps,"
+            f" columns {pc0}+{pCa}): K1-{kind} {panel['panel_ms']:.4f} ms, "
+            f"K1-raw on the decoded block {panel['panel_raw_ms']:.4f} ms by "
+            f"CUDA events (same partials bit for bit)")
+        del pa, pb
     del dec, a, b
     # one call of the plain twin (~3 s a kind): the yardstick's depth was
     # cut from 3 timed calls after a warm one to keep the script's budget
@@ -1656,7 +1738,7 @@ def phase_scale_narrow(torch, np, fg, card, shard, engine, kind, dev="cuda"):
         f"{res_bytes / 1e9:.3f} GB ({raw_bytes / res_bytes:.2f}x); "
         f"compressed at flush in {comp_s:.2f} s; library call: none")
     return dict(launches=launches, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound_ms, bound_by=bound_by, raw_ms=raw_ms)
+                bound_ms=bound_ms, bound_by=bound_by, raw_ms=raw_ms, **panel)
 
 
 def hist_block_dev(torch, S, C, B, wide, seed, dev):
@@ -7823,9 +7905,7 @@ def main() -> int:
         # not part of the smoke run: K1's shape checks and the narrow scale
         # timings of the package in ROOT, to time two checkouts in turns
         kernels.build(("fusedgrid", "streamprobe"))
-        for line in kernels.build_log.get("fusedgrid", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: fusedgrid: {line.strip()}")
+        log_build(kernels, fg, ("fusedgrid",))
         t0 = time.perf_counter()
         checks, exact, worst = phase_k1_shapes(torch, np, fg, narrow, "cuda")
         log(f"k1-narrow: {checks} launch-shape checks against the plain "
@@ -7837,7 +7917,8 @@ def main() -> int:
                                         kind) for kind in NARROW_KINDS}
         log(f"k1-narrow [{card}] {ROOT}: " + json.dumps({
             "k3_ms": k3["ms"], **{kind: {k: r[k] for k in (
-                "ms", "raw_ms", "bound_ms", "max_abs_err")}
+                "ms", "raw_ms", "bound_ms", "max_abs_err", "panel_ms",
+                "panel_raw_ms") if k in r}
                 for kind, r in k1n.items()}}))
         return 0
     if sys.argv[1:2] == ["--durable"]:
@@ -7908,10 +7989,7 @@ def main() -> int:
     built = kernels.build()
     log(f"build: {', '.join(built) or 'nothing stale'} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, report in kernels.build_log.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+    log_build(kernels, fg, list(kernels.build_log))
 
     t0 = time.perf_counter()
     checks, worst2 = phase_kernels(torch, np, fg, "cuda")
@@ -7928,8 +8006,9 @@ def main() -> int:
     checks, exact, worst2s = phase_k1_shapes(torch, np, fg, narrow, "cuda")
     log(f"kernels: fusedgrid_k1 launch shapes ({checks} checks against the "
         f"plain twin at Tp = 256 and 512, leading dead steps, short last "
-        f"tiles, the largest shared memory, a misaligned view, C = 1004, "
-        f"a view of it from row 1, C = 1001 and 136; max |diff| "
+        f"tiles, the largest shared memory, a misaligned view, C = 1004 and "
+        f"1001 and a view of each from row 1, C = 136, C = 1024 at c0 > 0; "
+        f"max |diff| "
         f"{worst2s:.3g}; {exact} bit-exact checks against K1 raw on the "
         f"decoded block; {time.perf_counter() - t0:.1f} s)")
     rows, differ, ok_card, ok_cpu = phase_quant16_scale(torch, np, narrow,

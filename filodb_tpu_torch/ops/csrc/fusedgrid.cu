@@ -38,28 +38,35 @@
 // the row walk and the non-finite counts read only cells < n, so they add
 // nothing.
 //
-// The delta staging. A two-stage ring [2, rt, C] of the block's own i8 or
-// i16 holds tile k + 1's rows, copied with cp.async while tile k is
-// decoded and worked, beside their n and gid; the first pass's anchors go
-// into registers a tile ahead. The copies are 16 bytes where the block's
-// base, its row stride and its row length in bytes all allow it, else 8
-// or 4 (C = 1004, a view that starts at row 1); where not even 4 bytes
-// divide them (an odd-length i8 row) the cells take plain loads. The
-// decode is one pass of the whole block: each thread takes a run of 16
-// cells of one row (one 16-byte word of i8, two of i16), sums it in int32,
-// and a segmented scan over the block (rows are the segments; warp
-// shuffles, then the warps' totals through a few shared words) gives the
-// run the sum of its row's cells before it; each cell is then anchor +
-// (float)prefix, its int32 prefix one dot-product instruction from the
-// run's. Each thread copies the cells it decodes, so only the scan needs a
+// The staging of the narrow variants. A two-stage ring [2, rt, Ca] of the
+// block's own i16 or i8 holds tile k + 1's rows, copied with cp.async
+// while tile k is decoded and worked, beside their n and gid; the row
+// operands (quant16's vmin and scale, the delta variants' first-pass
+// anchors) go into registers a tile ahead. The copies are 16 bytes where
+// the first active byte, the row stride and the row length in bytes all
+// allow it, else 8 or 4 (C = 1004, a view that starts at row 1); where not
+// even 4 bytes divide them (an odd-length row) the cells take plain
+// loads. quant16 keeps active-column slicing (c0 > 0, Ca < C): its
+// threads copy the tile in flat chunks of one copy each, consecutive
+// threads on consecutive chunks, and each thread dequantises the chunks it
+// copied, vmin + ((float)q + 32768) * scale a cell, into the f32 tile with
+// 16-byte stores that a quarter warp spreads over the eight bank groups;
+// nothing but cp.async.wait_group stands between the copy and the
+// dequantise. The delta decode is one pass of the whole block: each
+// thread takes a run of 16 cells of one row (one 16-byte word of i8, two
+// of i16), sums it in int32, and a segmented scan over the block (rows are
+// the segments; warp shuffles, then the warps' totals through a few shared
+// words) gives the run the sum of its row's cells before it; each cell is
+// then anchor + (float)prefix, its int32 prefix one dot-product
+// instruction from the run's. Each thread copies the cells it decodes, so only the scan needs a
 // barrier. Exact: the encoder admits only integer deltas whose every
 // prefix is within 2^23 (filodb_tpu/ops/narrow.py:173-177), so every int32
 // partial sum and its conversion are exact, and the one rounding is the
 // final add to the anchor, as in the plain anchor + cumsum and in the
 // chunked f32 scan this replaced: the staged tile is bit for bit the same.
-// The ring takes no more shared memory than raw's second f32 buffer; the
-// delta kernels are held to 64 registers, so four blocks an SM still fit
-// wherever they fit for raw.
+// The ring takes no more shared memory than raw's second f32 buffer (the
+// i16 rings exactly as much); the ring kernels are held to 64 registers,
+// so four blocks an SM still fit wherever they fit for raw.
 //
 // What bounds it. The bytes: the kernel reads val[:, c0:c0+Ca] once. At
 // bench.py's shape (S = 2^20 series, Ca = C = 768 columns for the full 2 h
@@ -70,10 +77,10 @@
 // 47 steps) are a few per byte, below the card's f32 ridge, so bytes bound
 // it on paper (chip_smoke.py recomputes the bound for the card it runs
 // on). In practice the per-tile phases below issue more slowly than the
-// bytes arrive: raw runs at about twice its bound, and the delta variants,
-// whose tile phases are the same code over a quarter or a half of the
-// bytes, within about 1.1x of raw on their decoded block (PERF.md): the
-// shared tile phases bound every variant.
+// bytes arrive: raw runs at about twice its bound, and the narrow
+// variants, whose tile phases are the same code over a quarter or a half
+// of the bytes, near raw on their decoded block (PERF.md): the shared tile
+// phases bound every variant.
 //
 // What the design does about it. Blocks of 256 threads run over (row chunk
 // x step chunk of 128 steps). A block stages RT rows of its chunk at a time
@@ -100,13 +107,13 @@
 // same, whatever the tile. Raw f32 staging is double-buffered: the 16-byte
 // cp.async copies of tile k+1 and of its rows' n and gid (4-byte copies
 // where the view is not aligned) are in flight while tile k is worked; the
-// delta ring above does the same over a half or a quarter of the bytes.
-// quant16 still stages synchronously. A block writes its chunk's partials
-// to scratch; fold_chunks then sums the chunks in index order (the TPU
-// grid accumulated tiles in order; blocks here run in parallel, so the
+// ring above does the same over a half or a quarter of the bytes for
+// every narrow variant. A block writes its chunk's partials to scratch;
+// fold_chunks then sums the chunks in index order (the TPU grid
+// accumulated tiles in order; blocks here run in parallel, so the
 // cross-block sum is a second pass, never float atomics; fold.cuh, shared
-// with K2). What remains: quant16's staging on the same ring, then the
-// tile phases all four variants share (TMA, warp specialisation).
+// with K2). What remains: the tile phases all four variants share (TMA,
+// warp specialisation).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -166,9 +173,10 @@ struct Params {
   float rate_scale;      // (float)(1000.0 / window_ms)
   int rows_per_block;
   int rt;                // rows staged per shared-memory tile
-  int vec4;              // 4-element vector loads are aligned
-  int cw;                // delta16/delta8: the ring's copy width in bytes
-                         // (16, 8 or 4: cp.async; 2 or 1: plain loads)
+  int vec4;              // raw: 16-byte copies are aligned
+  int cw;                // quant16/delta16/delta8: the ring's copy width
+                         // in bytes (16, 8 or 4: cp.async; 2 or 1: plain
+                         // loads)
   float* scratch;        // [nchunks, nout, G, Tp]
 };
 
@@ -233,41 +241,6 @@ __device__ __forceinline__ void stage_raw_async(const Params& p, float* tile,
   for (int r = tid; r < nr; r += kThreads) {
     cp_async4(n + r, p.n + r0 + r);
     cp_async4(gid + r, p.gid + r0 + r);
-  }
-}
-
-__device__ __forceinline__ float dequant16(int16_t q, float vmin,
-                                           float scale) {
-  return vmin + ((float)q + 32768.f) * scale;
-}
-
-__device__ __forceinline__ void stage_quant16(const Params& p, float* tile,
-                                              int r0, int nr, int tid) {
-  const int16_t* q = static_cast<const int16_t*>(p.val);
-  const int c0 = p.c0;
-  if (p.vec4) {   // 4 cells, 8 bytes, a load
-    const int ca4 = p.ca >> 2;
-    for (int i = tid; i < nr * ca4; i += kThreads) {
-      const int r = i / ca4;
-      const int c4 = i - r * ca4;
-      const short4 x = *reinterpret_cast<const short4*>(
-          q + (long long)(r0 + r) * p.row_stride + c0 + 4 * c4);
-      const float vmin = p.row0[r0 + r];
-      const float scale = p.row1[r0 + r];
-      float4 y;
-      y.x = dequant16(x.x, vmin, scale);
-      y.y = dequant16(x.y, vmin, scale);
-      y.z = dequant16(x.z, vmin, scale);
-      y.w = dequant16(x.w, vmin, scale);
-      *reinterpret_cast<float4*>(tile + r * p.ca + 4 * c4) = y;
-    }
-  } else {
-    for (int i = tid; i < nr * p.ca; i += kThreads) {
-      const int r = i / p.ca;
-      const int c = i - r * p.ca;
-      tile[i] = dequant16(q[(long long)(r0 + r) * p.row_stride + c0 + c],
-                          p.row0[r0 + r], p.row1[r0 + r]);
-    }
   }
 }
 
@@ -489,6 +462,203 @@ __device__ __forceinline__ void decode_delta(const Params& p,
   }
 }
 
+// quant16. A tile's rows are staged as they are stored, packed [nr, ca] in
+// one stage of a two-stage ring of i16, and tile k + 1's copies are in
+// flight while tile k is dequantised and worked, as for the delta
+// variants. The layout is flat: the packed tile is cut into chunks of e =
+// cw / 2 cells (one copy of cw bytes; cw divides a row's bytes, so a chunk
+// is one row's), and chunk u belongs to thread u % kThreads in pass u /
+// kThreads, so a warp's copies are consecutive in the row and in the
+// stage. Each thread dequantises the chunks it copied, so only
+// cp.async.wait_group stands between the two. A chunk's place in the
+// packed stage and in the packed f32 tile is its first cell x = u e; its
+// row and column in the block, which the copy and the row operands need,
+// step by a fixed amount from pass to pass (QSlot). At 16-byte copies a
+// fusable tile (rt Ca <= 4096 cells) takes at most two passes, whose rows'
+// vmin and scale are loaded with the copies, a tile ahead; later passes
+// (narrower copies) load their own.
+struct QSlot {
+  int r, c;     // row and column of this thread's chunk of pass 0
+  int dr, dc;   // a pass's step, kThreads e cells, in rows and columns
+};
+
+__device__ __forceinline__ QSlot quant16_slot(const Params& p, int tid) {
+  const int e = p.cw >> 1;
+  QSlot u;
+  u.r = tid * e / p.ca;
+  u.c = tid * e - u.r * p.ca;
+  u.dr = kThreads * e / p.ca;
+  u.dc = kThreads * e - u.dr * p.ca;
+  return u;
+}
+
+__device__ __forceinline__ void quant16_next(QSlot& u, int ca) {
+  u.c += u.dc;
+  u.r += u.dr;
+  if (u.c >= ca) {
+    u.c -= ca;
+    ++u.r;
+  }
+}
+
+// the vmin and scale of the rows of this thread's chunks of passes 0 and 1
+struct QRows {
+  float vmin0, scale0, vmin1, scale1;
+};
+
+// one chunk's copy (cw = 2: a plain load)
+__device__ __forceinline__ void quant16_copy(const Params& p,
+                                             unsigned char* dst,
+                                             const int16_t* src) {
+  if (p.cw == 16) {
+    cp_async_cg16(dst, src);
+  } else if (p.cw == 8) {
+    cp_async8(dst, src);
+  } else if (p.cw == 4) {
+    cp_async4(dst, src);
+  } else {
+    *reinterpret_cast<int16_t*>(dst) = *src;
+  }
+}
+
+// issues the copies of this thread's chunks of rows [r0, r0 + nr) and of
+// the rows' n and gid without waiting for them, and loads the vmin and
+// scale of its rows of passes 0 and 1
+__device__ __forceinline__ QRows stage_quant16_async(const Params& p,
+                                                     unsigned char* stage,
+                                                     int* n, int* gid,
+                                                     int r0, int nr, QSlot u,
+                                                     int tid) {
+  const int16_t* q = static_cast<const int16_t*>(p.val) + p.c0
+                     + (long long)r0 * p.row_stride;
+  const int e = p.cw >> 1;
+  const int cells = nr * p.ca;
+  const int x0 = tid * e;
+  const int x1 = x0 + kThreads * e;
+  QRows w = {0.f, 0.f, 0.f, 0.f};
+  if (x0 < cells) {
+    quant16_copy(p, stage + 2 * x0, q + (long long)u.r * p.row_stride + u.c);
+    w.vmin0 = __ldg(p.row0 + r0 + u.r);
+    w.scale0 = __ldg(p.row1 + r0 + u.r);
+  }
+  quant16_next(u, p.ca);
+  if (x1 < cells) {
+    quant16_copy(p, stage + 2 * x1, q + (long long)u.r * p.row_stride + u.c);
+    w.vmin1 = __ldg(p.row0 + r0 + u.r);
+    w.scale1 = __ldg(p.row1 + r0 + u.r);
+  }
+  for (int x = x1 + kThreads * e; x < cells; x += kThreads * e) {
+    quant16_next(u, p.ca);
+    quant16_copy(p, stage + 2 * x, q + (long long)u.r * p.row_stride + u.c);
+  }
+  for (int r = tid; r < nr; r += kThreads) {
+    cp_async4(n + r, p.n + r0 + r);
+    cp_async4(gid + r, p.gid + r0 + r);
+  }
+  return w;
+}
+
+// (float)q + 32768.f of the stored i16 q, given its 16 bits h, without a
+// conversion instruction (I2F runs at a fraction of the f32 rate): the
+// biased value u = q + 32768 in [0, 65535] is h with its top bit flipped,
+// and the f32 whose bits are 0x4B000000 | u is 2^23 + u exactly, so
+// taking 2^23 away leaves u, exactly what the conversion and the exact add
+// give
+__device__ __forceinline__ float q_biased(unsigned h) {
+  return __int_as_float(h ^ 0x4B008000u) - 8388608.f;
+}
+
+// the reference's expression in its order, one rounding each
+// (filodb_tpu/ops/decodereg.py::decode_quant16): vmin + ((float)q +
+// 32768) * scale, the first add exact
+__device__ __forceinline__ float dequant16(unsigned h, float vmin,
+                                           float scale) {
+  return vmin + q_biased(h) * scale;
+}
+
+// the four cells of two 32-bit words, little end first
+__device__ __forceinline__ float4 dequant4(unsigned w0, unsigned w1,
+                                           float vmin, float scale) {
+  float4 y;
+  y.x = dequant16(w0 & 0xFFFFu, vmin, scale);
+  y.y = dequant16(w0 >> 16, vmin, scale);
+  y.z = dequant16(w1 & 0xFFFFu, vmin, scale);
+  y.w = dequant16(w1 >> 16, vmin, scale);
+  return y;
+}
+
+// an 8-cell chunk as two 16-byte stores, lanes 4-7 of each quarter warp
+// writing their second half first: the eight lanes' first (and second)
+// stores then hit eight different bank groups (lane l at 16-byte group
+// 2 l + ((l >> 2) & 1) mod 8)
+__device__ __forceinline__ void dequant8(float* dst, const uint4& v,
+                                         float vmin, float scale, int h) {
+  reinterpret_cast<float4*>(dst)[h] =
+      dequant4(h ? v.z : v.x, h ? v.w : v.y, vmin, scale);
+  reinterpret_cast<float4*>(dst)[h ^ 1] =
+      dequant4(h ? v.x : v.z, h ? v.y : v.w, vmin, scale);
+}
+
+// one chunk of e < 8 cells
+__device__ __forceinline__ void dequant_narrow(float* dst,
+                                               const unsigned char* src,
+                                               int e, float vmin,
+                                               float scale) {
+  if (e == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    *reinterpret_cast<float4*>(dst) = dequant4(v.x, v.y, vmin, scale);
+  } else if (e == 2) {
+    const unsigned v = *reinterpret_cast<const unsigned*>(src);
+    float2 y;
+    y.x = dequant16(v & 0xFFFFu, vmin, scale);
+    y.y = dequant16(v >> 16, vmin, scale);
+    *reinterpret_cast<float2*>(dst) = y;
+  } else {
+    dst[0] = dequant16(*reinterpret_cast<const uint16_t*>(src), vmin, scale);
+  }
+}
+
+// The dequantise of this thread's chunks of a staged tile into the f32
+// tile (packed [nr, ca] like the stage, so chunk x's cells are at tile +
+// x). At 16-byte copies both passes' stage words are read before either
+// is dequantised.
+__device__ __forceinline__ void dequant_quant16(const Params& p,
+                                                const unsigned char* stage,
+                                                float* tile, int r0, int nr,
+                                                QSlot u, const QRows& w,
+                                                int tid, int lane) {
+  const int e = p.cw >> 1;
+  const int cells = nr * p.ca;
+  const int x0 = tid * e;
+  const int x1 = x0 + kThreads * e;
+  if (e == 8) {
+    const bool a0 = x0 < cells, a1 = x1 < cells;
+    uint4 v0 = {0u, 0u, 0u, 0u}, v1 = v0;
+    if (a0) v0 = *reinterpret_cast<const uint4*>(stage + 2 * x0);
+    if (a1) v1 = *reinterpret_cast<const uint4*>(stage + 2 * x1);
+    const int h = (lane >> 2) & 1;     // the half this lane stores first
+    if (a0) dequant8(tile + x0, v0, w.vmin0, w.scale0, h);
+    if (a1) dequant8(tile + x1, v1, w.vmin1, w.scale1, h);
+  } else {
+    if (x0 < cells)
+      dequant_narrow(tile + x0, stage + 2 * x0, e, w.vmin0, w.scale0);
+    if (x1 < cells)
+      dequant_narrow(tile + x1, stage + 2 * x1, e, w.vmin1, w.scale1);
+  }
+  quant16_next(u, p.ca);
+  for (int x = x1 + kThreads * e; x < cells; x += kThreads * e) {
+    quant16_next(u, p.ca);
+    const float vmin = __ldg(p.row0 + r0 + u.r);
+    const float scale = __ldg(p.row1 + r0 + u.r);
+    if (e == 8) {
+      dequant8(tile + x, *reinterpret_cast<const uint4*>(stage + 2 * x),
+               vmin, scale, (lane >> 2) & 1);
+    } else {
+      dequant_narrow(tile + x, stage + 2 * x, e, vmin, scale);
+    }
+  }
+}
+
 // The time terms of one (step, row) window, tile_contrib's expressions:
 // they depend on the row only through its last cell l_idx, and every row
 // whose samples reach the step's last cell (l_idx = hi) has the same ones,
@@ -631,9 +801,10 @@ __device__ __forceinline__ void item_contrib(
 // Shared memory of one block, in this order (k1_smem_bytes in
 // ops/fusedgrid.py mirrors the sum; keep the two alike):
 //   f32 tile buffers [nbuf, rt, ca]  (nbuf: 2 for raw, 1 for the others)
-//   delta16/delta8: the ring [2, rt, ca] of the block's own type, its
-//       bytes rounded up to 4 (raw's second f32 buffer is at least as
-//       large, so no block asks for more than raw's)
+//   quant16/delta16/delta8: the ring [2, rt, ca] of the block's own
+//       type, its bytes rounded up to 4 (raw's second f32 buffer is at
+//       least as large, and exactly as large for the i16 kinds, so no
+//       block asks for more than raw's)
 //   f32 contributions [rt, kSteps], presence [rt, kSteps] (the delta
 //       decode's scan words while the tile is staged)
 //   f32 accumulator [nout, G, kSteps]
@@ -646,7 +817,7 @@ __host__ __device__ constexpr int tile_buffers(int kind) {
 }
 
 __host__ __device__ constexpr int ring_bytes(int kind, int rt, int ca) {
-  return kind == KIND_DELTA16 ? 4 * rt * ca
+  return kind == KIND_QUANT16 || kind == KIND_DELTA16 ? 4 * rt * ca
          : kind == KIND_DELTA8 ? (2 * rt * ca + 3) / 4 * 4 : 0;
 }
 
@@ -665,7 +836,7 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
   const int tsz = p.rt * p.ca;
   const int G = p.groups;
   float* bufs = smem;                                   // [nbuf, rt, ca]
-  unsigned char* ring =                                 // delta: [2, rt, ca]
+  unsigned char* ring =                                 // ring: [2, rt, ca]
       reinterpret_cast<unsigned char*>(bufs + tile_buffers(K) * tsz);
   float* s_con = bufs + tile_buffers(K) * tsz           // [rt, kSteps]
                  + ring_bytes(K, p.rt, p.ca) / 4;
@@ -746,6 +917,16 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
     }
     cp_async_commit();
   }
+  const QSlot qslot = quant16_slot(p, tid);
+  QRows qrows = {0.f, 0.f, 0.f, 0.f};  // the tile's vmin and scale, a tile
+                                       // ahead
+  if constexpr (K == KIND_QUANT16) {   // the first tile's copies and rows
+    if (nlive > 0 && row0 < row_end) {
+      const int nr = min(p.rt, row_end - row0);
+      qrows = stage_quant16_async(p, ring, s_nb, s_gb, row0, nr, qslot, tid);
+    }
+    cp_async_commit();
+  }
   float* a_sum = acc;
   float* a_cnt = acc + G * kSteps;
   float* a_sq = acc + 2 * G * kSteps;
@@ -755,11 +936,12 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
   for (int r0 = row0; nlive > 0 && r0 < row_end; r0 += p.rt, ++k) {
     const int nr = min(p.rt, row_end - r0);
     __syncthreads();   // the previous tile, its items and its fold are done
-    const int b = K == KIND_RAW || kDelta ? (k & 1) : 0;
+    const int b = k & 1;
     float* tile = bufs + (K == KIND_RAW ? b * tsz : 0);
     int* s_n = s_nb + b * p.rt;
     int* s_gid = s_gb + b * p.rt;
     float next = 0.f;                  // delta: tile k + 1's anchor
+    QRows qnext = {0.f, 0.f, 0.f, 0.f};  // quant16: tile k + 1's rows
     if constexpr (K == KIND_RAW) {
       // tile k + 1's copies go out into the other buffers (their last
       // readers, tile k - 1's items and fold, passed the barrier above);
@@ -772,7 +954,21 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
       cp_async_commit();
       cp_async_wait<1>();
     } else if constexpr (K == KIND_QUANT16) {
-      stage_quant16(p, tile, r0, nr, tid);
+      // the same for the quant16 ring: tile k + 1's chunks (this thread's
+      // own), n and gid, and its rows' vmin and scale into registers; then
+      // wait for this thread's copies of tile k and dequantise them
+      const int r1 = r0 + p.rt;
+      if (r1 < row_end) {
+        const int nr1 = min(p.rt, row_end - r1);
+        qnext = stage_quant16_async(p, ring + (b ^ 1) * stage_bytes,
+                                    s_nb + (b ^ 1) * p.rt,
+                                    s_gb + (b ^ 1) * p.rt, r1, nr1, qslot,
+                                    tid);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      dequant_quant16(p, ring + b * stage_bytes, tile, r0, nr, qslot, qrows,
+                      tid, lane);
     } else {
       // the same for the ring: tile k + 1's runs (this thread's own: their
       // last reader, its decode of tile k - 1, is behind it), n and gid
@@ -792,12 +988,6 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
       cp_async_wait<1>();
       decode_delta<DeltaT>(p, ring + b * stage_bytes, tile, s_scan, r0, nr,
                            slot, anchor, tid, lane, warp);
-    }
-    if constexpr (K == KIND_QUANT16) {
-      for (int r = tid; r < nr; r += kThreads) {
-        s_n[r] = p.n[r0 + r];
-        s_gid[r] = p.gid[r0 + r];
-      }
     }
     __syncthreads();
     // per-row count of non-finite cells the band products multiply by 0:
@@ -895,6 +1085,9 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
     if constexpr (kDelta) {   // used a tile later: the loads have long landed
       anchor = next;
     }
+    if constexpr (K == KIND_QUANT16) {
+      qrows = qnext;
+    }
   }
   if (cg >= 0) {
     a_sum[cg * kSteps + tid] = c_sum;
@@ -910,8 +1103,8 @@ __device__ __forceinline__ void fused_grid_body(const Params& p) {
   }
 }
 
-// The kernels: raw and quant16 as they were; the delta variants held to
-// 64 registers, so four blocks still fit an SM
+// The kernels: raw as it was; the ring variants (quant16, delta16,
+// delta8) held to 64 registers, so four blocks still fit an SM
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 fused_grid_map(Params p) {
@@ -920,17 +1113,17 @@ fused_grid_map(Params p) {
 
 template <int K>
 __global__ void __launch_bounds__(kThreads, 4)
-fused_grid_map_delta(Params p) {
+fused_grid_map_ring(Params p) {
   fused_grid_body<K>(p);
 }
 
 template <int K>
 cudaError_t launch_map(const Params& p, dim3 grid, cudaStream_t s) {
   void (*kernel)(Params);
-  if constexpr (K == KIND_DELTA16 || K == KIND_DELTA8)
-    kernel = fused_grid_map_delta<K>;
-  else
+  if constexpr (K == KIND_RAW)
     kernel = fused_grid_map<K>;
+  else
+    kernel = fused_grid_map_ring<K>;
   const size_t smem = smem_bytes(K, p.rt, p.ca, p.groups, p.nout);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -948,19 +1141,23 @@ extern "C" int fusedgrid_launch(
     int tp, int groups, int fn, int nout, int window_ms, int interval_ms,
     float rate_scale, int rows_per_block, int rt, int vec4, int cw,
     float* scratch, int nchunks, float* out, void* stream) {
-  // the delta variants decode from cell 0 of the whole row, at most
-  // kMaxRuns runs a row and kPasses passes a tile, with a copy width that
-  // divides the block's base, its row stride and its row length in bytes
-  if (kind == KIND_DELTA16 || kind == KIND_DELTA8) {
-    const int esz = kind == KIND_DELTA16 ? 2 : 1;
-    const int nrun = (ca + kRun - 1) / kRun;
-    const int rpp = nrun > 0 ? kThreads / nrun : 0;
+  // the ring variants copy with a width that divides the first active
+  // byte, the row stride and the row length in bytes; the delta variants
+  // decode from cell 0 of the whole row, at most kMaxRuns runs a row and
+  // kPasses passes a tile
+  if (kind != KIND_RAW) {
+    const int esz = kind == KIND_DELTA8 ? 1 : 2;
+    const uintptr_t first =
+        reinterpret_cast<uintptr_t>(val) + (uintptr_t)c0 * esz;
     const bool width = (cw == 1 || cw == 2 || cw == 4 || cw == 8 || cw == 16)
                        && cw >= esz && (ca * esz) % cw == 0
-                       && (row_stride * esz) % cw == 0
-                       && reinterpret_cast<uintptr_t>(val) % cw == 0;
-    if (c0 != 0 || ca != cap || ca < 1 || nrun > kMaxRuns
-        || rt > kPasses * rpp || !width)
+                       && (row_stride * esz) % cw == 0 && first % cw == 0;
+    if (ca < 1 || !width) return (int)cudaErrorInvalidValue;
+  }
+  if (kind == KIND_DELTA16 || kind == KIND_DELTA8) {
+    const int nrun = (ca + kRun - 1) / kRun;
+    const int rpp = nrun > 0 ? kThreads / nrun : 0;
+    if (c0 != 0 || ca != cap || nrun > kMaxRuns || rt > kPasses * rpp)
       return (int)cudaErrorInvalidValue;
   }
   Params p;

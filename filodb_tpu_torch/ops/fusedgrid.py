@@ -187,13 +187,15 @@ def k1_smem_bytes(Ca: int, rt: int, G: int, nout: int,
     """Shared memory of one K1 block: the sum ``smem_bytes`` in
     csrc/fusedgrid.cu computes, term for term (keep the two alike) — the
     f32 tile buffers [nbuf, rt, Ca] (two for raw's double buffer, one for
-    the decode variants), the delta variants' ring [2, rt, Ca] of their own
-    i16 / i8 (its bytes rounded up to 4), contributions and presence
-    [rt, 128] each, the accumulator [nout, G, 128], the steps' 6 time terms
-    [6, 128]; and i32 n and gid [2, rt] each, two non-finite counts [rt]
-    each, lo / hi / rel / the live-step list [128] each, 4 warp counts."""
+    the decode variants), the decode variants' ring [2, rt, Ca] of their
+    own i16 / i8 (its bytes rounded up to 4: quant16's and delta16's are
+    exactly raw's second f32 buffer), contributions and presence [rt, 128]
+    each, the accumulator [nout, G, 128], the steps' 6 time terms [6, 128];
+    and i32 n and gid [2, rt] each, two non-finite counts [rt] each, lo /
+    hi / rel / the live-step list [128] each, 4 warp counts."""
     nbuf = 2 if kind == "raw" else 1
-    ring = {"delta16": 4 * rt * Ca, "delta8": _roundup(2 * rt * Ca, 4)}
+    ring = {"quant16": 4 * rt * Ca, "delta16": 4 * rt * Ca,
+            "delta8": _roundup(2 * rt * Ca, 4)}
     return (4 * (nbuf * rt * Ca + 2 * rt * K1_STEPS + nout * G * K1_STEPS
                  + K1_TERMS * K1_STEPS)
             + ring.get(kind, 0)
@@ -223,13 +225,48 @@ def k1_delta_cells(Ca: int, nr: int):
                 yield ps, t, r, j * K1_RUN, min(j * K1_RUN + K1_RUN, Ca)
 
 
+def k1_quant16_chunks(Ca: int, nr: int, cw: int):
+    """The quant16 staging's layout over a tile of ``nr`` staged rows, as
+    the kernel computes it (``quant16_slot`` / ``quant16_next`` in
+    csrc/fusedgrid.cu): the packed tile is cut into chunks of cw / 2 cells,
+    chunk u goes to thread u % 256 in pass u // 256, and the thread steps
+    its chunk's (row, column) from pass to pass by a fixed amount. Yields
+    (pass, thread, packed first cell, row, column) for every chunk: the
+    copy reads the block at (row, column) and writes the stage at the
+    packed cell, and the dequantise reads the stage and writes the f32 tile
+    there."""
+    e = cw // 2
+    r, c = divmod(np.arange(K1_THREADS) * e, Ca)
+    dr, dc = divmod(K1_THREADS * e, Ca)
+    ps = 0
+    while ps * K1_THREADS * e < nr * Ca:
+        for t in range(K1_THREADS):
+            x = (ps * K1_THREADS + t) * e
+            if x < nr * Ca:
+                yield ps, t, x, int(r[t]), int(c[t])
+        c = c + dc
+        r = r + dr + (c >= Ca)
+        c = np.where(c >= Ca, c - Ca, c)
+        ps += 1
+
+
 def delta_copy_width(ptr: int, stride_bytes: int, row_bytes: int) -> int:
-    """The delta ring's copy width in bytes: the largest power of two, at
-    most 16, that divides the block's base address, its row stride and its
-    row length in bytes, so every row's global start and its packed start
-    in the ring are aligned to it (16, 8, 4: cp.async; 2, 1: plain loads)."""
+    """The ring's copy width in bytes (every decode variant): the largest
+    power of two, at most 16, that divides the first active byte, the row
+    stride and the row length in bytes, so every row's global start and
+    its packed start in the ring are aligned to it (16, 8, 4: cp.async; 2,
+    1: plain loads)."""
     a = ptr | stride_bytes | row_bytes | 16
     return a & -a
+
+
+def k1_copy_width(val, c0: int, Ca: int) -> int:
+    """The ring's copy width for K1 over columns [c0, c0 + Ca) of ``val``:
+    :func:`delta_copy_width` of the view's first active byte, its row
+    stride and its active row length in bytes."""
+    esz = val.element_size()
+    return delta_copy_width(val.data_ptr() + c0 * esz, val.stride(0) * esz,
+                            Ca * esz)
 
 
 def k1_launch_shape(S: int, Ca: int, Tp: int, G: int, nout: int):
@@ -275,14 +312,16 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     n, gid, lo, hi, rel -- device pointers of the operands above;
     tp, groups, fn (FN_CODES), nout (2 or 3), window_ms, interval_ms,
     rate_scale (f32 of 1000.0 / window_ms) -- the query;
-    rows_per_block, rt (rows per shared-memory tile), vec4 (16-byte loads
-    aligned), cw (the delta ring's copy width, :func:`delta_copy_width`)
-    -- the launch shape; scratch ([nchunks, nout, G, Tp] f32), nchunks,
-    out ([nout, G, Tp] f32), stream. It returns cudaGetLastError() after
-    each of its two launches, and refuses a delta launch at c0 > 0, Ca <
-    C, Ca > K1_RUN * K1_MAX_RUNS, a tile of more than K1_PASSES decode
-    passes or a copy width that does not divide the block's base, row
-    stride and row length."""
+    rows_per_block, rt (rows per shared-memory tile), vec4 (raw's 16-byte
+    loads aligned), cw (the narrow ring's copy width,
+    :func:`k1_copy_width`) -- the launch shape;
+    scratch ([nchunks, nout, G, Tp] f32), nchunks, out ([nout, G, Tp] f32),
+    stream. It returns cudaGetLastError() after each of its two launches,
+    refuses a narrow launch whose copy width does not divide the first
+    active byte, the row stride and the row length, and a delta launch at
+    c0 > 0, Ca < C, Ca > K1_RUN * K1_MAX_RUNS or a tile of more than
+    K1_PASSES decode passes. quant16 stages through the same ring at any
+    c0 and Ca (``k1_quant16_chunks``)."""
     Ca = Ca or val.shape[1]
     dev = val.device
     _require(fn in FN_CODES, f"unknown fn {fn!r}")
@@ -318,8 +357,7 @@ def fused_grid_kernel(fn: str, needs_sumsq: bool, window_ms: int,
     rt, rows_per_block, nchunks = k1_launch_shape(S, Ca, Tp, G, nout)
     vec4 = int(val.stride(0) % 4 == 0 and c0 % 4 == 0 and Ca % 4 == 0
                and val.data_ptr() % (4 * val.element_size()) == 0)
-    esz = val.element_size()
-    cw = delta_copy_width(val.data_ptr(), val.stride(0) * esz, Ca * esz)
+    cw = k1_copy_width(val, c0, Ca)
     if var.full_columns:
         nrun, _rpp, passes = k1_delta_runs(Ca, rt)
         _require(nrun <= K1_MAX_RUNS and passes <= K1_PASSES,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,6 +91,45 @@ def build(names=KERNELS) -> list[str]:
     if failed:
         raise KernelBuildError("\n".join(failed))
     return [p[0] for p in pending]
+
+
+def _entry_name(sym: str) -> str:
+    """A kernel's name from its mangled symbol: the last name of its
+    nested-name chain and its integer template arguments
+    (``_ZN12_GLOBAL__N_119fused_grid_map_ringILi1EEEvNS_6ParamsE`` ->
+    ``fused_grid_map_ring<1>``); anything else comes back as it is."""
+    m = re.match(r"_ZN?", sym)
+    if m is None:
+        return sym
+    i, name = m.end(), sym
+    while (d := re.match(r"\d+", sym[i:])) is not None:
+        n = int(d.group(0))
+        name = sym[i + len(d.group(0)):i + len(d.group(0)) + n]
+        i += len(d.group(0)) + n
+    args = re.match(r"I((?:Li-?\d+E)+)E", sym[i:])
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_usage(report: str) -> list[dict]:
+    """Each entry function's registers and spills from nvcc's ``-Xptxas -v``
+    report, in the report's order: dicts of ``kernel`` (its name, see
+    :func:`_entry_name`), ``registers``, ``spill_stores`` and
+    ``spill_loads`` (bytes)."""
+    out, entry, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            out.append({"kernel": _entry_name(entry),
+                        "registers": int(m.group(1)),
+                        "spill_stores": spills[0], "spill_loads": spills[1]})
+            entry = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -108,9 +108,9 @@ def test_the_ring_fits_within_raws_shared_memory(G, nout):
             smem = fg.k1_smem_bytes(Ca, rt, G, nout, kind)
             assert smem <= raw and smem <= H100_SMEM_OPT_IN, (Ca, G, kind)
             # the ring's two stages of the block's own type, rounded to 4
-            # bytes, beside one f32 tile
+            # bytes, beside one f32 tile (raw less its second buffer)
             esz = 2 if kind == "delta16" else 1
-            ring = smem - fg.k1_smem_bytes(Ca, rt, G, nout, "quant16")
+            ring = smem - (raw - 4 * rt * Ca)
             assert 2 * rt * Ca * esz <= ring <= 2 * rt * Ca * esz + 3
 
 
