@@ -426,6 +426,26 @@ Phases, in order; every check asserts and any failure exits non-zero:
                each step's ms, rows/s, queries/s,
                p50/p99, the takeover gap and K1's launches beside the
                card's name and power limit.
+  19.  bench suite (run last) — every suite of the port's benchmark
+               suite (``filodb_tpu_torch/scripts/bench_suite.py``, the
+               twin of ``scripts/bench_suite.py``) on the card, in
+               process, at its default size; query_hicard and hist_query
+               again at ``--full`` (the jmh shapes). Each suite prints
+               exactly its declared metric names and passes its own
+               assertions (the result cache's route and bit parity, the
+               fused tier against the composed ``off`` chain within 2e-5
+               a cell, the mesh's route and bit parity, the admission
+               invariants, the ingest and elastic zero-loss /
+               zero-duplicate audits, the residency ladders' bit parity).
+               K1 raw launches in query_hicard, serving, fused_resident
+               and mesh_query, K1-delta8, -quant16 and -delta16 in
+               scalar_residency, K2 in fused_resident and hist_retention;
+               fused_resident's "off" legs launch neither, and the fused
+               mode is the default again after the phase. Prints each
+               suite's wall seconds and launches by kind (the launches a
+               suite makes only to hold a kernel against its plain twin
+               left out); each suite's lines go to
+               chiprun_out/bench_suite_phase19.jsonl.
 
 The two lines before the last are the card and the kernel table
 ({"kernels": [...]}); the last line is {"ok": true, "device": {...}}.
@@ -483,6 +503,10 @@ for it) and prints no result line.
 
 runs phase 18 alone (after the kernels' build; 18a on 11b's shards built
 and made delta8-resident for it) and prints no result line.
+
+    python3 chip_smoke.py --bench-suite
+
+runs phase 19 alone (after the kernels' build) and prints no result line.
 """
 
 import contextlib
@@ -7865,6 +7889,97 @@ def phase_soak(torch, np, fg, card, pkg, shards, dev="cuda") -> dict:
     return {"raw": k1, "delta8": r18a["k1_delta8"]}
 
 
+# ---- phase 19: the benchmark suite's twin ---------------------------------
+
+# also run at --full: the reference's jmh shapes
+BS_FULL = ("query_hicard", "hist_query")
+# suites whose main path must launch K1 raw, K1's decode variants, K2
+BS_K1_RAW = ("query_hicard", "serving", "fused_resident", "mesh_query")
+BS_K1_NARROW = {"scalar_residency": NARROW_KINDS}
+BS_K2 = ("fused_resident", "hist_retention")
+BS_OUT = os.path.join(HERE, "chiprun_out", "bench_suite_phase19.jsonl")
+
+
+def phase_bench_suite(torch, np, fg, fr, card, dev="cuda") -> dict:
+    """Phase 19 (see the module docstring). Returns the main-path launches
+    of the whole phase: {"k1": {kind: n}, "k2": n, "seconds": s}."""
+    import io
+    from filodb_tpu_torch.scripts import bench_suite as bs
+    mode0 = fr.mode()
+    runs = [(n, False) for n in sorted(bs.SUITES)] + \
+        [(n, True) for n in BS_FULL]
+    k1_all = dict.fromkeys(fg.fused_grid_kernel.launches_by_kind, 0)
+    k2_all = 0
+    walls = {}
+    t_all = time.perf_counter()
+    os.makedirs(os.path.dirname(BS_OUT), exist_ok=True)
+    with open(BS_OUT, "w") as jsonl:
+        for name, full in runs:
+            tag = f"{name} --full" if full else name
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_k1(fg)
+            fr.fused_hist_kernel.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rec = bs.SUITES[name](full, dev) or {}
+            compare = rec.get("compare_launches", {"k1": 0, "k2": 0})
+            walls[tag] = time.perf_counter() - t0
+            lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+            got = [ln["metric"] for ln in lines]
+            optional = {m for s, m in bs.OPTIONAL if s == name}
+            want = [m for m in bs.declared_metrics(name, full)
+                    if m in got or m not in optional]
+            assert all(ln["suite"] == name for ln in lines), tag
+            assert got == want, (tag, got, want)
+            # the launches made only to hold a kernel against its plain
+            # twin (fused_resident's parity rows: K1 raw, K2) are not the
+            # suite's main path
+            k1 = dict(fg.fused_grid_kernel.launches_by_kind)
+            k1["raw"] -= compare["k1"]
+            k2 = fr.fused_hist_kernel.launches - compare["k2"]
+            assert sum(k1.values()) == fg.fused_grid_kernel.launches \
+                - compare["k1"], (tag, k1)
+            if name in BS_K1_RAW:
+                assert k1["raw"] > 0, (tag, k1)
+            for kind in BS_K1_NARROW.get(name, ()):
+                assert k1[kind] > 0, (tag, kind, k1)
+            if name in BS_K2:
+                assert k2 > 0, (tag, k2)
+            if name == "fused_resident":
+                for shape, legs in rec["legs"].items():
+                    off, fused = legs["off"], legs["fused"]
+                    assert off["k1"] == off["k2"] == 0, (shape, off)
+                    assert (fused["k2"] if shape == "hist_quantile"
+                            else fused["k1"]) > 0, (shape, fused)
+                    assert off["route"] == "local", (shape, off["route"])
+                    o, f = off["values"], fused["values"]
+                    assert np.array_equal(np.isnan(o), np.isnan(f)), shape
+                    with np.errstate(all="ignore"):
+                        rel = np.nanmax(np.abs(f - o) / np.maximum(
+                            np.abs(o), 1e-12), initial=0.0)
+                    assert rel <= 2e-5, (shape, rel)
+                log(f"bench suite: fused_resident legs "
+                    f"{ {s: {leg: (v['route'], v['k1'], v['k2'], v['queries']) for leg, v in legs.items()} for s, legs in rec['legs'].items()} } "
+                    f"(route, K1, K2, queries)")
+            for kind, v in k1.items():
+                k1_all[kind] += v
+            k2_all += k2
+            for ln in lines:
+                jsonl.write(json.dumps(dict(ln, full=full)) + "\n")
+            log(f"bench suite: {tag} {walls[tag]:.1f} s, {len(lines)} "
+                f"metrics; K1 by kind "
+                f"{ {k: v for k, v in k1.items() if v} }, K2 {k2}")
+    assert fr.mode() == mode0 == "pallas", (fr.mode(), mode0)
+    seconds = time.perf_counter() - t_all
+    log(f"bench suite [{card}]: {len(runs)} runs of "
+        f"{len(bs.SUITES)} suites in {seconds:.1f} s; main-path launches "
+        f"K1 {k1_all}, K2 {k2_all}; slowest "
+        f"{sorted(walls.items(), key=lambda kv: -kv[1])[:5]}")
+    return {"k1": k1_all, "k2": k2_all, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7967,6 +8082,11 @@ def main() -> int:
         log(f"soak: 11b's shards registered in {reg_s:.1f} s, delta8 in "
             f"{comp_s:.2f} s")
         phase_soak(torch, np, fg, card, pkg, shards)
+        return 0
+    if sys.argv[1:2] == ["--bench-suite"]:
+        # not part of the smoke run: phase 19 alone
+        kernels.build()
+        phase_bench_suite(torch, np, fg, fr, card)
         return 0
     if sys.argv[1:2] == ["--cluster"]:
         # not part of the smoke run: phase 14 alone, on phase 11b's shards
@@ -8182,7 +8302,11 @@ def main() -> int:
     k1_13b = phase_durable_scale(torch, np, fg, card, pkg)
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"durable scale: done in {time.perf_counter() - t0:.1f} s; total "
+    log(f"durable scale: done in {time.perf_counter() - t0:.1f} s")
+    r19 = phase_bench_suite(torch, np, fg, fr, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"bench suite: done in {r19['seconds']:.1f} s; total "
         f"{time.perf_counter() - t_all:.1f} s")
 
     k1_rows = [{
@@ -8214,31 +8338,37 @@ def main() -> int:
     # lock round's queries (its serial checks apart); phase 18: the three
     # nodes' legs over HTTP (18a, delta8), the validator's servers (18b),
     # the soaks (18c)
+    # phase 19: the benchmark suites' main paths (their kernel-against-twin
+    # checks apart), every kind
     k1_rows[0]["launches"] += k1_8b + k1_9b + k1_10 + k1_11a["raw"] \
         + k1_11b["raw"] + k1_12a + k1_12b + k1_13a_raw + k1_13b \
         + k1_14a + k1_14b["raw"] + k1_14c + k1_15 + k1_16 + r17["k1"] \
-        + k1_18["raw"]
+        + k1_18["raw"] + r19["k1"]["raw"]
     for row in k1_rows[1:]:
         kind = row["variant"]
         row["launches"] += k1_11a[kind] + k1_11b[kind] + (
             k1_mirror if kind == "quant16" else 0) + k1_13a_narrow[kind] \
-            + k1_14b[kind] + (k1_18["delta8"] if kind == "delta8" else 0)
+            + k1_14b[kind] + (k1_18["delta8"] if kind == "delta8" else 0) \
+            + r19["k1"][kind]
     log(f"K1 raw launches on the main paths: phase 4 {k1['launches']}, 8b "
         f"{k1_8b}, 9b {k1_9b}, 10 {k1_10}, 11a {k1_11a['raw']}, 11b "
         f"{k1_11b['raw']}, 12a {k1_12a}, 12b {k1_12b}, 13a {k1_13a_raw}, "
         f"13b {k1_13b}, 14a {k1_14a}, 14b {k1_14b['raw']}, 14c {k1_14c}, "
-        f"15 {k1_15}, 16 {k1_16}, 17 {r17['k1']}, 18 {k1_18['raw']}; "
+        f"15 {k1_15}, 16 {k1_16}, 17 {r17['k1']}, 18 {k1_18['raw']}, "
+        f"19 {r19['k1']['raw']}; "
         f"K1-delta8 over a recovered shard (13a) "
         f"{k1_13a_narrow['delta8']}; decode variants on the mesh (11a, 11b) "
         f"and the two-node split (14b) "
         f"{ {k: (k1_11a[k], k1_11b[k], k1_14b[k]) for k in NARROW_KINDS} }, "
         f"the three nodes (18a) {k1_18['delta8']}, "
-        f"quant16 through the mirror {k1_mirror}")
+        f"quant16 through the mirror {k1_mirror}, the bench suites (19) "
+        f"{ {k: r19['k1'][k] for k in NARROW_KINDS} }; K2 in 19 "
+        f"{r19['k2']}")
     table = {"kernels": k1_rows + [{
         "name": "fusedhist_k2", "route": "cuda",
         "source": "filodb_tpu_torch/ops/csrc/fusedhist.cu",
         "replaces": "filodb_tpu/ops/fusedresident.py:282",
-        "launches": k2["launches"] + sum(k2_13a.values()),
+        "launches": k2["launches"] + sum(k2_13a.values()) + r19["k2"],
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],

@@ -8,7 +8,8 @@ and duration parser, so the reference's config files load unchanged.
 ``query.mesh_programs``, ``query.mesh_donation``) are kept and do nothing
 in the port, which runs eagerly (ROADMAP ground rules: "XLA program
 machinery has no port"). ``query.fused_kernels`` is checked at server
-start by :func:`fused_kernels_mode`.
+start by :func:`fused_kernels_mode` and applied as the process-global
+fused mode (``ops/fusedresident.set_mode``).
 
 Reference: Typesafe HOCON layering — core/src/main/resources/filodb-defaults.conf
 (367 lines of defaults incl. schema definitions :17-106, store-factory FQCN :273,
@@ -173,10 +174,11 @@ CONFIG_SPEC: dict[str, tuple[str, Any, str]] = {
         "(long-poll wait granularity and chunked-stream tick)."),
     "query.fused_kernels": (
         "str", "pallas",
-        "Fused kernel tier. xla and pallas both mean the hand-written "
-        "kernels on the card (their plain torch twins on the CPU); off "
-        "(the reference's composed two-step chain) has no port route and "
-        "the server refuses to start with it."),
+        "Fused kernel tier: off | xla | pallas. xla and pallas both mean "
+        "the hand-written kernels on the card (their plain torch twins on "
+        "the CPU); off routes every query through the composed two-step "
+        "chain (range function, then the aggregators), the fused tier's "
+        "A/B baseline."),
     # accepted so a reference config loads; the port's mesh has one mode
     "query.mesh_programs": (  # filolint: ignore[surface-config-unused]
         "str", "auto",
@@ -558,17 +560,11 @@ class Config:
 def fused_kernels_mode(cfg: Config) -> str:
     """Validate ``query.fused_kernels`` for the port. ``"xla"`` and
     ``"pallas"`` both select the hand-written kernels (K1/K2) on the card
-    and their plain twins on the CPU. ``"off"`` selects the reference's
-    composed two-step chain (``filodb_tpu/query/exec.py:312``), which the
-    port does not route: it is refused, so that a server configured for it
-    never serves through the fused kernels instead."""
+    and their plain twins on the CPU. ``"off"`` selects the composed
+    two-step chain, as the reference's does (``ops/fusedresident.py``).
+    Any other name is refused before the server starts anything."""
     mode = str(cfg["query.fused_kernels"])
-    if mode == "off":
-        raise ValueError(
-            "query.fused_kernels='off' (the composed two-step chain) has no "
-            "route in the port; use 'pallas' or 'xla' (both run the fused "
-            "hand kernels)")
-    if mode not in ("xla", "pallas"):
+    if mode not in ("off", "xla", "pallas"):
         raise ValueError(
             f"query.fused_kernels must be off|xla|pallas, got {mode!r}")
     return mode

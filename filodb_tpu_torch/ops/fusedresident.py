@@ -2,10 +2,16 @@
 
 Port of ``filodb_tpu/ops/fusedresident.py``. The reference selects a
 backend per ``query.fused_kernels`` mode (Pallas, its XLA twin, or the
-composed ``off`` chain). The port has no mode: the tensor's device picks the
-implementation — the hand-written CUDA kernel on the card, the plain
-PyTorch twin on the CPU — so no switch can put the plain version on a
-card's serving path. The composed ``off`` chain arrives with a later slice.
+composed ``off`` chain); so does the port, through :func:`set_mode`. With
+``"xla"`` or ``"pallas"`` (the default) the fused tier serves, and the
+tensor's device picks its implementation — the hand-written CUDA kernel on
+the card, the plain PyTorch twin on the CPU — so no mode can put the plain
+version on a card's serving path. With ``"off"`` the planner gates
+(``query/exec.py``, ``query/engine.py::_try_fused_hist``,
+``parallel/distributed.py``) route every query through the composed
+two-step chain (``gridfns.periodic_samples_grid`` or the general histogram
+path, then the aggregators), as the reference's ``off`` does: the fused
+tier's A/B baseline, chosen by config and never switched to on a failure.
 
 Shapes:
 
@@ -37,6 +43,14 @@ from ..utils.metrics import (FILODB_QUERY_FUSED_FALLBACK,
                              FILODB_QUERY_FUSED_SERVED, registry)
 from . import fusedgrid, gridfns, kernels
 
+MODES = ("off", "xla", "pallas")
+
+# process-global, as the reference's: every serving path (the in-process
+# leaf, the fused-hist engine route, the mesh) reads it at plan time. Set
+# once at start from ``query.fused_kernels`` (standalone.py); tests and the
+# bench suite flip it under try/finally.
+_mode: str = "pallas"
+
 HIST_FUSED_FNS = frozenset({"rate", "increase", "delta"})
 MAX_BUCKETS = 64    # the reference's cap ([Sb, C, B] tile + accumulators in VMEM)
 
@@ -54,6 +68,20 @@ FUSED_SHAPES = {
 K2_FN_CODES = {"rate": 0, "increase": 1, "delta": 2}
 
 _roundup = fusedgrid._roundup
+
+
+def mode() -> str:
+    """The active fused-kernel mode ("off" | "xla" | "pallas")."""
+    return _mode
+
+
+def set_mode(m: str) -> None:
+    """Select the fused-kernel tier (config: ``query.fused_kernels``)."""
+    global _mode
+    if m not in MODES:
+        raise ValueError(f"query.fused_kernels must be one of {MODES}, "
+                         f"got {m!r}")
+    _mode = m
 
 
 def scalar_shape_of(fn: str) -> str | None:

@@ -392,7 +392,8 @@ class MeshQueryExecutor:
         G = _pow2(num_groups)
         S, C, T = ds.S, ds.C, len(out_ts)
         grid = (self._fused_grid()
-                if fn in fusedgrid.FUSED_FNS | fusedgrid.FUSED_WINDOW_FNS
+                if fusedresident.mode() != "off"
+                and fn in fusedgrid.FUSED_FNS | fusedgrid.FUSED_WINDOW_FNS
                 and op in fusedgrid.FUSED_OPS
                 and fusedgrid.fusable(S, C, T, G) else None)
         if grid is not None:

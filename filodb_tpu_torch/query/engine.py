@@ -1018,6 +1018,11 @@ class QueryEngine:
                 and plan.function == "histogram_quantile"
                 and isinstance(plan.vectors, L.Aggregate)):
             return None
+        if fusedresident.mode() == "off":
+            # query.fused_kernels=off: the composed ExecPlan chain (range
+            # function -> bucket-wise reduce -> quantile) is the configured
+            # path, the fused tier's A/B baseline
+            return None
         agg = plan.vectors
         if agg.operator != "sum" or agg.params:
             return None

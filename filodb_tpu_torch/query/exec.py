@@ -296,7 +296,8 @@ class PeriodicSamplesMapper(Transformer):
                               data.bucket_les)
         if grid_usable and fn in gridfns.GRID_FNS:
             S, C = data.val.shape
-            if (fusedresident.scalar_shape_of(fn) is not None
+            if (fusedresident.mode() != "off"
+                    and fusedresident.scalar_shape_of(fn) is not None
                     and data.val.dtype == torch.float32
                     and fusedgrid.fusable(S, C, len(out_ts), 1)):
                 # defer: a following AggregateMapReduce fuses the window

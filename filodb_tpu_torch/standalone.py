@@ -25,10 +25,11 @@ for where it touches a device:
   device is card 0). ``_DecodeAhead`` stays host-only.
 - ``shutdown()`` joins every thread that launches work on the card before
   it returns, so no launch runs during interpreter teardown.
-- The reference's XLA program machinery (fused-mode switch, mesh program
-  mode and donation, plan cache, warm-up) has no port (ROADMAP ground
-  rules); ``query.fused_kernels`` is validated (``config.
-  fused_kernels_mode``).
+- The reference's XLA program machinery (mesh program mode and
+  donation, plan cache, warm-up) has no port (ROADMAP ground rules);
+  ``query.fused_kernels`` is validated (``config.fused_kernels_mode``)
+  and set as the process-global fused mode at start, as the reference
+  does (``off`` routes the composed two-step chain).
 - Remote write and read (``promql/remote.py`` over the port's own
   protobuf codec) are wired into the HTTP server with the reference's
   all-or-nothing owned-shard writer and the cardinality edge.
@@ -769,8 +770,11 @@ class FiloServer:
 
     def start(self) -> "FiloServer":
         cfg = self.config
-        # refuse what the port cannot honour BEFORE anything binds or starts
-        fused_kernels_mode(cfg)
+        # refuse what the port cannot honour BEFORE anything binds or
+        # starts, then set the process-global fused tier before any shard
+        # serves (the reference's order)
+        from .ops import fusedresident
+        fusedresident.set_mode(fused_kernels_mode(cfg))
         # unconditional: the flag is process-global, so a later server in the
         # same process must be able to turn it back off
         from .utils import diagnostics
@@ -1320,12 +1324,11 @@ class FiloServer:
         tracer.sample_rate = float(cfg.get("trace.sample_rate", 1.0))
         from .query.engine import slow_query_log
         slow_query_log.resize(int(cfg["query.slow_log_size"]))
-        # The reference sets its process-global fused mode, mesh program
-        # mode and donation here, sizes its compiled-plan cache and starts
-        # a warm-up thread. None of that machinery has a port (ROADMAP
-        # ground rules: "XLA program machinery has no port"): the port runs
-        # eagerly, its mesh has one mode, and query.fused_kernels was
-        # validated at the top of start().
+        # The reference sets its mesh program mode and donation here, sizes
+        # its compiled-plan cache and starts a warm-up thread. None of that
+        # machinery has a port (ROADMAP ground rules: "XLA program machinery
+        # has no port"): the port runs eagerly and its mesh has one mode.
+        # query.fused_kernels was set at the top of start().
         zep = cfg.get("trace.zipkin_endpoint")
         if zep:
             from .utils.tracing import ZipkinReporter

@@ -2,8 +2,9 @@
 JAX package's: the declared keys, their types, defaults and layering, the
 duration parser over a table of spellings, the store and query configs a
 config builds, and what the port does with the keys it cannot honour
-(``query.fused_kernels="off"``, a non-default cohort gate, and
+(an unknown ``query.fused_kernels`` name, a non-default cohort gate, and
 ``rules.groups`` over a histogram schema, which the reference refuses too).
+``query.fused_kernels="off"`` is accepted: tests/test_torch_fused_off.py.
 
 Tolerance: none — every value must be equal.
 """
@@ -120,11 +121,11 @@ def test_fused_kernel_modes_that_run_the_hand_kernels(mode):
         == mode
 
 
-@pytest.mark.parametrize("mode", ["off", "mosaic"])
+@pytest.mark.parametrize("mode", ["mosaic"])
 def test_fused_kernels_off_is_refused_before_anything_starts(mode):
-    """The reference's "off" is the composed two-step chain, which the
-    port does not route: the server refuses it at start, before it binds a
-    port or starts a thread, rather than serve through K1 anyway."""
+    """A fused-kernel mode that neither package knows is refused at start,
+    before the server binds a port or starts a thread. ("off", the
+    composed two-step chain, is served: tests/test_torch_fused_off.py.)"""
     import threading
     cfg = Config({"query": {"fused_kernels": mode}, "http": {"port": 0}})
     with pytest.raises(ValueError, match="fused_kernels"):

@@ -57,7 +57,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "promql.remote", "promql.remote_storage", "rules.state",
               "rules.publish", "rules.evaluator", "rules.alerts",
               "rules.scheduler", "rules.manager", "core.computed",
-              "scripts", "scripts.downsample_validator", "stress",
+              "scripts", "scripts.downsample_validator",
+              "scripts.bench_suite", "stress",
               "stress._common", "stress.ingestion_stress",
               "stress.batch_ingestion", "stress.churn_stress",
               "stress.query_stress", "stress.streaming_stress",
