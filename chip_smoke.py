@@ -48,6 +48,23 @@ Phases, in order; every check asserts and any failure exits non-zero:
                refused before any launch. At 2^20 x 768 prints K3's time
                (CUDA events), the plain time, torch.sum(val, 0)'s and the
                bound, and fails if K3 beats its bound (bytes skipped).
+  2e. segfold — the segment fold (the reference's row-order segment_sum,
+               ops/csrc/segfold.cu) against its twins on the card: f32 and
+               f64 values over nine decades with NaN cells, G in {1, 8, 65,
+               4096} x T in {1, 47, 457}, an empty group and out-of-range
+               gids, S up to 2^17: three launches give the same bits, each
+               bit for bit the CPU twin (index_add_) on a host copy; an
+               empty matrix ([0] and [0, 13]) folds to the twin's zeros;
+               small integers bit for bit index_add_ on the card; one
+               launch a partial_aggregate that sums values and none for one
+               that counts, its bits the CPU port's; a CPU tensor, f16
+               and a column-major view refused before any launch. Prints
+               the entry functions' registers and spills, and at 2^20 x 1
+               and 2^20 x 47 (G = 1) and 2^20 x 47 (G = 4096), f32 and f64,
+               the kernel's time (CUDA events) beside the longest chain,
+               group_rows', the plain twin's, one index_add_'s and the
+               bound. Its launches on every main path after it are counted
+               from 0 before the phase and read after it.
   2d. entry  — filodb_tpu_torch.entry.entry() on the card against the same
                step on the CPU (rtol 1e-5); K1 launches once.
   3. small   — about 4096 series x 100 samples through RecordBuilder ->
@@ -132,7 +149,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
                scalar functions, histogram_quantile over le series, the
                order statistics; query_range and query_instant) on the card
                against the CPU engine: keys, NaN/Inf placement, values
-               (counts bit for bit, the rest rtol 1e-5), QueryStats and
+               (counts and the instant sum(m), which the segment fold adds
+               in row order on both, bit for bit; the rest rtol 1e-5),
+               QueryStats and
                route; K1's launches equal the fused routes QueryStats
                counts, two for the ratio of sums.
   8b. general scale (run after phase 4, on its engine and store) — S1-S7
@@ -145,9 +164,11 @@ Phases, in order; every check asserts and any failure exits non-zero:
                irate written out over the grid-aligned store's cells (no
                code of the engine); S5 count(rate > 0.5) exactly; S7 an instant
                sum(m) at the last sample against the f64 sum of the rows'
-               last values (rtol 1e-4: the engine sums f32 as the reference
-               does). Prints each query's p50 over 3 runs and its K1
-               launches.
+               last values (rtol 1e-4: the engine rounds its f64 sum to
+               f32). Each of the 3 runs bit for bit the first (S6 and S7
+               must launch the segment fold; S5, a count, must not: it
+               takes the integer count). Prints each query's p50 over 3
+               runs, its K1 and segfold launches.
   9a. hist general small (run after phase 6) — phase 6's 1024 histograms
                with their sum and count columns in five datasets: residency
                "off" and "all" on one aligned shard, a churned "all" shard,
@@ -182,7 +203,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
                of K1's sum there; Q3
                avg_over_time(rate(m{host=~"h1.*"}[5m])[10m:1m]) over
                159,687 series against a windowed mean of its inner matrix
-               in torch (rtol 1e-9). Prints each query's p50 over 3 runs.
+               in torch (rtol 1e-9). Each of the 3 runs bit for bit the
+               first; Q2 must launch the segment fold. Prints each
+               query's p50 over 3 runs and its K1 and segfold launches.
   10b. mirror (run after 10, on phase 4's shard) — narrow_mirror on, one
                sample appended and flushed (the flush rebuilds the quant16
                mirror outside the lock): on the continuous values no row is
@@ -441,7 +464,9 @@ Phases, in order; every check asserts and any failure exits non-zero:
                and mesh_query, K1-delta8, -quant16 and -delta16 in
                scalar_residency, K2 in fused_resident and hist_retention;
                fused_resident's "off" legs launch neither, and the fused
-               mode is the default again after the phase. Prints each
+               mode is the default again after the phase. The segment fold
+               launches in rules and fused_resident, and the rules suite's
+               derived_parity_mismatches is 0 (asserted). Prints each
                suite's wall seconds and launches by kind (the launches a
                suite makes only to hold a kernel against its plain twin
                left out); each suite's lines go to
@@ -503,6 +528,11 @@ for it) and prints no result line.
 
 runs phase 18 alone (after the kernels' build; 18a on 11b's shards built
 and made delta8-resident for it) and prints no result line.
+
+    python3 chip_smoke.py --segfold
+
+runs phase 2e alone (after the segment fold's build) and prints no result
+line.
 
     python3 chip_smoke.py --bench-suite
 
@@ -1452,6 +1482,199 @@ def phase_stream_kernels(torch, np, sp, card, dev):
                               "skipped")
     return dict(checks=checks, max_abs_err=worst, ms=k_ms, plain_ms=p_ms,
                 library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---- phase 2e: the segment fold ---------------------------------------------
+
+SEG_GROUPS = (1, 8, 65, 4096)
+SEG_STEPS = (1, 47, 457)
+SEG_ROWS = 1 << 17
+# the timed shapes (S, T, G): 8b's S7 reduce (one chain of 2^20 adds), its
+# S6 reduce (47 such chains) and the same rows over 4096 groups
+SEG_TIMED = ((1 << 20, 1, 1), (1 << 20, 47, 1), (1 << 20, 47, 4096))
+SEG_ROW_SHAPE = ((1 << 20, 47, 1), "float32")   # the kernels line's
+
+
+def seg_inputs(torch, S, T, G, dtype, integer, seed, dev):
+    """[S, T] values made on the card from a seed, and [S] int32 gids:
+    values over nine decades (every add rounds) or small integers (every
+    sum exact in any order), one cell in five NaN, a -0.0 cell; gids in
+    [0, G) but group 1 empty (G > 2), one row in ten outside [0, G)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if integer:
+        v = torch.randint(-50, 50, (S, T), generator=g, device=dev).to(dtype)
+    else:
+        v = torch.randn((S, T), generator=g, device=dev,
+                        dtype=torch.float64)
+        dec = torch.randint(-3, 6, (S, T), generator=g, device=dev)
+        v = (v * torch.pow(10.0, dec.double())).to(dtype)
+    v = torch.where(torch.rand((S, T), generator=g, device=dev) < 0.2,
+                    float("nan"), v)
+    v[0, 0] = -0.0
+    gids = torch.randint(0, G, (S,), generator=g, device=dev)
+    if G > 2:
+        gids = torch.where(gids == 1, 0, gids)
+    off = torch.where(torch.rand((S,), generator=g, device=dev) < 0.5, -1,
+                      G + 7)
+    gids = torch.where(torch.rand((S,), generator=g, device=dev) < 0.1, off,
+                       gids)
+    return v.contiguous(), gids.to(torch.int32)
+
+
+def seg_same_bits(torch, got: dict, want: dict, what: str) -> float:
+    """Every output of ``got`` bit for bit ``want``'s (on either device):
+    -0.0 against +0.0 and NaN payloads count. Returns the max |diff| over
+    the finite cells."""
+    assert set(got) == set(want), (what, set(got), set(want))
+    worst = 0.0
+    for k in want:
+        a, b = got[k].cpu(), want[k].cpu()
+        assert a.dtype == b.dtype == torch.float64 and a.shape == b.shape, \
+            (what, k, a.dtype, b.dtype, a.shape, b.shape)
+        diff = a.view(torch.int64) != b.view(torch.int64)
+        assert not bool(diff.any()), (what, k, int(diff.sum()), "cells differ")
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        if bool(fin.any()):
+            worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+    return worst
+
+
+def seg_bound(card, S, T, G, itemsize):
+    """(bound ms, bound_by, bytes) of the fold without sumsq: the values and
+    the int32 gids read once, sum and count [G, T] f64 written once; one
+    add a value, far below the f64 rate."""
+    key, bw, _f32 = peaks_for(card)
+    nbytes = S * T * itemsize + S * 4 + 2 * G * T * 8
+    adds = S * T
+    f64 = 67e12 / 2           # the data sheet's FP64 vector rate, 34 TFLOP/s
+    bound_by = "bytes" if nbytes / bw >= adds / f64 else "operations"
+    return max(nbytes / bw, adds / f64) * 1e3, bound_by, nbytes
+
+
+def phase_segfold_kernels(torch, np, sf, kernels, card, dev):
+    """The segment fold against its twins on the card: f32 and f64, G in
+    SEG_GROUPS x T in SEG_STEPS over non-integer data with NaN, an empty
+    group and out-of-range gids; three launches the same bits, each bit for
+    bit the CPU twin on a host copy; an empty matrix, 1-D and 2-D, the
+    twin's zeros; small integers bit for bit index_add_ on the card; the
+    refusals; one launch a partial_aggregate. Then its times."""
+    from filodb_tpu_torch.ops import aggregators as agg
+    f32, f64 = torch.float32, torch.float64
+    checks, seed, worst = 0, 900, 0.0
+    for dtype in (f32, f64):
+        for G in SEG_GROUPS:
+            for T in SEG_STEPS:
+                S = SEG_ROWS if T < 457 else SEG_ROWS // 4
+                sq = T != 47        # both of the kernel's variants
+                what = f"{dtype} S={S} T={T} G={G} sumsq={sq}"
+                v, gids = seg_inputs(torch, S, T, G, dtype, False, seed, dev)
+                seed += 1
+                before = sf.segment_fold_kernel.launches
+                runs = [sf.segment_fold(v, gids, G, sq) for _ in range(3)]
+                assert sf.segment_fold_kernel.launches == before + 3, what
+                for r in runs[1:]:
+                    seg_same_bits(torch, r, runs[0], f"{what}: repeat")
+                worst = max(worst, seg_same_bits(
+                    torch, runs[0], sf.segment_fold_plain(
+                        v.cpu(), gids.cpu(), G, sq), f"{what}: CPU twin"))
+                checks += 1
+                del v, gids, runs
+        for G in SEG_GROUPS:
+            what = f"{dtype} integer G={G}"
+            v, gids = seg_inputs(torch, SEG_ROWS, 47, G, dtype, True, seed,
+                                 dev)
+            seed += 1
+            seg_same_bits(torch, sf.segment_fold(v, gids, G, True),
+                          sf.segment_fold_plain(v, gids, G, True),
+                          f"{what}: index_add_ on the card")
+            checks += 1
+    # S = 0 (a set operator with no match): one launch, the twin's zeros
+    for shape in ((0,), (0, 13)):
+        for sq in (False, True):
+            v = torch.zeros(shape, dtype=f64, device=dev)
+            gids = torch.zeros(0, dtype=torch.int32, device=dev)
+            before = sf.segment_fold_kernel.launches
+            got = sf.segment_fold(v, gids, 8, sq)
+            assert sf.segment_fold_kernel.launches == before + 1, shape
+            seg_same_bits(torch, got, sf.segment_fold_plain(
+                v.cpu(), gids.cpu(), 8, sq), f"S = 0 {shape} sumsq={sq}")
+            checks += 1
+    # one launch a partial_aggregate that sums values, none for one that
+    # needs only the count; the CPU port's bits
+    v, gids = seg_inputs(torch, 4096, 47, 65, f64, False, seed, dev)
+    for op, stable, G, n in (("stddev", False, 65, 1), ("sum", True, 8, 1),
+                             ("count", True, 1, 0), ("max", False, 65, 0)):
+        before = sf.segment_fold_kernel.launches
+        got = agg.partial_aggregate(op, v, gids, G, stable=stable)
+        assert sf.segment_fold_kernel.launches == before + n, op
+        seg_same_bits(torch, got, agg.partial_aggregate(
+            op, v.cpu(), gids.cpu(), G, stable=stable), f"{op}: aggregate")
+        checks += 1
+    order, offsets = sf.group_rows(gids, 65)
+    before = sf.segment_fold_kernel.launches
+    for bad, what in ((v.cpu(), "a CPU tensor"), (v.half(), "float16"),
+                      (v.T, "a column-major view")):
+        try:
+            sf.segment_fold_kernel(bad, order, offsets, 65)
+            raise AssertionError(f"the fold accepted {what}")
+        except ValueError:
+            pass
+    assert sf.segment_fold_kernel.launches == before
+    del v, gids, order, offsets
+    usage = [u for u in kernels.ptxas_usage(kernels.build_log.get(
+        "segfold", "")) if u["kernel"].startswith("segfold")]
+    regs = sorted({(u["registers"], u["spill_stores"], u["spill_loads"])
+                   for u in usage})
+    log(f"segfold: {len(usage)} entry functions; (registers, spill stores, "
+        f"spill loads) {regs}")
+    # times: the kernel alone on its row list, group_rows (the row list,
+    # on the card), the whole dispatcher, the plain twin (index_add_ on
+    # the card) and one index_add_ of the values widened to f64
+    key, bw, _f32 = peaks_for(card)
+    times = {}
+    for (S, T, G) in SEG_TIMED:
+        for dtype in (f32, f64):
+            v, gids = seg_inputs(torch, S, T, G, dtype, False, seed, dev)
+            seed += 1
+            order, offsets = sf.group_rows(gids, G)
+            chain = int((offsets[1:] - offsets[:-1]).max())
+            k_ms = cuda_ms(lambda: sf.segment_fold_kernel(v, order, offsets,
+                                                          G), reps=5)
+            rows_ms = cuda_ms(lambda: sf.group_rows(gids, G), reps=5)
+            all_ms = cuda_ms(lambda: sf.segment_fold(v, gids, G), reps=5)
+            p_ms = cuda_ms(lambda: sf.segment_fold_plain(v, gids, G),
+                           reps=3)
+            x = torch.where(torch.isnan(v), 0.0, v).double()
+            g_in = torch.where((gids >= 0) & (gids < G), gids, G).long()
+            out = torch.zeros((G + 1, T), dtype=f64, device=dev)
+            lib_ms = cuda_ms(lambda: out.index_add_(0, g_in, x), reps=5)
+            bound_ms, bound_by, nbytes = seg_bound(card, S, T, G,
+                                                   v.element_size())
+            name = str(dtype).replace("torch.", "")
+            times[(S, T, G, name)] = dict(
+                ms=k_ms, rows_ms=rows_ms, fold_ms=all_ms, plain_ms=p_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                chain=chain)
+            log(f"segfold [{card}]: {name} {S} x {T}, G = {G}: kernel "
+                f"{k_ms:.4f} ms by CUDA events (longest chain {chain} rows, "
+                f"{k_ms * 1e6 / chain:.3f} ns an add); group_rows "
+                f"{rows_ms:.4f} ms; segment_fold {all_ms:.4f} ms; plain twin "
+                f"(index_add_ on the card) {p_ms:.4f} ms; one index_add_ "
+                f"{lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+                f"{nbytes / 1e6:.1f} MB at {key}'s {bw / 1e12:.2f} TB/s)")
+            assert k_ms >= bound_ms, (k_ms, bound_ms, "beat its bound")
+            del v, gids, order, offsets, x, g_in, out
+    import subprocess
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout
+    log(f"segfold [{card}]: SM clock after the timings, now and max: "
+        f"{clocks.strip()}")
+    row = times[(*SEG_ROW_SHAPE[0], SEG_ROW_SHAPE[1])]
+    log(f"segfold: {checks} checks bit for bit, three launches alike in "
+        f"each")
+    return dict(row, checks=checks, max_abs_err=worst, times=times)
 
 
 def phase_entry(torch, np, fg, dev):
@@ -2505,7 +2728,7 @@ def phase_general_small(torch, np, fg, pkg, devs=("cuda", "cpu")):
     for q in GENERAL_INSTANT:
         r = cpu.query_instant(q, t_inst)
         assert got_i[q].result_type == r.result_type == "vector", q
-        compare_result(np, q, got_i[q], r, q != "sum(m)")
+        compare_result(np, q, got_i[q], r, True)
     ratio = got['sum(rate(m{host=~"h1.*"}[5m])) / sum(rate(m[5m]))']
     assert ratio.stats.fused_kernels == 2, ratio.stats.fused_kernels
     return len(GENERAL_QUERIES) + len(GENERAL_INSTANT), launches, fused
@@ -2524,11 +2747,21 @@ SCALE_GENERAL = {
 SCALE_GENERAL_REPS = 3
 
 
+def same_answer_bits(np, a, b) -> bool:
+    """Two answers with the same keys in the same order, their values
+    bit for bit (-0.0 and NaN placement included)."""
+    ka, va = serve_answer(np, a)
+    kb, vb = serve_answer(np, b)
+    return ka == kb and va.shape == vb.shape and va.tobytes() == vb.tobytes()
+
+
 def phase_general_scale(torch, np, fg, card, engine, shard):
     """Phase 8b: S1-S7 through the engine on phase 4's store, each held
-    against an independent device computation on the same store; returns
-    {name: p50 ms} and K1's launches a query."""
+    against an independent device computation on the same store, and each
+    of its runs bit for bit the first; returns {name: p50 ms}, K1's
+    launches a query and the segment fold's launches in all."""
     from filodb_tpu_torch.ops import gridfns
+    from filodb_tpu_torch.ops import segfold as sf
     S = shard.num_series
     s, e = range_variants(shard)[0]
     out_ts = np.arange(s, e + 1, STEP_MS, dtype=np.int64)
@@ -2544,18 +2777,30 @@ def phase_general_scale(torch, np, fg, card, engine, shard):
         run(name)
     # the main path: counts from 0, read right after
     reset_k1(fg)
-    res, lat, k1 = {}, {}, {}
+    sf.segment_fold_kernel.launches = 0
+    res, lat, k1, seg = {}, {}, {}, {}
     for name in SCALE_GENERAL:
         before = fg.fused_grid_kernel.launches
-        times = []
+        seg0 = sf.segment_fold_kernel.launches
+        times, runs = [], []
         for _ in range(SCALE_GENERAL_REPS):
             t0 = time.perf_counter()
-            res[name] = run(name)
+            runs.append(run(name))
             times.append((time.perf_counter() - t0) * 1000)
+        res[name] = runs[-1]
+        # every run the first's bits: the composed reduces fold in row order
+        assert all(same_answer_bits(np, r, runs[0]) for r in runs[1:]), \
+            (name, "answers differ between runs")
         lat[name] = float(np.percentile(times, 50))
         k1[name] = (fg.fused_grid_kernel.launches - before) / SCALE_GENERAL_REPS
+        seg[name] = (sf.segment_fold_kernel.launches - seg0) \
+            / SCALE_GENERAL_REPS
         assert k1[name] == res[name].stats.fused_kernels, (name, k1[name])
+    seg_launches = sf.segment_fold_kernel.launches
     assert k1["S1"] == 2 and sum(k1.values()) == 2, k1
+    # S6 and S7 sum values through the fold; S5 counts, which takes the
+    # integer count and no fold
+    assert all(seg[n] >= 1 for n in ("S6", "S7")) and seg["S5"] == 0, seg
 
     st = shard.store
     # S1 against the quotient of its legs' answers, taken on the host in
@@ -2619,8 +2864,8 @@ def phase_general_scale(torch, np, fg, card, engine, shard):
     want5 = (rate > 0.5).sum(0).double().cpu().numpy()
     v5 = np.asarray(res["S5"].matrix.values, np.float64)[0]
     assert np.array_equal(v5, want5), ("S5", v5[:4], want5[:4])
-    # S7: the f64 sum of each row's last value (the engine sums the f32
-    # grid output in f32, as the reference does: rtol 1e-4 over 2^20 rows)
+    # S7: the f64 sum of each row's last value (the engine rounds its f64
+    # row-order sum of the f32 values to f32: rtol 1e-4 over 2^20 rows)
     last = st.val[torch.arange(st.S, device=st.val.device),
                   (st.n.long() - 1).clamp(min=0)]
     want7 = float(last.double().sum())
@@ -2635,9 +2880,9 @@ def phase_general_scale(torch, np, fg, card, engine, shard):
         f"{abs(v7[0, 0] / want7 - 1):.3g}")
     for name, q in SCALE_GENERAL.items():
         log(f"general scale [{card}]: {name} {q}: p50 {lat[name]:.3f} ms "
-            f"over {SCALE_GENERAL_REPS} runs, K1 launches a query "
-            f"{k1[name]:g}")
-    return lat, int(sum(k1.values()) * SCALE_GENERAL_REPS)
+            f"over {SCALE_GENERAL_REPS} runs, bit for bit in each; K1 "
+            f"launches a query {k1[name]:g}, segfold {seg[name]:g}")
+    return lat, int(sum(k1.values()) * SCALE_GENERAL_REPS), seg_launches
 
 
 # ---- phase 9: the general histogram path ------------------------------------
@@ -2937,7 +3182,9 @@ def phase_hist_general_scale(torch, np, fg, fr, card, engine, shard,
 def phase_subquery_scale(torch, np, fg, card, engine, shard):
     """Phase 10: Q1-Q3 through phase 4's engine on its store (bench range
     variant 0), each held against an independent computation over its
-    inner query's own answer; returns ({name: p50 ms}, K1 launches)."""
+    inner query's own answer, and each of its runs bit for bit the first;
+    returns ({name: p50 ms}, K1 launches, segment fold launches)."""
+    from filodb_tpu_torch.ops import segfold as sf
     S = shard.num_series
     s, e = range_variants(shard)[0]
     assert e % 1000 == 0, e
@@ -2958,20 +3205,29 @@ def phase_subquery_scale(torch, np, fg, card, engine, shard):
         run(name)
     # the main path: counts from 0, read right after
     reset_k1(fg)
-    res, lat, k1 = {}, {}, {}
+    sf.segment_fold_kernel.launches = 0
+    res, lat, k1, seg = {}, {}, {}, {}
     for name in queries:
         before = fg.fused_grid_kernel.launches
-        times = []
+        seg0 = sf.segment_fold_kernel.launches
+        times, runs = [], []
         for _ in range(SCALE_GENERAL_REPS):
             t0 = time.perf_counter()
-            res[name] = run(name)
+            runs.append(run(name))
             times.append((time.perf_counter() - t0) * 1000)
+        res[name] = runs[-1]
+        assert all(same_answer_bits(np, r, runs[0]) for r in runs[1:]), \
+            (name, "answers differ between runs")
         lat[name] = float(np.percentile(times, 50))
         k1[name] = (fg.fused_grid_kernel.launches - before) / SCALE_GENERAL_REPS
+        seg[name] = (sf.segment_fold_kernel.launches - seg0) \
+            / SCALE_GENERAL_REPS
         assert k1[name] == res[name].stats.fused_kernels, (name, k1[name])
         assert res[name].exec_path == "local", (name, res[name].exec_path)
     assert k1 == {"Q1": 1, "Q2": 0, "Q3": 0}, k1
+    assert seg["Q2"] >= 1, seg
     launches = fg.fused_grid_kernel.launches
+    seg_launches = sf.segment_fold_kernel.launches
 
     def inner_grid(rng):
         sub = 60_000
@@ -3032,9 +3288,9 @@ def phase_subquery_scale(torch, np, fg, card, engine, shard):
         f"diff {float(np.abs(v3[fin] / want3[fin] - 1).max()):.3g}")
     for name, q in queries.items():
         log(f"subquery scale [{card}]: {name} {q}: p50 {lat[name]:.3f} ms "
-            f"over {SCALE_GENERAL_REPS} runs, K1 launches a query "
-            f"{k1[name]:g}")
-    return lat, launches
+            f"over {SCALE_GENERAL_REPS} runs, bit for bit in each; K1 "
+            f"launches a query {k1[name]:g}, segfold {seg[name]:g}")
+    return lat, launches, seg_launches
 
 
 # phase 11a: the mesh route on 8 small shards, card against CPU
@@ -7897,19 +8153,24 @@ BS_FULL = ("query_hicard", "hist_query")
 BS_K1_RAW = ("query_hicard", "serving", "fused_resident", "mesh_query")
 BS_K1_NARROW = {"scalar_residency": NARROW_KINDS}
 BS_K2 = ("fused_resident", "hist_retention")
+# suites whose main path must launch the segment fold: the rules' composed
+# evaluations and the fused tier's "off" legs
+BS_SEGFOLD = ("rules", "fused_resident")
 BS_OUT = os.path.join(HERE, "chiprun_out", "bench_suite_phase19.jsonl")
 
 
 def phase_bench_suite(torch, np, fg, fr, card, dev="cuda") -> dict:
     """Phase 19 (see the module docstring). Returns the main-path launches
-    of the whole phase: {"k1": {kind: n}, "k2": n, "seconds": s}."""
+    of the whole phase: {"k1": {kind: n}, "k2": n, "segfold": n,
+    "seconds": s}."""
     import io
+    from filodb_tpu_torch.ops import segfold as sf
     from filodb_tpu_torch.scripts import bench_suite as bs
     mode0 = fr.mode()
     runs = [(n, False) for n in sorted(bs.SUITES)] + \
         [(n, True) for n in BS_FULL]
     k1_all = dict.fromkeys(fg.fused_grid_kernel.launches_by_kind, 0)
-    k2_all = 0
+    k2_all = seg_all = 0
     walls = {}
     t_all = time.perf_counter()
     os.makedirs(os.path.dirname(BS_OUT), exist_ok=True)
@@ -7920,6 +8181,7 @@ def phase_bench_suite(torch, np, fg, fr, card, dev="cuda") -> dict:
             torch.cuda.empty_cache()
             reset_k1(fg)
             fr.fused_hist_kernel.launches = 0
+            sf.segment_fold_kernel.launches = 0
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -7939,6 +8201,7 @@ def phase_bench_suite(torch, np, fg, fr, card, dev="cuda") -> dict:
             k1 = dict(fg.fused_grid_kernel.launches_by_kind)
             k1["raw"] -= compare["k1"]
             k2 = fr.fused_hist_kernel.launches - compare["k2"]
+            seg = sf.segment_fold_kernel.launches
             assert sum(k1.values()) == fg.fused_grid_kernel.launches \
                 - compare["k1"], (tag, k1)
             if name in BS_K1_RAW:
@@ -7947,6 +8210,14 @@ def phase_bench_suite(torch, np, fg, fr, card, dev="cuda") -> dict:
                 assert k1[kind] > 0, (tag, kind, k1)
             if name in BS_K2:
                 assert k2 > 0, (tag, k2)
+            if name in BS_SEGFOLD:
+                assert seg > 0, (tag, seg)
+            if name == "rules":
+                # a derived sample equals its instant query bit for bit:
+                # both fold their groups in row order
+                mism = [ln["value"] for ln in lines
+                        if ln["metric"] == "derived_parity_mismatches"]
+                assert mism == [0], (tag, "derived_parity_mismatches", mism)
             if name == "fused_resident":
                 for shape, legs in rec["legs"].items():
                     off, fused = legs["off"], legs["fused"]
@@ -7966,18 +8237,21 @@ def phase_bench_suite(torch, np, fg, fr, card, dev="cuda") -> dict:
             for kind, v in k1.items():
                 k1_all[kind] += v
             k2_all += k2
+            seg_all += seg
             for ln in lines:
                 jsonl.write(json.dumps(dict(ln, full=full)) + "\n")
             log(f"bench suite: {tag} {walls[tag]:.1f} s, {len(lines)} "
                 f"metrics; K1 by kind "
-                f"{ {k: v for k, v in k1.items() if v} }, K2 {k2}")
+                f"{ {k: v for k, v in k1.items() if v} }, K2 {k2}, segfold "
+                f"{seg}")
     assert fr.mode() == mode0 == "pallas", (fr.mode(), mode0)
     seconds = time.perf_counter() - t_all
     log(f"bench suite [{card}]: {len(runs)} runs of "
         f"{len(bs.SUITES)} suites in {seconds:.1f} s; main-path launches "
-        f"K1 {k1_all}, K2 {k2_all}; slowest "
+        f"K1 {k1_all}, K2 {k2_all}, segfold {seg_all}; slowest "
         f"{sorted(walls.items(), key=lambda kv: -kv[1])[:5]}")
-    return {"k1": k1_all, "k2": k2_all, "seconds": seconds}
+    return {"k1": k1_all, "k2": k2_all, "segfold": seg_all,
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -7995,6 +8269,7 @@ def main() -> int:
     from filodb_tpu_torch.ops import fusedgrid as fg
     from filodb_tpu_torch.ops import fusedresident as fr
     from filodb_tpu_torch.ops import kernels, narrow
+    from filodb_tpu_torch.ops import segfold as sf
     from filodb_tpu_torch.ops import streamprobe as sp
     from filodb_tpu_torch.query.engine import QueryEngine
     pkg = (StoreConfig, TimeSeriesMemStore, RecordBuilder, GAUGE, QueryEngine)
@@ -8083,6 +8358,14 @@ def main() -> int:
             f"{comp_s:.2f} s")
         phase_soak(torch, np, fg, card, pkg, shards)
         return 0
+    if sys.argv[1:2] == ["--segfold"]:
+        # not part of the smoke run: phase 2e alone
+        kernels.build(("segfold",))
+        t0 = time.perf_counter()
+        seg = phase_segfold_kernels(torch, np, sf, kernels, card, "cuda")
+        log(f"segfold: phase 2e done in {time.perf_counter() - t0:.1f} s; "
+            f"max |diff| {seg['max_abs_err']:.3g}")
+        return 0
     if sys.argv[1:2] == ["--bench-suite"]:
         # not part of the smoke run: phase 19 alone
         kernels.build()
@@ -8143,29 +8426,48 @@ def main() -> int:
         f"twin, max |diff| {k3['max_abs_err']:.3g}; tail rows skipped; "
         f"scalar loads on a misaligned view; CPU, f16 and C = 64 refused; "
         f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    seg = phase_segfold_kernels(torch, np, sf, kernels, card, "cuda")
+    log(f"segfold: segfold ({seg['checks']} checks bit for bit against the "
+        f"CPU twin and (integers) index_add_ on the card; three launches "
+        f"alike; CPU, f16 and a column-major view refused; "
+        f"{time.perf_counter() - t0:.1f} s)")
     gc.collect()
     torch.cuda.empty_cache()
-    launches, worst_e = phase_entry(torch, np, fg, "cuda")
+
+    # the segment fold's launches on each main path: from 0 just before the
+    # phase, read just after (8b, 10 and 19 count their own)
+    seg_paths = {}
+
+    def on_path(label, phase, *a, **k):
+        sf.segment_fold_kernel.launches = 0
+        out = phase(*a, **k)
+        seg_paths[label] = sf.segment_fold_kernel.launches
+        return out
+
+    launches, worst_e = on_path("2d", phase_entry, torch, np, fg, "cuda")
     log(f"entry: entry() on the card matches the CPU (max |diff| "
         f"{worst_e:.3g}); K1 launches {launches}")
 
     t0 = time.perf_counter()
-    small = phase_small(torch, np, fg, pkg)
+    small = on_path("3", phase_small, torch, np, fg, pkg)
     log(f"small: {len(SLICE_QUERIES)} queries on 4096 series match the CPU "
         f"engine; K1 launches {small} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    small_n = phase_small_narrow(torch, np, fg, pkg)
+    small_n = on_path("3n", phase_small_narrow, torch, np, fg, pkg)
     log(f"small narrow: {len(SLICE_QUERIES)} queries x {len(NARROW_KINDS)} "
         f"kinds on 4096-series gauge stores match the CPU engine; K1 "
         f"launches by kind {small_n} ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    n_q, launches8a, fused8a = phase_general_small(torch, np, fg, pkg)
+    n_q, launches8a, fused8a = on_path("8a", phase_general_small, torch, np,
+                                       fg, pkg)
     log(f"general small: {n_q} queries of the general mix on 1312 series "
         f"match the CPU engine; K1 launches {launches8a} = the fused routes "
         f"QueryStats counts ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    k1_12a, equal12a, n12a = phase_serving_small(torch, np, fg, pkg)
+    k1_12a, equal12a, n12a = on_path("12a", phase_serving_small, torch, np,
+                                     fg, pkg)
     log(f"serving small: {n12a} steps of the serving sequence (cold, "
         f"result-cache hit, shift, tail ingest + shift, release, typo, "
         f"negative hit) with every cache and admission on match the CPU "
@@ -8175,7 +8477,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    k1_13a, k2_13a, n13a, codec = phase_durable_small(torch, np, fg, fr, pkg)
+    k1_13a, k2_13a, n13a, codec = on_path("13a", phase_durable_small, torch,
+                                          np, fg, fr, pkg)
     log(f"durable small: recovery, K2 over a recovered histogram shard, "
         f"K1-delta8 over a recovered gauge shard, narrow and wide ODP, "
         f"purge, durable age-out, inline, batch and cascade downsampling, "
@@ -8188,27 +8491,34 @@ def main() -> int:
     engine, shard, reg_s = bench.build_engine("cuda")
     # 16b(ii) and (iii) first: they read bench.py's values as built, as
     # --rules does (phase 10b's mirror rounds them, 12b appends)
-    r16b = phase_rules_on_bench(torch, np, fg, card, engine, shard)
+    r16b = on_path("16b", phase_rules_on_bench, torch, np, fg, card, engine,
+                   shard)
     # phase 17 on the same store, still as built (16b only reads it)
-    r17 = phase_locks(torch, np, fg, card, engine, shard)
-    k1 = phase_scale(torch, np, fg, card, engine, shard, reg_s)
+    r17 = on_path("17", phase_locks, torch, np, fg, card, engine, shard)
+    k1 = on_path("4", phase_scale, torch, np, fg, card, engine, shard, reg_s)
     log(f"scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _k1b, k3_launches, _res = phase_bench(np, fg, sp, bench, card, engine,
-                                          shard, reg_s, k1["ms"])
-    trace_concurrent_round(torch, bench, card, engine, shard)
+    _k1b, k3_launches, _res = on_path("4-bench", phase_bench, np, fg, sp,
+                                      bench, card, engine, shard, reg_s,
+                                      k1["ms"])
+    on_path("4-trace", trace_concurrent_round, torch, bench, card, engine,
+            shard)
     log(f"bench: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _lat8b, k1_8b = phase_general_scale(torch, np, fg, card, engine, shard)
+    _lat8b, k1_8b, seg_paths["8b"] = phase_general_scale(
+        torch, np, fg, card, engine, shard)
     log(f"general scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _lat10, k1_10 = phase_subquery_scale(torch, np, fg, card, engine, shard)
+    _lat10, k1_10, seg_paths["10"] = phase_subquery_scale(
+        torch, np, fg, card, engine, shard)
     log(f"subquery scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    k1_mirror = phase_mirror_scale(torch, np, fg, card, engine, shard)
+    k1_mirror = on_path("10b", phase_mirror_scale, torch, np, fg, card,
+                        engine, shard)
     log(f"mirror scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    k1_12b = phase_serving_scale(torch, np, fg, card, engine, shard)
+    k1_12b = on_path("12b", phase_serving_scale, torch, np, fg, card, engine,
+                     shard)
     del engine, shard
     log(f"serving scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
@@ -8217,7 +8527,8 @@ def main() -> int:
     t0 = time.perf_counter()
     engine, shard, reg_s = bench.build_engine("cuda", residency="gauge")
     log(f"narrow scale: registered {NUM_SERIES} series in {reg_s:.1f} s")
-    k1n = {kind: phase_scale_narrow(torch, np, fg, card, shard, engine, kind)
+    k1n = {kind: on_path(f"4b-{kind}", phase_scale_narrow, torch, np, fg,
+                         card, shard, engine, kind)
            for kind in NARROW_KINDS}
     del engine, shard
     log(f"narrow scale: done in {time.perf_counter() - t0:.1f} s")
@@ -8240,12 +8551,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    small = phase_hist_small(torch, np, fr, hpkg)
+    small = on_path("6", phase_hist_small, torch, np, fr, hpkg)
     log(f"hist small: {len(HIST_SMALL_QUERIES)} queries x 2 residencies on "
         f"1024 histograms match the CPU engine; K2 launches {small} "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    n_q, k1_9a, k2_9a = phase_hist_general_small(torch, np, fg, fr, hpkg)
+    n_q, k1_9a, k2_9a = on_path("9a", phase_hist_general_small, torch, np,
+                                fg, fr, hpkg)
     log(f"hist general small: {n_q} answers of the general histogram mix "
         f"over {len(HIST_GENERAL_SETS)} datasets of 1024 histograms match "
         f"the CPU engine; K1 launches {k1_9a}, K2 launches {k2_9a} (the "
@@ -8255,43 +8567,44 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    k2, engine, shard, sampled = phase_hist_scale(torch, np, fr, card, hpkg)
+    k2, engine, shard, sampled = on_path("7", phase_hist_scale, torch, np,
+                                         fr, card, hpkg)
     log(f"hist scale: done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    _lat9b, k1_9b = phase_hist_general_scale(torch, np, fg, fr, card, engine,
-                                             shard, sampled)
+    _lat9b, k1_9b = on_path("9b", phase_hist_general_scale, torch, np, fg,
+                            fr, card, engine, shard, sampled)
     del engine, shard
     log(f"hist general scale: done in {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    k1_11a = phase_mesh_small(torch, np, fg, pkg)
+    k1_11a = on_path("11a", phase_mesh_small, torch, np, fg, pkg)
     log(f"mesh small: {len(MESH_SMALL_ROUTES)} queries over 8-shard "
         f"datasets with mesh=[\"cuda\"] match mesh=[\"cpu\"] * 8; K1 "
         f"launches by kind {k1_11a} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
-    k1_11b, _lat11b, _per_shard, mesh_shards = phase_mesh_scale(
-        torch, np, fg, card, pkg, k1["ms"])
+    k1_11b, _lat11b, _per_shard, mesh_shards = on_path(
+        "11b", phase_mesh_scale, torch, np, fg, card, pkg, k1["ms"])
     log(f"mesh scale: done in {time.perf_counter() - t0:.1f} s")
     t14 = time.perf_counter()
-    k1_14a = phase_cluster_small(torch, np, fg, pkg)
+    k1_14a = on_path("14a", phase_cluster_small, torch, np, fg, pkg)
     t0 = time.perf_counter()
-    k1_14b, _out14b = phase_cluster_scale(torch, np, fg, card, pkg,
-                                          mesh_shards)
+    k1_14b, _out14b = on_path("14b", phase_cluster_scale, torch, np, fg,
+                              card, pkg, mesh_shards)
     log(f"cluster scale: done in {time.perf_counter() - t0:.1f} s")
-    k1_18 = phase_soak(torch, np, fg, card, pkg, mesh_shards)
+    k1_18 = on_path("18", phase_soak, torch, np, fg, card, pkg, mesh_shards)
     del mesh_shards
     gc.collect()
     torch.cuda.empty_cache()
-    k1_14c = phase_cluster_procs(torch, np, fg, card, pkg)
+    k1_14c = on_path("14c", phase_cluster_procs, torch, np, fg, card, pkg)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"cluster: phase 14 done in {time.perf_counter() - t14:.1f} s")
-    k1_15 = phase_server(torch, np, fg, card, pkg)
+    k1_15 = on_path("15", phase_server, torch, np, fg, card, pkg)
     gc.collect()
     torch.cuda.empty_cache()
-    r16 = phase_rules_server(torch, np, fg, card, pkg)
+    r16 = on_path("16", phase_rules_server, torch, np, fg, card, pkg)
     k1_16 = r16b["k1"] + r16["k1"]
     log(f"rules: phase 16 done in {r16b['seconds'] + r16['seconds']:.1f} s "
         f"(16b(ii), (iii) {r16b['seconds']:.1f}; 16a, 16b(i) "
@@ -8299,11 +8612,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    k1_13b = phase_durable_scale(torch, np, fg, card, pkg)
+    k1_13b = on_path("13b", phase_durable_scale, torch, np, fg, card, pkg)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"durable scale: done in {time.perf_counter() - t0:.1f} s")
     r19 = phase_bench_suite(torch, np, fg, fr, card)
+    seg_paths["19"] = r19["segfold"]
     gc.collect()
     torch.cuda.empty_cache()
     log(f"bench suite: done in {r19['seconds']:.1f} s; total "
@@ -8379,7 +8693,21 @@ def main() -> int:
         "launches": k3_launches, "max_abs_err": k3["max_abs_err"],
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": k3["library_ms"]}]}
+        "library_ms": k3["library_ms"]}, {
+        "name": "segfold", "route": "cuda",
+        "source": "filodb_tpu_torch/ops/csrc/segfold.cu",
+        "replaces": "filodb_tpu/ops/aggregators.py:71",
+        "launches": sum(seg_paths.values()),
+        "max_abs_err": seg["max_abs_err"],
+        "ms": seg["ms"], "plain_ms": seg["plain_ms"],
+        "bound_ms": seg["bound_ms"], "bound_by": seg["bound_by"],
+        "library_ms": seg["library_ms"]}]}
+    # the segment fold runs on these main paths (8b S6-S7, 10 Q2 and 19's
+    # rules and "off" legs at least, asserted there)
+    log(f"segfold launches on the main paths: "
+        f"{ {k: v for k, v in seg_paths.items() if v} } (the others 0); "
+        f"{seg_paths['8b'] + seg_paths['10'] + seg_paths['19']} in 8b, 10 "
+        f"and 19")
     # every bound above is bytes over the data sheet's rate; K3's time is
     # the pass this card reaches over the same kind of bytes
     key, bw, _f32 = peaks_for(card)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import segfold
+
 BASIC_OPS = ("sum", "min", "max", "avg", "count", "stddev", "stdvar", "group")
 
 MATMUL_GROUP_LIMIT = 64   # one-hot [G, S] product reduce up to this many groups
@@ -27,10 +29,11 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
     """Map phase: per-group partial state tensors, each [G, T].
 
     Small group counts ride a one-hot [G, S] product; ``stable=True`` (and
-    large G) folds rows with ``index_add_`` instead — the reference's
-    segment_sum, which the composed two-step path uses so its result does
-    not depend on the padded step bucket. That fold sums in f64 and rounds
-    once to the values' dtype: on the card it has no fixed row order."""
+    large G) takes the segment fold of ``ops/segfold.py`` instead — the
+    reference's segment_sum, which the composed two-step path uses so its
+    result does not depend on the padded step bucket. That fold adds each
+    group's rows in row order, on the card (a CUDA kernel) as on the CPU,
+    sums in f64 and rounds once to the values' dtype."""
     present = ~torch.isnan(values)
     zeroed = torch.where(present, values, 0.0)
     acc = (values.dtype if values.dtype in (torch.float32, torch.float64)
@@ -41,24 +44,41 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
     # same): the scatters send them to a spare group G that is cut off
     gids_in = torch.where((gids >= 0) & (gids < num_groups), gids,
                           num_groups)
+    sumsq = op in ("stddev", "stdvar")
 
     if not stable and num_groups <= MATMUL_GROUP_LIMIT:
         onehot = (gids[None, :] == torch.arange(
             num_groups, device=values.device)[:, None]).to(acc)   # [G, S]
+        cnt = onehot @ present.to(acc)
 
-        def gsum(x, wide=True):
-            return onehot @ x.to(acc)
+        def folds():
+            out = {"sum": onehot @ zeroed.to(acc)}
+            if sumsq:
+                out["sumsq"] = onehot @ (zeroed * zeroed).to(acc)
+            return out
     else:
-        # index_add_ folds the rows in no fixed order on the card: value
-        # sums run in f64 and round once to ``acc``, so an f32 group of
-        # 10^5 rows keeps f32's precision whatever the order (an f32 fold
-        # of 2^17 rates is off by ~1e-4 of the sum); counts are integers,
-        # exact in ``acc``
-        def gsum(x, wide=True):
-            dt = torch.float64 if wide else acc
-            out = torch.zeros((num_groups + 1,) + tuple(x.shape[1:]),
-                              dtype=dt, device=x.device)
-            return out.index_add_(0, gids_in, x.to(dt))[:num_groups].to(acc)
+        # the ops that sum values take one pass of the segment fold: sum
+        # (and sumsq) and count in f64, in row order, so an f32 group of
+        # 10^5 rows keeps f32's precision after the one rounding (an f32
+        # fold of 2^17 rates is off by ~1e-4 of the sum). Integer values
+        # fold as ``zeroed`` (NaN-free, already promoted to a float dtype).
+        # The others need only the count: an integer, exact and the same
+        # in any order, so an int64 scatter-add gives it
+        if op in ("sum", "avg", "stddev", "stdvar"):
+            fold = segfold.segment_fold(
+                values if values.is_floating_point() else zeroed, gids,
+                num_groups, sumsq)
+            cnt = fold["count"].to(acc)
+        else:
+            fold = {}
+            cnt = torch.zeros((num_groups + 1,) + tuple(values.shape[1:]),
+                              dtype=torch.int64, device=values.device)
+            cnt = cnt.index_add_(0, gids_in, present.to(torch.int64))[
+                :num_groups].to(acc)
+
+        def folds():
+            return {k: fold[k].to(acc) for k in ("sum", "sumsq")
+                    if k in fold}
 
     def gext(x, fill, reduce):
         idx = gids_in[:, None].expand_as(x)
@@ -67,20 +87,16 @@ def partial_aggregate(op: str, values, group_ids, num_groups: int,
         return out.scatter_reduce_(0, idx, x.to(acc), reduce=reduce,
                                    include_self=True)[:num_groups]
 
-    cnt = gsum(present.to(acc), wide=False)
     if op in ("count", "group"):
         return {"count": cnt}
-    if op in ("sum", "avg"):
-        return {"sum": gsum(zeroed), "count": cnt}
+    if op in ("sum", "avg", "stddev", "stdvar"):
+        return {**folds(), "count": cnt}
     if op == "min":
         v = torch.where(present, values, float("inf"))
         return {"min": gext(v, float("inf"), "amin"), "count": cnt}
     if op == "max":
         v = torch.where(present, values, float("-inf"))
         return {"max": gext(v, float("-inf"), "amax"), "count": cnt}
-    if op in ("stddev", "stdvar"):
-        return {"sum": gsum(zeroed), "sumsq": gsum(zeroed * zeroed),
-                "count": cnt}
     raise ValueError(f"not a basic segment op: {op}")
 
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
-KERNELS = ("fusedgrid", "fusedhist", "streamprobe")
+KERNELS = ("fusedgrid", "fusedhist", "streamprobe", "segfold")
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -77,10 +77,11 @@ def test_resolve_partials_fetches_lazy_bundles():
 
 
 def test_stable_fold_sums_in_f64_whatever_the_row_order():
-    """The stable (index_add_) fold has no fixed row order on the card: it
-    sums in f64 and rounds once to the values' dtype, so an f32 group of
-    2^16 rows gives the correctly rounded sum in every row order (a
-    sequential f32 fold drifts by ~1e-4 of the sum there)."""
+    """The stable fold (ops/segfold.py: a CUDA kernel on the card,
+    index_add_ on the CPU, both in row order) sums in f64 and rounds once
+    to the values' dtype, so an f32 group of 2^16 rows gives the correctly
+    rounded sum in every row order (a sequential f32 fold drifts by ~1e-4
+    of the sum there)."""
     rng = np.random.default_rng(4)
     v = rng.uniform(0.5, 1.5, (1 << 16, 6)).astype(np.float32)
     gids = torch.zeros(1 << 16, dtype=torch.int32)

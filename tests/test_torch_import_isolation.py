@@ -40,7 +40,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for m in ("ops.fusedgrid", "ops.fusedresident", "ops.narrow",
               "ops.decodereg", "ops.gridfns", "ops.rangefns", "ops.kernels",
               "ops.windows", "ops.instantfns", "ops.binop",
-              "ops.aggregators", "core.chunkstore", "core.memstore",
+              "ops.aggregators", "ops.segfold", "core.chunkstore",
+              "core.memstore",
               "core.schemas", "query.exec", "query.engine", "query.planner",
               "query.logical", "query.rangevector", "parallel.distributed",
               "parallel.shardmapper", "utils.metrics", "utils.tracing",
@@ -58,7 +59,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "rules.publish", "rules.evaluator", "rules.alerts",
               "rules.scheduler", "rules.manager", "core.computed",
               "scripts", "scripts.downsample_validator",
-              "scripts.bench_suite", "stress",
+              "scripts.bench_suite", "scripts.segfold_variants", "stress",
               "stress._common", "stress.ingestion_stress",
               "stress.batch_ingestion", "stress.churn_stress",
               "stress.query_stress", "stress.streaming_stress",
