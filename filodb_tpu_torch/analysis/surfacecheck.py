@@ -58,7 +58,8 @@ surface, and these rules make drift impossible:
     (per-step value columns of wildly varying width) set this contract.
 
 In the port, tests/test_torch_diagnostics.py holds METRICS_SPEC and
-TRACE_SPEC to the reference's (less the plan cache's names), and
+TRACE_SPEC to the reference's (less the plan cache's names; TRACE_SPEC
+plus the port's own PORT_ONLY spans), and
 ``metrics_markdown_table``/``trace_markdown_table`` render them. When an
 analysis run's module set contains no spec (narrow ``--changed-only``
 scopes, fixture self-tests that define their own), the corresponding

@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.tracing import SPAN_QUERY_FETCH, span
 from . import decodereg, gridfns, kernels
 
 FUSED_FNS = {"rate", "increase", "delta"}
@@ -501,7 +502,10 @@ class PaddedPartials:
         return parts
 
     def resolve(self) -> dict:
-        return self.parts_of([o.cpu().numpy() for o in self._outs])
+        # the host waits here for K1 and everything queued ahead of it
+        with span(SPAN_QUERY_FETCH, site="k1_partials"):
+            outs = [o.cpu().numpy() for o in self._outs]
+        return self.parts_of(outs)
 
 
 def fused_grid_aggregate(op: str, fn: str, val, n, gids, num_groups: int,

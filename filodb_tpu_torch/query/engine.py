@@ -77,13 +77,15 @@ from ..utils.metrics import (FILODB_QUERY_LATENCY_MS,
                              FILODB_QUERY_RESULT_CACHE_MISSES,
                              FILODB_QUERY_SLOW, registry)
 from ..utils.tracing import (SPAN_QUERY, SPAN_QUERY_ADMIT, SPAN_QUERY_EXECUTE,
-                             SPAN_QUERY_FRAGMENT, SPAN_QUERY_PARSE,
+                             SPAN_QUERY_FETCH, SPAN_QUERY_FRAGMENT,
+                             SPAN_QUERY_LEAF, SPAN_QUERY_PARSE,
                              SPAN_QUERY_PLAN, span, tracer)
 from . import logical as L
 from .exec import (_SKETCH_BYTES_CAP, AggregateMapReduce, QueryContext,
                    SelectRawPartitionsExec, TopKPartial, _gather_rows_padded,
                    _group_ids_for, _pad_steps, _pow2, _present_topk,
-                   _segment_partial, check_sample_limit, group_keys_of)
+                   _segment_partial, check_sample_limit, group_keys_of,
+                   timed_hold)
 from .incremental import FragmentCache, plan_cacheable
 from .planner import QueryPlanner
 from .rangevector import (QueryError, QueryResult, QueryStats, RangeVectorKey,
@@ -1050,39 +1052,55 @@ class QueryEngine:
             start_ms=raw.range_selector.from_ms,
             end_ms=raw.range_selector.to_ms)
         pctx = dataclasses.replace(ctx, stats=QueryStats())
-        with sh.lock:
-            data = leaf.do_execute(pctx)
-            window = inner.window_ms
-            if (data.grid is None or data.bucket_les is None
-                    or (data.grid_minority is not None
-                        and len(data.grid_minority))
-                    or max(abs(int(out_ts[0]) - data.grid[0]),
-                           abs(int(out_ts[-1]) - data.grid[0]))
-                    + window >= 2**31):
-                return None          # cold, empty or churned: general path
-            out_eval, T = _pad_steps(out_ts)
-            R = data.n.shape[0]
-            gids, uniq, G = _group_ids_for(data.keys, data.rows, R,
-                                           agg.by, agg.without)
-            base_ts, interval_ms = data.grid
-            les = np.asarray(data.bucket_les, np.float64)
-            dev = data.n.device
-            path = "fused-hist"
-            if data.hist_narrow is not None:
-                out, path = self._hist_narrow(q, les, data, gids, G, fn,
-                                              out_eval, window, base_ts,
-                                              interval_ms, ctx)
-            else:
-                out = gridfns.fused_hist_quantile_grid(
-                    q, les, data.val, data.n, torch.from_numpy(gids).to(dev),
-                    _pow2(G), out_eval, window, fn, base_ts, interval_ms,
-                    stale_ms=ctx.stale_ms)
+        # the leaf as the general path records it: the lock's wait, the
+        # selection, the launches that read the store and the hold
+        with span(SPAN_QUERY_LEAF, shard=sh.shard_num) as leaf_tags, \
+                sh.lock, timed_hold(leaf_tags):
+            got = self._fused_hist_locked(q, agg, inner, fn, leaf, out_ts,
+                                          pctx, ctx)
+        if got is None:
+            return None              # cold, empty or churned: general path
+        out, path, G, T, uniq = got
         ctx.exec_path = path
         ctx.stats.merge(pctx.stats)
         # the blocking host copy runs outside the shard lock
-        m = ResultMatrix(out_ts, out[:G, :T].cpu().numpy(), list(uniq))
+        with span(SPAN_QUERY_FETCH, site="fused_hist"):
+            host = out[:G, :T].cpu().numpy()
+        m = ResultMatrix(out_ts, host, list(uniq))
         check_sample_limit(m.num_series, T, ctx.sample_limit)
         return QueryResult(m)
+
+    def _fused_hist_locked(self, q, agg, inner, fn, leaf, out_ts, pctx, ctx):
+        """The fused-hist route's selection and launches, under the shard
+        lock: (out [G', T'] on the device, exec path, G, T, group keys), or
+        None for a cold, empty or churned selection."""
+        data = leaf.select(pctx)
+        window = inner.window_ms
+        if (data.grid is None or data.bucket_les is None
+                or (data.grid_minority is not None
+                    and len(data.grid_minority))
+                or max(abs(int(out_ts[0]) - data.grid[0]),
+                       abs(int(out_ts[-1]) - data.grid[0]))
+                + window >= 2**31):
+            return None
+        out_eval, T = _pad_steps(out_ts)
+        R = data.n.shape[0]
+        gids, uniq, G = _group_ids_for(data.keys, data.rows, R,
+                                       agg.by, agg.without)
+        base_ts, interval_ms = data.grid
+        les = np.asarray(data.bucket_les, np.float64)
+        dev = data.n.device
+        path = "fused-hist"
+        if data.hist_narrow is not None:
+            out, path = self._hist_narrow(q, les, data, gids, G, fn,
+                                          out_eval, window, base_ts,
+                                          interval_ms, ctx)
+        else:
+            out = gridfns.fused_hist_quantile_grid(
+                q, les, data.val, data.n, torch.from_numpy(gids).to(dev),
+                _pow2(G), out_eval, window, fn, base_ts, interval_ms,
+                stale_ms=ctx.stale_ms)
+        return out, path, G, T, uniq
 
     @staticmethod
     def _hist_narrow(q, les, data, gids, G, fn, out_eval, window, base_ts,

@@ -49,7 +49,9 @@ bits, are the single node's.
 
 from __future__ import annotations
 
+import contextlib
 import re
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -59,8 +61,9 @@ from ..core.chunkstore import COHORT_GATE, TS_PAD, _Deferred
 from ..core.schemas import ColumnType
 from ..ops import (aggregators, binop, fusedgrid, fusedresident, gridfns,
                    instantfns, rangefns)
-from ..utils.tracing import (SPAN_QUERY_LEAF, SPAN_QUERY_ODP,
-                             SPAN_QUERY_REDUCE, span)
+from ..utils.tracing import (SPAN_QUERY_FETCH, SPAN_QUERY_LEAF,
+                             SPAN_QUERY_ODP, SPAN_QUERY_REDUCE,
+                             SPAN_QUERY_SELECT, span)
 from .rangevector import (QueryError, QueryResult, QueryStats,
                           RangeVectorKey, ResultMatrix, fmt_value, to_numpy)
 
@@ -248,6 +251,28 @@ def _tensor(values, device) -> torch.Tensor:
     if isinstance(values, torch.Tensor):
         return values
     return torch.from_numpy(np.ascontiguousarray(values)).to(device)
+
+
+@contextlib.contextmanager
+def timed_hold(tags: dict):
+    """Tag ``lock_held_us`` with how long the block runs. Entered first
+    thing inside a leaf's outer ``with shard.lock``, it times that hold
+    (the re-entrant acquisitions inside it are not timed apart)."""
+    t0 = time.perf_counter_ns()
+    try:
+        yield
+    finally:
+        tags["lock_held_us"] = (time.perf_counter_ns() - t0) // 1000
+
+
+def _fetch(site: str, values) -> np.ndarray:
+    """``to_numpy(values)``; a tensor's blocking copy to the host runs
+    under a ``query.exec.fetch`` span: there the host waits for every
+    kernel queued ahead of it on the card."""
+    if not isinstance(values, torch.Tensor):
+        return np.asarray(values)
+    with span(SPAN_QUERY_FETCH, site=site):
+        return to_numpy(values)
 
 
 @dataclass
@@ -789,9 +814,10 @@ def _map_topk(m: MatrixView, gids, uniq, G: int, k: int, bottom: bool,
                            stable=True).indices[:, :kk]          # [T, kk]
         top_ok = torch.gather(presence.T, 1, top_i)              # exact mask
         # ONE host copy for the three small arrays
-        host = torch.stack([torch.gather(vals.T, 1, top_i),
-                            top_i.to(torch.float64),
-                            top_ok.to(torch.float64)]).cpu().numpy()
+        host = _fetch("order_stats",
+                      torch.stack([torch.gather(vals.T, 1, top_i),
+                                   top_i.to(torch.float64),
+                                   top_ok.to(torch.float64)]))
         top_v, top_r, ok = host[0], host[1].astype(np.int64), host[2] > 0
         for t, s in zip(*np.nonzero(ok)):
             row = int(top_r[t, s])
@@ -1003,8 +1029,8 @@ class AggregatePresenter(Transformer):
         if isinstance(data, TopKPartial):
             return _present_topk(data)
         if isinstance(data, SketchPartial):
-            vals = aggregators.present_quantile_sketch(to_numpy(data.counts),
-                                                       data.q)
+            vals = aggregators.present_quantile_sketch(
+                _fetch("sketch", data.counts), data.q)
             return ResultMatrix(data.out_ts, vals, data.group_keys)
         if isinstance(data, CountValuesPartial):
             T = len(data.out_ts)
@@ -1155,7 +1181,9 @@ class ExecPlan:
         return data
 
     def run(self, ctx: QueryContext) -> QueryResult:
-        m = _as_matrix(self.execute(ctx)).to_host()
+        m = _as_matrix(self.execute(ctx))
+        m = ResultMatrix(m.out_ts, _fetch("result", m.values), m.keys,
+                         m.bucket_les)
         check_sample_limit(m.num_series, len(m.out_ts), ctx.sample_limit)
         return QueryResult(m)
 
@@ -1221,7 +1249,7 @@ class SelectRawPartitionsExec(ExecPlan):
     column: str = ""
 
     def execute(self, ctx: QueryContext):
-        with span(SPAN_QUERY_LEAF, shard=self.shard):
+        with span(SPAN_QUERY_LEAF, shard=self.shard) as leaf_tags:
             shard, _col = _shard_of_ctx(ctx, self.shard, self.column)
             if shard.recovering:
                 # partial data: the root's negative cache must know an
@@ -1237,8 +1265,8 @@ class SelectRawPartitionsExec(ExecPlan):
             # hold the shard lock across tensor capture AND the launches
             # that read the store: a concurrent flush mutates the store
             # tensors in place
-            with shard.lock:
-                data = self.do_execute(ctx)
+            with shard.lock, timed_hold(leaf_tags):
+                data = self.select(ctx)
                 if isinstance(data, (_WideODP, _NarrowODP)):
                     n_store = 0       # paged data is the leaf's own copy
                 else:
@@ -1350,6 +1378,16 @@ class SelectRawPartitionsExec(ExecPlan):
         with shard.lock:
             return _NarrowODP(pids, [shard.rv_key_of(int(p)) for p in pids],
                               shard.gather_resident_locked(pids, col))
+
+    def select(self, ctx):
+        """:meth:`do_execute` under a ``query.exec.select`` span: the index
+        lookup, the keys and the capture of the store's tensors. The
+        caller holds the shard lock."""
+        with span(SPAN_QUERY_SELECT, shard=self.shard) as tags:
+            data = self.do_execute(ctx)
+            tags["series"] = len(data.pids if isinstance(
+                data, (_WideODP, _NarrowODP)) else data.keys)
+            return data
 
     def do_execute(self, ctx) -> SeriesSelection:
         shard, col = _shard_of_ctx(ctx, self.shard, self.column)

@@ -266,7 +266,10 @@ class TimedRLock:
 
     Drop-in for ``threading.RLock()`` (context manager + acquire/release +
     _is_owned); stats are cheap enough to keep even when diagnostics are off,
-    the long-hold stack capture only happens when on.
+    the long-hold stack capture only happens when on. A thread inside a
+    sampled trace that finds the lock held records its wait as a
+    ``query.exec.lock_wait`` span; an uncontended acquisition reads no
+    clock for it.
 
     ``order_class`` names the lock's class in the global acquisition order
     (LOCK_ORDER). Under FILODB_LOCK_DEBUG=1 every acquisition checks the
@@ -334,7 +337,14 @@ class TimedRLock:
                 self.contentions += 1
             if not blocking:
                 return False
-            got = self._lock.acquire(True, timeout)
+            # deferred import: tracing is not a leaf module; only a wait
+            # pays for the lookup
+            from .tracing import SPAN_QUERY_LOCK_WAIT, tracer
+            if tracer.sampled():
+                with tracer.span(SPAN_QUERY_LOCK_WAIT, lock=self.name):
+                    got = self._lock.acquire(True, timeout)
+            else:
+                got = self._lock.acquire(True, timeout)
             if not got:
                 return False
         self._depth += 1

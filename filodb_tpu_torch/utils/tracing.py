@@ -7,10 +7,14 @@ retention routing, a query's cross-node dispatch and its peer-side
 serve, the ingest plane: the broker's publish, append and
 replication, the consumer's drain, the gateway's publish and the cluster's
 gossip, epoch lead, rejoin and rebalance, remote read and write, and a
-rule's evaluation): ``with span(SPAN_QUERY_EXECUTE, ...)`` records one span into a
-bounded ring, parented under the innermost open frame of the thread.
-Durations come from the monotonic clock; the wall clock is read once per
-span for its start timestamp.
+rule's evaluation, and inside a query's leaf the shard lock's wait, the
+index selection and the host's waits on the card): ``with
+span(SPAN_QUERY_EXECUTE, ...)`` records one span into a bounded ring,
+parented under the innermost open frame of the thread. A span's start and
+end come from one clock: the monotonic clock, offset by one wall-clock
+anchor taken when the module loads, so every span lies on the wall
+clock's timeline (where a profiler's device activities lie) and a span
+reads the clock once at each end.
 
 Context crosses threads and the wire as the reference's does:
 ``current_context()`` is the wire-able form of the innermost frame (the
@@ -38,6 +42,16 @@ from dataclasses import dataclass, field
 from .metrics import FILODB_SWALLOWED_ERRORS, FILODB_TRACE_SPANS, registry
 
 log = logging.getLogger("filodb_tpu_torch.tracing")
+
+# the wall clock's reading at perf_counter_ns() == 0: span times are
+# perf_counter_ns() plus this, in one clock for the process's lifetime
+_WALL_ANCHOR_NS = time.time_ns() - time.perf_counter_ns()
+
+
+def now_us() -> int:
+    """Now on the spans' clock (wall-clock microseconds)."""
+    return (_WALL_ANCHOR_NS + time.perf_counter_ns()) // 1000
+
 
 SPAN_QUERY = "query"
 SPAN_QUERY_PARSE = "query.parse"
@@ -85,14 +99,24 @@ SPAN_CLUSTER_GOSSIP = "cluster.gossip"
 SPAN_CLUSTER_LEAD = "cluster.epoch.lead"
 SPAN_CLUSTER_REJOIN = "cluster.rejoin"
 SPAN_CLUSTER_REBALANCE = "cluster.rebalance"
+# the port's own spans inside a query's leaf: the wait for a shard lock
+# another thread holds (tags: lock), the index selection and capture under
+# it (tags: shard, series), and the blocking device-to-host copies where
+# the host waits for the card's queue (tags: site)
+SPAN_QUERY_LOCK_WAIT = "query.exec.lock_wait"
+SPAN_QUERY_SELECT = "query.exec.select"
+SPAN_QUERY_FETCH = "query.exec.fetch"
 
 # The reference's TRACE_SPEC names this span too; it belongs to its
 # compiled-plan cache (query/plancache.py), which has no port.
 NOT_PORTED = ("query.compile",)
 
+# The port's spans that the reference has no twin of.
+PORT_ONLY = (SPAN_QUERY_LOCK_WAIT, SPAN_QUERY_SELECT, SPAN_QUERY_FETCH)
+
 # The declared span surface: every span name this process records is named
 # by one constant above and documented here (filolint's surface-check
-# family enforces it). Equal to the reference's, less NOT_PORTED.
+# family enforces it). The reference's, less NOT_PORTED, plus PORT_ONLY.
 TRACE_SPEC: dict[str, str] = {
     SPAN_QUERY: "Root span of one PromQL query (tags: dataset, promql).",
     SPAN_QUERY_PARSE: "PromQL text -> LogicalPlan.",
@@ -102,6 +126,12 @@ TRACE_SPEC: dict[str, str] = {
                         "path; tags: path).",
     SPAN_QUERY_LEAF: "One data-reading leaf under its shard lock "
                      "(tags: shard).",
+    SPAN_QUERY_LOCK_WAIT: "A thread's wait for a lock another thread "
+                          "holds, inside a sampled trace (tags: lock).",
+    SPAN_QUERY_SELECT: "A leaf's index selection and tensor capture under "
+                       "its shard lock (tags: shard, series).",
+    SPAN_QUERY_FETCH: "A blocking device-to-host copy on a query's path: "
+                      "the host waits for the card's queue (tags: site).",
     SPAN_QUERY_REDUCE: "Cross-shard reduce merge of child partials.",
     SPAN_QUERY_DISPATCH: "One cross-node /exec POST (tags: endpoint, "
                          "shards).",
@@ -221,6 +251,12 @@ class Tracer:
                 int.from_bytes(os.urandom(16), "little"))
         return f"{rng.getrandbits(64):016x}"
 
+    def sampled(self) -> bool:
+        """True when the calling thread is inside a sampled trace: a span
+        opened now records, and roots no trace of its own."""
+        st = getattr(self._local, "stack", None)
+        return bool(st) and st[-1][2]
+
     def current_context(self) -> dict | None:
         st = self._stack()
         if not st:
@@ -286,7 +322,6 @@ class Tracer:
         span_id = self._new_id() if sampled else "0"
         stack.append((trace_id, span_id, sampled))
         if sampled:
-            t0_wall_us = int(time.time() * 1e6)
             t0 = time.perf_counter_ns()
         try:
             yield tags
@@ -295,7 +330,7 @@ class Tracer:
             if sampled:
                 dur_us = (time.perf_counter_ns() - t0) // 1000
                 rec = SpanRecord(trace_id, span_id, parent_id, name,
-                                 t0_wall_us, int(dur_us), tags)
+                                 (_WALL_ANCHOR_NS + t0) // 1000, dur_us, tags)
                 with self._lock:
                     self._seq += 1
                     rec.seq = self._seq

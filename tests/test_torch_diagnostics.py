@@ -5,7 +5,8 @@ The same contention, long-hold and lock-order sequences run on both
 packages' ``TimedRLock`` and must leave equal counters and raise equal
 ``DiagnosticsError``s; the hold watchdog flags a wedged holder while it
 still holds; ``METRICS_SPEC`` and ``TRACE_SPEC`` are the reference's less
-the names of its compiled-plan cache (which has no port); and a scrape of
+the names of its compiled-plan cache (which has no port), ``TRACE_SPEC``
+plus the port's own spans inside a query's leaf; and a scrape of
 a two-shard CPU node carries the reference's per-shard series, the two
 lock gauges included.
 """
@@ -238,9 +239,17 @@ def test_metrics_spec_is_the_references_less_the_plan_cache():
 
 
 def test_trace_spec_is_the_references_less_the_plan_cache():
+    """The reference's spans less NOT_PORTED, each doc equal, plus exactly
+    the port's own (PORT_ONLY), which the reference does not name."""
     ref = {k: v for k, v in jtracing.TRACE_SPEC.items()
            if k not in tracing.NOT_PORTED}
-    assert tracing.TRACE_SPEC == ref
+    own = set(tracing.TRACE_SPEC) - set(ref)
+    assert own == set(tracing.PORT_ONLY)
+    assert len(tracing.PORT_ONLY) == len(own)
+    assert not own & set(jtracing.TRACE_SPEC)
+    assert {k: v for k, v in tracing.TRACE_SPEC.items()
+            if k not in own} == ref
+    assert all(tracing.TRACE_SPEC[k] for k in own)
     consts = {v for k, v in vars(tracing).items() if k.startswith("SPAN_")}
     assert consts == set(tracing.TRACE_SPEC)
 
