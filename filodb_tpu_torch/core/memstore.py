@@ -267,9 +267,15 @@ class TimeSeriesShard:
         # launches: a query captures the tensors AND launches under it
         self.lock = TimedRLock(f"shard-{shard_num}-lock", order_class="shard",
                                order_index=shard_num)
-        # per-slot release counters: lazily materialized query artifacts
-        # (LazyKeys) detect slot reuse for exactly their pids
+        # per-slot release counters: the flush requeue detects slot reuse
+        # for exactly its pids
         self.slot_epoch = np.zeros(config.max_series_per_shard, np.uint32)
+        # the ``_release_epoch`` of each slot's latest release (0: never
+        # released): a lazily materialized query artifact (LazyKeys) that
+        # captured the release epoch e0 fails for exactly the selected
+        # slots released since, ``slot_released_at[pids] > e0``
+        self.slot_released_at = np.zeros(config.max_series_per_shard,
+                                         np.uint64)
         self.bucket_les: np.ndarray | None = None
         if schema.is_histogram:
             # histogram stores are created lazily: the bucket scheme arrives
@@ -525,6 +531,7 @@ class TimeSeriesShard:
         pid_list = pids.tolist()
         self.slot_epoch[pids] += 1
         self._release_epoch += 1
+        self.slot_released_at[pids] = self._release_epoch
         # destructive: a released series held samples at any timestamp
         self._bump_epoch_locked(EPOCH_AFFECTS_ALL)
         if self.governor is not None:

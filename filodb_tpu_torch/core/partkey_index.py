@@ -579,13 +579,16 @@ class PartKeyIndex:
 
     def part_ids_from_filters(self, filters: list[Filter], start_time: int,
                               end_time: int, limit: int | None = None) -> np.ndarray:
-        """Part ids matching all filters and alive in [start_time, end_time]."""
+        """Part ids (int32) matching all filters and alive in [start_time,
+        end_time]. Where no series' lifetime cuts the window this is a
+        READ-ONLY view of the cached set, shared by every caller until the
+        index changes: a caller that writes takes its own copy."""
         ckey = tuple(filters)
         hit = self._filter_cache.get(ckey)
         if hit is not None and hit[0] == self._epoch:
             result = hit[1]
         else:
-            result = self._eval_filters(filters)
+            result = self._eval_filters(filters).astype(np.int32, copy=False)
             if len(self._filter_cache) > 512:
                 self._filter_cache.clear()
             self._filter_cache[ckey] = (self._epoch, result)
@@ -594,9 +597,14 @@ class PartKeyIndex:
             starts = self._start.view()[result]
             ends = self._end.view()[result]
             result = result[(starts <= end_time) & (ends >= start_time)]
+        else:
+            # a view of its own: the cached array may itself be a posting
+            # list the index still writes (``ids_of`` hands those out)
+            result = result.view()
+            result.setflags(write=False)
         if limit is not None:
             result = result[:limit]
-        return result.astype(np.int32)
+        return result
 
     def _eval_filters(self, filters: list[Filter]) -> np.ndarray:
         """Postings set algebra for a filter set (no time masking — results

@@ -61,6 +61,7 @@ from ..core.chunkstore import COHORT_GATE, TS_PAD, _Deferred
 from ..core.schemas import ColumnType
 from ..ops import (aggregators, binop, fusedgrid, fusedresident, gridfns,
                    instantfns, rangefns)
+from ..utils.metrics import FILODB_QUERY_SELECTION_RELEASE_RECHECKS, registry
 from ..utils.tracing import (SPAN_QUERY_FETCH, SPAN_QUERY_LEAF,
                              SPAN_QUERY_ODP, SPAN_QUERY_REDUCE,
                              SPAN_QUERY_SELECT, span)
@@ -507,17 +508,25 @@ class ScalarOperationMapper(Transformer):
 
 class LazyKeys:
     """Sequence of RangeVectorKeys materialized on first access: a 1M-series
-    sum() must not pay a Python loop over every series at the leaf. Per-slot
-    release epochs captured at leaf time detect a concurrent eviction
-    reusing a selected slot and fail the query instead of mislabeling."""
+    sum() must not pay a Python loop over every series at the leaf. The
+    shard's release epoch captured at leaf time detects a concurrent
+    eviction reusing a selected slot and fails the query instead of
+    mislabeling; the capture is O(1), and a key read looks at the selected
+    slots only when some release came after it."""
 
     def __init__(self, shard, pids):
         self._shard = shard
         self._pids = pids
-        self._epochs = shard.slot_epoch[pids].copy()
+        self._e0 = shard._release_epoch
 
     def _check(self):
-        if (self._shard.slot_epoch[self._pids] != self._epochs).any():
+        shard = self._shard
+        if shard._release_epoch == self._e0:
+            return
+        registry.counter(FILODB_QUERY_SELECTION_RELEASE_RECHECKS,
+                         {"dataset": shard.dataset,
+                          "shard": str(shard.shard_num)}).increment()
+        if (shard.slot_released_at[self._pids] > self._e0).any():
             raise QueryError("selection invalidated by concurrent partition "
                              "release (eviction/purge); retry the query")
 
@@ -546,8 +555,8 @@ class LazyKeys:
 
 
 def _keys_at(keys, idx) -> list:
-    """``[keys[i] for i in idx]``; a wide selection's LazyKeys checks its
-    2^20 release epochs once, not once a key."""
+    """``[keys[i] for i in idx]``; a wide selection's LazyKeys takes its
+    lock and its release check once, not once a key."""
     if isinstance(keys, LazyKeys):
         return keys.take(idx)
     return [keys[i] for i in idx]
@@ -1507,8 +1516,9 @@ class SelectRawPartitionsExec(ExecPlan):
         ctx.stats.add("blocks_narrow"
                       if narrow is not None or hist_narrow is not None
                       else "blocks_raw")
-        return SeriesSelection(ts, val, n_eff, keys, pids.astype(np.int32),
-                               grid, g_min, bucket_les=les, narrow=narrow,
+        return SeriesSelection(ts, val, n_eff, keys,
+                               pids.astype(np.int32, copy=False), grid,
+                               g_min, bucket_les=les, narrow=narrow,
                                hist_narrow=hist_narrow)
 
 

@@ -165,6 +165,15 @@ FILODB_SHARD_LOCK_CONTENTIONS = "filodb_shard_lock_contentions"
 FILODB_SHARD_LOCK_LONG_HOLDS = "filodb_shard_lock_long_holds"
 FILODB_LOCK_HOLD_MS = "filodb_lock_hold_ms"
 
+# counter: key reads of a wide selection (query/exec.py::LazyKeys) that
+# found partition releases since the leaf's capture and so checked the
+# selected slots one by one (tagged dataset/shard)
+FILODB_QUERY_SELECTION_RELEASE_RECHECKS = \
+    "filodb_query_selection_release_rechecks"
+
+# The port's metrics that the reference has no twin of.
+PORT_ONLY = (FILODB_QUERY_SELECTION_RELEASE_RECHECKS,)
+
 # The reference's METRICS_SPEC names these too; they belong to its
 # compiled-plan cache (query/plancache.py), which has no port.
 NOT_PORTED = ("filodb_query_compile_cache_hits",
@@ -174,7 +183,7 @@ NOT_PORTED = ("filodb_query_compile_cache_hits",
 # The declared metric surface: every ``filodb_*`` series this process
 # exports is named by one constant above and documented here (filolint's
 # surface-check family enforces it; a ``*`` suffix declares a dynamic
-# family). Equal to the reference's, less NOT_PORTED.
+# family). The reference's, less NOT_PORTED, plus PORT_ONLY.
 METRICS_SPEC: dict[str, tuple[str, str]] = {
     FILODB_INGESTED_ROWS: (
         "counter", "Rows ingested per dataset/shard by the bus consumers."),
@@ -284,6 +293,11 @@ METRICS_SPEC: dict[str, tuple[str, str]] = {
         "counter", "Mesh-eligible queries that fell back to the host "
                    "scatter-gather path after eligibility, tagged by reason "
                    "(paging / order_stat_caps / topk_caps)."),
+    FILODB_QUERY_SELECTION_RELEASE_RECHECKS: (
+        "counter", "Key reads of a wide selection that found partition "
+                   "releases since the leaf captured it and checked the "
+                   "selected slots one by one (0 while nothing is "
+                   "evicted or purged)."),
     FILODB_QUERY_NEGATIVE_CACHE_HITS: (
         "counter", "Range queries answered from the TTL-bounded negative "
                    "result cache: a recent execution proved the selection "

@@ -224,10 +224,16 @@ def test_not_ported_names_are_the_plan_caches():
 
 
 def test_metrics_spec_is_the_references_less_the_plan_cache():
+    """The reference's metrics less NOT_PORTED, plus exactly the port's
+    own (PORT_ONLY), which the reference does not name."""
     ref = {k: v for k, v in jmetrics.METRICS_SPEC.items()
            if k not in metrics.NOT_PORTED}
-    assert {k: v[0] for k, v in metrics.METRICS_SPEC.items()} \
-        == {k: v[0] for k, v in ref.items()}
+    own = set(metrics.METRICS_SPEC) - set(ref)
+    assert own == set(metrics.PORT_ONLY)
+    assert not own & set(jmetrics.METRICS_SPEC)
+    assert all(metrics.METRICS_SPEC[k][1] for k in own)
+    assert {k: v[0] for k, v in metrics.METRICS_SPEC.items()
+            if k not in own} == {k: v[0] for k, v in ref.items()}
     # the docs are the reference's, but for the two that name the
     # backend: the port's tags say cuda/plain and eager
     differ = {k for k in ref if metrics.METRICS_SPEC[k][1] != ref[k][1]}
